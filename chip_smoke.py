@@ -6,18 +6,25 @@
 Phases (any failure exits non-zero, and the result line is then not
 printed):
 1. The card's name and power limit, torch and CUDA versions.
-2. Build the fused ADMM segment kernels from ``porqua_tpu_torch/csrc``.
+2. Build the fused ADMM segment kernels from ``porqua_tpu_torch/csrc``
+   (both sources at once, one nvcc each) and print ptxas' registers,
+   shared memory and spills of the cluster kernel.
 3. Each kernel form against its plain PyTorch twin on the card, on the
    first segment's operator and state of the port's own pipeline for
    the 252-date x 500-asset f32 batch (seed 42): errors, kernel and
    plain times (CUDA events, median of 10 after warm-up) and the
-   roofline bound of the same work.
+   roofline bound of the same work. The factored segment has two
+   kernels, the 8-block cluster form and the streaming form; both run
+   on the same inputs, timed in turns (stream, cluster, cluster,
+   stream), beside the device-memory bytes each design moves.
 4. The main path: ``tracking_step`` on that batch with
    ``backend="pallas"`` for every config of the JAX golden
    (``porqua_tpu_torch/testdata/tracking_golden.npz``), with the launch
-   counters set to 0 before each run and read after it; status and
-   iterations must equal the golden on every date, weights within
-   |dw| <= 1e-4 and the median tracking error within 1e-4 relative.
+   counters set to 0 before each run and read after it (the woodbury
+   configs must go through the cluster form and never the streaming
+   one); status and iterations must equal the golden on every date,
+   weights within |dw| <= 1e-4 and the median tracking error within
+   1e-4 relative.
    The same solves on the plain path (``backend="xla"``) are timed
    beside it, and one headline run is profiled (device time by kernel).
 5. One JSON line per kernel, then the card line, then the result line.
@@ -75,6 +82,11 @@ def card_line():
 
 def cuda_ms(fn, warmup, reps):
     """Median of ``reps`` single-call times (CUDA events) after warm-up."""
+    return statistics.median(cuda_times(fn, warmup, reps))
+
+
+def cuda_times(fn, warmup, reps):
+    """``reps`` single-call times in ms (CUDA events) after warm-up."""
     import torch
 
     for _ in range(warmup):
@@ -88,7 +100,7 @@ def cuda_ms(fn, warmup, reps):
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    return times
 
 
 def work(name, args, kw):
@@ -119,6 +131,56 @@ def work(name, args, kw):
     return B * kw["n_iters"] * per_iter, nbytes
 
 
+def traffic(name, args, kw):
+    """Device-memory bytes a kernel design moves per launch, from its
+    access pattern: the streaming forms read their operator on every
+    iteration (W twice, V twice more per refinement round, L^-1's lower
+    triangle twice, K^-1 once); the cluster form reads each input once.
+    All write each output once."""
+    once = work(name, args, kw)[1]
+    if "_cluster" in name:
+        return once
+    op = args[0]
+    if name.startswith("admm_segment_factored"):
+        r = kw["refine_steps"]
+        per_iter = (2 + 4 * r) * op.numel() * 4
+        counted = op.numel() * 4 * (1 + (r > 0))     # W (and V) once
+        return once + kw["n_iters"] * per_iter - counted
+    B, n, _ = op.shape
+    op_bytes = (B * n * (n + 1) // 2 * 4 if kw["triangular"]
+                else op.numel() * 4)
+    reads = 2 if kw["triangular"] else 1
+    return once + (reads * kw["n_iters"] - 1) * op_bytes
+
+
+def ptxas_lines(log):
+    """ptxas' lines on registers, shared memory and spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def check_twin(out_k, out_p, out_64, kw):
+    """The kernel against its plain twin by the rule above; returns
+    (passed, max |kernel - plain|, max relative)."""
+    import torch
+
+    errs, rels, ok = [], [], True
+    floor = ULPS_PER_ITER * kw["n_iters"] * F32_EPS
+    for i, (a, b, c) in enumerate(zip(out_k, out_p, out_64)):
+        scale = float(out_64[SCALE_OF[i]].abs().max())
+        err = float((a - b).abs().max())
+        e_k = float((a.double() - c).abs().max())
+        e_p = float((b.double() - c).abs().max())
+        ok &= bool(torch.isfinite(a).all()) and (
+            e_k <= KERNEL_VS_PLAIN * e_p + floor * scale)
+        errs.append(err)
+        rels.append(err / scale if scale > 0 else err)
+        print(f"  {OUT_NAMES[i]:>3}: |kernel-plain| {err:.3e}  "
+              f"|kernel-f64| {e_k:.3e}  |plain-f64| {e_p:.3e}  "
+              f"scale {scale:.3e}")
+    return ok, max(errs), max(rels), floor
+
+
 def main():
     import torch
 
@@ -141,11 +203,18 @@ def main():
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    admm_kernel._library()
-    info = _build.build_info["admm_segment"]
-    print(f"build: admm_segment.cu in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {info['seconds']:.1f} s)\n{info['log'].strip()}",
-          flush=True)
+    libs = (admm_kernel._LIB, admm_kernel._CLUSTER_LIB)
+    _build.build(*libs)
+    for lib in libs:
+        admm_kernel._library(lib)
+    print(f"build: {', '.join(lib + '.cu' for lib in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libs:
+        info = _build.build_info[lib]
+        print(f"build {lib}.cu: nvcc {info['seconds']:.1f} s\n"
+              f"{info['log'].strip()}", flush=True)
+    for ln in ptxas_lines(_build.build_info[admm_kernel._CLUSTER_LIB]["log"]):
+        print(f"ptxas [cluster kernel]: {ln}", flush=True)
 
     golden = np.load(os.path.join(os.path.dirname(pt.__file__), "testdata",
                                   "tracking_golden.npz"))
@@ -161,12 +230,21 @@ def main():
         p = json.loads(str(golden[f"{name}/params"]))
         p["backend"] = "pallas"
         params[name] = pt.SolverParams(**p)
-    kernel_name = {
-        "woodbury": "admm_segment_factored[refine=0]",
-        "woodbury_refine1": "admm_segment_factored[refine=1]",
-        "trinv": "admm_segment[triangular]",
-        "inverse": "admm_segment[inverse]",
-    }
+    # Kernel rows: (config, form); form None for the dense kernels.
+    kernel_rows = [("woodbury", "cluster"), ("woodbury_refine1", "cluster"),
+                   ("woodbury", "stream"), ("woodbury_refine1", "stream"),
+                   ("trinv", None), ("inverse", None)]
+
+    def row_name(name, form):
+        if form is None:
+            return {"trinv": "admm_segment[triangular]",
+                    "inverse": "admm_segment[inverse]"}[name]
+        refine = params[name].woodbury_refine
+        return f"admm_segment_factored_{form}[refine={refine}]"
+
+    source = {"cluster": "porqua_tpu_torch/csrc/admm_segment_cluster.cu",
+              "stream": "porqua_tpu_torch/csrc/admm_segment.cu",
+              None: "porqua_tpu_torch/csrc/admm_segment.cu"}
     plain = {admm_kernel.admm_segment: admm_kernel.admm_segment_ref,
              admm_kernel.admm_segment_factored:
                  admm_kernel.admm_segment_factored_ref}
@@ -180,59 +258,94 @@ def main():
         scaled = _prepare_impl(qp, prm)[0]
         carry = admm_init(scaled, prm)
         fn, args, kw = segment_kernel_call(carry, scaled, prm)
-        out_k = fn(*args, **kw)
         out_p = plain[fn](*args, **kw)
         # The function's answer on these inputs, to f32 rounding.
         out_64 = plain[fn](*(a.double() for a in args), **kw)
-        torch.cuda.synchronize()
-        errs, rels, ok = [], [], True
-        floor = ULPS_PER_ITER * kw["n_iters"] * F32_EPS
-        for i, (a, b, c) in enumerate(zip(out_k, out_p, out_64)):
-            scale = float(out_64[SCALE_OF[i]].abs().max())
-            err = float((a - b).abs().max())
-            e_k = float((a.double() - c).abs().max())
-            e_p = float((b.double() - c).abs().max())
-            ok &= bool(torch.isfinite(a).all()) and (
-                e_k <= KERNEL_VS_PLAIN * e_p + floor * scale)
-            errs.append(err)
-            rels.append(err / scale if scale > 0 else err)
-            print(f"  {OUT_NAMES[i]:>3}: |kernel-plain| {err:.3e}  "
-                  f"|kernel-f64| {e_k:.3e}  |plain-f64| {e_p:.3e}  "
-                  f"scale {scale:.3e}")
-        ms = cuda_ms(lambda: fn(*args, **kw), 2, 10)
         plain_ms = cuda_ms(lambda: plain[fn](*args, **kw), 1, 5)
-        flops, nbytes = work(kernel_name[name], args, kw)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-        rows[name] = {
-            "name": kernel_name[name],
-            "route": "cuda",
-            "source": "porqua_tpu_torch/csrc/admm_segment.cu",
-            "replaces": ("porqua_tpu/ops/admm_kernel.py:340"
-                         if name.startswith("woodbury")
-                         else "porqua_tpu/ops/admm_kernel.py:251"),
-            "launches": 0,
-            "max_abs_err": max(errs),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        }
-        print(f"kernel {kernel_name[name]}: B={args[-1].shape[0]} "
-              f"n_iters={kw['n_iters']} max_abs_err={max(errs):.3e} "
-              f"max_rel_err={max(rels):.3e} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
-              f"({rows[name]['bound_by']}; {flops:.4g} flop, {nbytes:.4g} B)",
-              flush=True)
-        check(ok, f"{kernel_name[name]} agrees with its plain twin: per "
-              f"output |kernel-f64| <= {KERNEL_VS_PLAIN:g} |plain-f64| + "
-              f"{floor:.3g} scale")
+        if fn is admm_kernel.admm_segment_factored:
+            forms = ("stream", "cluster")
+            launch = {f: (lambda kw=kw, f=f: admm_kernel.
+                          _admm_segment_factored_form(f, *args, **kw))
+                      for f in forms}
+        else:
+            forms = (None,)
+            launch = {None: lambda: fn(*args, **kw)}
+        for form in forms:
+            out_k = launch[form]()
+            torch.cuda.synchronize()
+            rname = row_name(name, form)
+            print(f"kernel {rname} against its plain twin:", flush=True)
+            ok, err, rel, floor = check_twin(out_k, out_p, out_64, kw)
+            flops, nbytes = work(rname, args, kw)
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+            rows[(name, form)] = {
+                "name": rname,
+                "route": "cuda",
+                "source": source[form],
+                "replaces": ("porqua_tpu/ops/admm_kernel.py:340"
+                             if name.startswith("woodbury")
+                             else "porqua_tpu/ops/admm_kernel.py:251"),
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": None,
+                "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None,
+            }
+            print(f"  B={args[-1].shape[0]} n_iters={kw['n_iters']} "
+                  f"max_abs_err={err:.3e} max_rel_err={rel:.3e}; bound "
+                  f"{rows[(name, form)]['bound_ms']:.4f} ms "
+                  f"({rows[(name, form)]['bound_by']}; {flops:.4g} flop, "
+                  f"{nbytes:.4g} B)", flush=True)
+            check(ok, f"{rname} agrees with its plain twin: per output "
+                  f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} |plain-f64| + "
+                  f"{floor:.3g} scale")
+        # Times in turns: each form first and last in turn (stream,
+        # cluster, cluster, stream), median of all its single launches.
+        turns = forms + forms[::-1]
+        samples = {f: [] for f in forms}
+        for f in turns:
+            samples[f] += cuda_times(launch[f], 2, 10)
+        for form in forms:
+            row = rows[(name, form)]
+            row["ms"] = statistics.median(samples[form])
+            moved = traffic(row["name"], args, kw)
+            print(f"time {row['name']}: kernel {row['ms']:.4f} ms "
+                  f"(turn medians "
+                  f"{statistics.median(samples[form][:10]):.4f}, "
+                  f"{statistics.median(samples[form][10:]):.4f}), plain "
+                  f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms; "
+                  f"design moves {moved / 1e9:.4f} GB per launch "
+                  f"({moved / row['ms'] / 1e9:.1f} TB/s)", flush=True)
+            if form == "cluster":
+                lib = admm_kernel._library(admm_kernel._CLUSTER_LIB)
+                B, k, n = args[0].shape
+                shape = (n, args[6].shape[-2], k, kw["refine_steps"])
+                print(f"  {row['name']}: "
+                      f"{lib.porqua_admm_cluster_smem_bytes(*shape)} B of "
+                      f"shared memory per block; "
+                      f"{lib.porqua_admm_cluster_max_active(*shape)} "
+                      f"clusters resident at once for {B} problems",
+                      flush=True)
+            if form:
+                # Set-up (operator load) against the iterations: the
+                # same launch with one iteration.
+                one = cuda_ms(lambda: launch[form](dict(kw, n_iters=1)),
+                              2, 10)
+                per_iter = (row["ms"] - one) / (kw["n_iters"] - 1)
+                print(f"  {row['name']}: 1 iteration {one:.4f} ms; "
+                      f"{per_iter * 1e3:.2f} us per further iteration "
+                      f"for the batch", flush=True)
 
     # -- 4. the main path ------------------------------------------------
-    wrapper = {"woodbury": admm_kernel.admm_segment_factored,
-               "woodbury_refine1": admm_kernel.admm_segment_factored,
-               "trinv": admm_kernel.admm_segment,
-               "inverse": admm_kernel.admm_segment}
+    factored = admm_kernel.admm_segment_factored
+
+    def reset_counts():
+        admm_kernel.admm_segment.launches = 0
+        factored.launches = 0
+        factored.cluster_launches = 0
+        factored.stream_launches = 0
 
     def timed(prm):
         torch.cuda.synchronize()
@@ -245,12 +358,16 @@ def main():
         prm = params[name]
         times = []
         for _ in range(2):   # the first run includes the library warm-up
-            admm_kernel.admm_segment.launches = 0
-            admm_kernel.admm_segment_factored.launches = 0
+            reset_counts()
             res, ms = timed(prm)
-            launches = wrapper[name].launches
+            if name.startswith("woodbury"):
+                launches = {"cluster": factored.cluster_launches,
+                            "stream": factored.stream_launches}
+            else:
+                launches = {None: admm_kernel.admm_segment.launches}
             times.append(ms)
-        rows[name]["launches"] = launches
+        for form, count in launches.items():
+            rows[(name, form)]["launches"] = count
         # The same solve on the plain per-iteration path, for comparison.
         plain_prm = dataclasses.replace(prm, backend="xla")
         plain_ms = min(timed(plain_prm)[1] for _ in range(2))
@@ -270,8 +387,12 @@ def main():
               f"{sorted(set(iters.tolist()))}; median TE "
               f"{float(np.median(te)):.6e}; max|dw| vs golden {dw:.3e}; "
               f"TE rel diff {te_rel:.3e}", flush=True)
-        check(launches > 0, f"[{name}] the main path launched "
-              f"{kernel_name[name]}")
+        on_path = "cluster" if name.startswith("woodbury") else None
+        check(launches[on_path] > 0, f"[{name}] the main path launched "
+              f"{row_name(name, on_path)}")
+        if name.startswith("woodbury"):
+            check(launches["stream"] == 0, f"[{name}] the main path never "
+                  f"launched {row_name(name, 'stream')}")
         check(bool(np.isfinite(w).all()) and w.shape == g_w.shape,
               f"[{name}] weights finite, shape {w.shape}")
         check(np.array_equal(status, golden[f"{name}/status"]),
@@ -302,7 +423,7 @@ def main():
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [rows[n] for n in names]}))
+    print(json.dumps({"kernels": [rows[r] for r in kernel_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. The build runs on first use, never at import,
 into ``build/porqua_tpu_torch/`` beside the package; the library's
 file name carries a hash of its source, so an edited source is rebuilt
-and an unchanged one is loaded as it is.
+and an unchanged one is loaded as it is. :func:`build` compiles several
+sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded: dict = {}
 # name -> {"seconds": build time (0 when a built library was reused),
-#          "log": the compiler's output, with ptxas' registers and spills}
+#          "log": the compiler's output, with ptxas' registers and spills,
+#                 kept beside the library and read back on reuse}
 build_info: dict = {}
 
 
@@ -45,33 +47,50 @@ def _nvcc() -> str:
     return path
 
 
-def _build(name: str) -> Path:
+def _lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(*names: str) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` that are not built yet:
+    one ``nvcc`` for each source, all started together, all waited for."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        build_info[name] = {"seconds": 0.0, "log": "reused " + lib.name}
-        return lib
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name} "
-                           f"(exit {out.returncode}):\n{out.stdout}")
-    # Atomic rename: a concurrent build of the same source either
-    # finds the finished library or writes its own identical copy.
-    os.replace(tmp, lib)
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": out.stdout}
-    return lib
+    running = []
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            # Keep what this process's own build recorded, if it made one.
+            log = lib.with_suffix(".log")
+            build_info.setdefault(name, {"seconds": 0.0, "log": (
+                log.read_text() if log.exists() else "reused " + lib.name)})
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, lib, tmp, proc, t0 in running:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        # Atomic rename: a concurrent build of the same source either
+        # finds the finished library or writes its own identical copy.
+        os.replace(tmp, lib)
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(_build(name)))
+            build(name)
+            _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
         return _loaded[name]

@@ -10,28 +10,35 @@ refinement). Each runs ``n_iters`` OSQP iterations for every problem of
 a batch in one launch and returns ``(x, z, w, y, mu, dx, dy, dmu)``:
 the final state and the increments between the last two iterates.
 
-What bounds them on the card: each iteration streams the operator
-(L^-1's lower half twice, K^-1 once, W twice; V twice more per
-refinement round) from device memory: at the 252 x 500 batch that is
-hundreds of MB per iteration, so the kernels are bound by device
-memory bandwidth, far above the roofline bound of the same work with
-the operator read once. The design keeps everything else (the state
-vectors, C, Y0, Ginv, every temporary) in shared memory for the whole
-segment, so the only device-memory traffic inside the loop is the
-operator, and the whole segment is one launch instead of a few dozen
-per iteration. Holding the operator on chip (a thread-block cluster
-with distributed shared memory) is the next step.
+Two designs, two sources:
 
-Source: ``porqua_tpu_torch/csrc/admm_segment.cu``, built by
-:mod:`porqua_tpu_torch.ops._build` on first use.
+- ``csrc/admm_segment.cu``, the streaming form: one block per problem,
+  everything but the operator in shared memory, the operator (L^-1's
+  lower half twice, K^-1 once, W twice; V twice more per refinement
+  round) streamed from device memory on every iteration. It is bound by
+  device-memory bandwidth. The dense forms use it, and so does the
+  factored form where the cluster form does not fit.
+- ``csrc/admm_segment_cluster.cu``, the factored form on a cluster of
+  8 blocks per problem: the columns of W (and V) are split across the
+  blocks' shared memory, read from device memory once per launch, and
+  the three reductions of an iteration go through distributed shared
+  memory.
 
-The wrappers take the plain twin only for tensors on the CPU; for CUDA
-tensors they launch the kernel or raise. Each wrapper counts its
-launches in a plain int attribute, ``launches``.
+:func:`factored_form` chooses between the two factored kernels by shape,
+before the launch: the cluster form where its shared memory fits a
+block and the card can hold such a cluster, else the streaming form
+where that fits, else it raises.
+
+Both are built by :mod:`porqua_tpu_torch.ops._build` on first use. The
+wrappers take the plain twin only for tensors on the CPU; for CUDA
+tensors they launch a kernel or raise. Each wrapper counts its launches
+in a plain int attribute, ``launches``; the factored wrapper also counts
+each form's own (``cluster_launches``, ``stream_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -41,6 +48,7 @@ from porqua_tpu_torch.qp.admm import (_make_iteration, _mv, _vm,
                                       factored_solve_from_pieces)
 
 _LIB = "admm_segment"
+_CLUSTER_LIB = "admm_segment_cluster"
 
 
 # --------------------------------------------------------------------------
@@ -99,27 +107,40 @@ def admm_segment_factored_ref(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb,
 # Wrappers
 # --------------------------------------------------------------------------
 
+_FACTORED_ARGS = [ctypes.c_void_p] * 29 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
 _SIGNATURES = {
-    "porqua_admm_segment_dense": [ctypes.c_void_p] * 24 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p],
-    "porqua_admm_segment_factored": [ctypes.c_void_p] * 29 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p],
-    "porqua_admm_segment_smem_bytes": [ctypes.c_int] * 4,
-    "porqua_max_smem_optin": [],
-    "porqua_cuda_error_string": [ctypes.c_int],
+    _LIB: {
+        "porqua_admm_segment_dense": [ctypes.c_void_p] * 24 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p],
+        "porqua_admm_segment_factored": _FACTORED_ARGS,
+        "porqua_admm_segment_smem_bytes": [ctypes.c_int] * 4,
+        "porqua_max_smem_optin": [],
+        "porqua_cuda_error_string": [ctypes.c_int],
+    },
+    _CLUSTER_LIB: {
+        "porqua_admm_segment_factored_cluster": _FACTORED_ARGS,
+        "porqua_admm_cluster_smem_bytes": [ctypes.c_int] * 4,
+        "porqua_admm_cluster_max_active": [ctypes.c_int] * 4,
+    },
+}
+# form -> (library, launcher)
+_FACTORED_LAUNCHER = {
+    "cluster": (_CLUSTER_LIB, "porqua_admm_segment_factored_cluster"),
+    "stream": (_LIB, "porqua_admm_segment_factored"),
 }
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.library(_LIB)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def _library(name: str = _LIB) -> ctypes.CDLL:
+    lib = _build.library(name)
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
-        fn.restype = (ctypes.c_char_p if name == "porqua_cuda_error_string"
+        fn.restype = (ctypes.c_char_p if fn_name.endswith("error_string")
                       else ctypes.c_int)
     return lib
 
@@ -144,22 +165,29 @@ def _check(tensors, shapes):
         raise ValueError(f"no fused segment for device {ref.device}")
 
 
-def _launch(lib, fn_name, inputs, outs, ints, sigma, alpha, flag, factored,
-            n, m, k):
-    need = lib.porqua_admm_segment_smem_bytes(int(factored), n, m, k)
-    limit = lib.porqua_max_smem_optin()
-    if need > limit:
-        raise ValueError(
-            f"fused segment needs {need} bytes of shared memory per block "
-            f"(n={n}, m={m}, k={k}); the card allows {limit}")
+@contextlib.contextmanager
+def _on_card(device):
+    """Make ``device`` current; yields its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def _cuda_error(code: int) -> str:
+    text = _library().porqua_cuda_error_string(code).decode()
+    return f"CUDA error {code} ({text})"
+
+
+def _launch(lib, fn_name, stream, inputs, outs, ints, sigma, alpha, flag):
     ptrs = [t.data_ptr() for t in inputs + outs]
-    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
-    with torch.cuda.device(inputs[0].device):
-        rc = getattr(lib, fn_name)(*ptrs, *ints, sigma, alpha, 1.0 - alpha,
-                                   flag, stream)
+    rc = getattr(lib, fn_name)(*ptrs, *ints, sigma, alpha, 1.0 - alpha, flag,
+                               stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} "
-                           f"({lib.porqua_cuda_error_string(rc).decode()})")
+        raise RuntimeError(f"{fn_name} launch failed: {_cuda_error(rc)}")
+
+
+def _smem_refusal(form, need, limit, n, m, k):
+    return (f"the {form} fused segment needs {need} bytes of shared memory "
+            f"per block (n={n}, m={m}, k={k}); the card allows {limit}")
 
 
 def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
@@ -183,9 +211,13 @@ def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
                                 n_iters=n_iters, triangular=triangular)
     lib = _library()
     outs = [torch.empty_like(t) for t in (x, z, w, y, mu, x, y, mu)]
-    _launch(lib, "porqua_admm_segment_dense", inputs, outs,
-            (B, n, m, n_iters), sigma, alpha, int(triangular),
-            False, n, m, 0)
+    with _on_card(x.device) as stream:
+        need = lib.porqua_admm_segment_smem_bytes(0, n, m, 0)
+        limit = lib.porqua_max_smem_optin()
+        if need > limit:
+            raise ValueError(_smem_refusal("dense", need, limit, n, m, 0))
+        _launch(lib, "porqua_admm_segment_dense", stream, inputs, outs,
+                (B, n, m, n_iters), sigma, alpha, int(triangular))
     admm_segment.launches += 1
     return tuple(outs)
 
@@ -193,15 +225,34 @@ def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
 admm_segment.launches = 0
 
 
-def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
-                          rho, rho_b, l1w, l1c, x, z, w, y, mu, *,
-                          sigma: float, alpha: float, n_iters: int,
-                          refine_steps: int = 0):
-    """Run ``n_iters`` fused ADMM iterations on a batch of scaled
-    problems with the factored (capacitance/Woodbury) operator: ``W``
-    and ``V`` (B, k, n), ``inv_d`` and ``Dv`` (B, n), ``Y0`` (B, n, m),
-    ``Ginv`` (B, m, m). ``V``/``Dv`` are read only when
-    ``refine_steps > 0``. Returns ``(x, z, w, y, mu, dx, dy, dmu)``."""
+def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:
+    """Which hand-written kernel runs a factored segment of this shape
+    on the current card: ``"cluster"`` where one problem's column slices
+    fit the shared memory of a block and the card can hold such an
+    8-block cluster, else ``"stream"`` where the streaming form's state
+    fits one block. Raises ValueError where neither fits."""
+    stream_lib = _library(_LIB)
+    cluster_lib = _library(_CLUSTER_LIB)
+    limit = stream_lib.porqua_max_smem_optin()
+    need = cluster_lib.porqua_admm_cluster_smem_bytes(n, m, k, refine_steps)
+    if need <= limit:
+        active = cluster_lib.porqua_admm_cluster_max_active(n, m, k,
+                                                            refine_steps)
+        if active < 0:
+            raise RuntimeError("cluster occupancy query failed: "
+                               f"{_cuda_error(-active)}")
+        if active > 0:
+            return "cluster"
+    need_s = stream_lib.porqua_admm_segment_smem_bytes(1, n, m, k)
+    if need_s <= limit:
+        return "stream"
+    raise ValueError(_smem_refusal("factored", min(need, need_s), limit,
+                                   n, m, k))
+
+
+def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
+                     rho_b, l1w, l1c, x, z, w, y, mu, n_iters, refine_steps):
+    """Validate a factored call; returns its inputs as a list."""
     B, n = x.shape
     m = z.shape[-1]
     k = W.shape[-2]
@@ -213,17 +264,67 @@ def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
     _check(inputs, [(B, k, n), vn, (B, n, m), (B, m, m), (B, k, n), vn,
                     (B, m, n), vn, vm, vm, vn, vn, vm, vn, vn, vn, vn, vm,
                     vn, vm, vn])
-    if x.device.type == "cpu":
-        return admm_segment_factored_ref(
-            *inputs, sigma=sigma, alpha=alpha, n_iters=n_iters,
-            refine_steps=refine_steps)
-    lib = _library()
-    outs = [torch.empty_like(t) for t in (x, z, w, y, mu, x, y, mu)]
-    _launch(lib, "porqua_admm_segment_factored", inputs, outs,
-            (B, n, m, k, n_iters), sigma, alpha, int(refine_steps),
-            True, n, m, k)
-    admm_segment_factored.launches += 1
+    return inputs
+
+
+def _factored_on_card(form, inputs, *, sigma, alpha, n_iters, refine_steps):
+    """Launch one factored kernel on validated inputs: the one ``form``
+    names, or with ``form=None`` the one :func:`factored_form` picks."""
+    W, x, z = inputs[0], inputs[16], inputs[17]
+    (B, n), m, k = x.shape, z.shape[-1], W.shape[-2]
+    # x z w y mu, then the increments dx dy dmu
+    outs = [torch.empty_like(inputs[i])
+            for i in (16, 17, 18, 19, 20, 16, 19, 20)]
+    with _on_card(x.device) as stream:
+        if form is None:
+            form = factored_form(n, m, k, refine_steps)
+        lib_name, fn_name = _FACTORED_LAUNCHER[form]
+        _launch(_library(lib_name), fn_name, stream, inputs, outs,
+                (B, n, m, k, n_iters), sigma, alpha, int(refine_steps))
+    counts = admm_segment_factored
+    counts.launches += 1
+    if form == "cluster":
+        counts.cluster_launches += 1
+    else:
+        counts.stream_launches += 1
     return tuple(outs)
 
 
-admm_segment_factored.launches = 0
+def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
+                          rho, rho_b, l1w, l1c, x, z, w, y, mu, *,
+                          sigma: float, alpha: float, n_iters: int,
+                          refine_steps: int = 0):
+    """Run ``n_iters`` fused ADMM iterations on a batch of scaled
+    problems with the factored (capacitance/Woodbury) operator: ``W``
+    and ``V`` (B, k, n), ``inv_d`` and ``Dv`` (B, n), ``Y0`` (B, n, m),
+    ``Ginv`` (B, m, m). ``V``/``Dv`` are read only when
+    ``refine_steps > 0``. On the card the kernel is chosen by
+    :func:`factored_form`. Returns ``(x, z, w, y, mu, dx, dy, dmu)``."""
+    inputs = _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
+                              rho, rho_b, l1w, l1c, x, z, w, y, mu, n_iters,
+                              refine_steps)
+    kw = dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
+              refine_steps=refine_steps)
+    if x.device.type == "cpu":
+        return admm_segment_factored_ref(*inputs, **kw)
+    return _factored_on_card(None, inputs, **kw)
+
+
+admm_segment_factored.launches = 0          # both forms
+admm_segment_factored.cluster_launches = 0
+admm_segment_factored.stream_launches = 0
+
+
+def _admm_segment_factored_form(form: str, *args, sigma: float, alpha: float,
+                                n_iters: int, refine_steps: int = 0):
+    """:func:`admm_segment_factored` on the card through the kernel
+    ``form`` names ("cluster" or "stream") instead of the one chosen by
+    shape, so that both forms can be held against the plain twin and
+    timed on the same inputs."""
+    if form not in _FACTORED_LAUNCHER:
+        raise ValueError(f"no factored kernel form {form!r}")
+    inputs = _factored_inputs(*args, n_iters, refine_steps)
+    if inputs[0].device.type != "cuda":
+        raise ValueError("a named kernel form runs on a CUDA device only")
+    return _factored_on_card(form, inputs, sigma=sigma, alpha=alpha,
+                             n_iters=n_iters, refine_steps=refine_steps)

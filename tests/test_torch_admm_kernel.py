@@ -173,6 +173,19 @@ def test_plain_twin_matches_pallas_interpret(form, dtype):
     assert_segment_close(port, ref, kw, exact)
 
 
+@pytest.mark.parametrize("refine", [0, 2])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 37])
+def test_factored_twin_matches_pallas_at_cluster_test_shapes(n, m, refine):
+    """The factored twin, which the cluster kernel is held against on the
+    card, at the shapes of that test (few columns per rank, extra
+    constraint rows, two refinement rounds): float64, 1e-9."""
+    fn, args, kw = kernel_inputs("factored_refine0", np.float64, n=n, m=m,
+                                 refine=refine)
+    port = tk.admm_segment_factored_ref(*args, **kw)
+    assert_segment_close(port, pallas(fn, args, kw), kw)
+
+
 def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
     fn, args, kw = kernel_inputs("triangular", np.float64)
     before = fn.launches

@@ -33,15 +33,30 @@ TWIN = {tk.admm_segment: tk.admm_segment_ref,
         tk.admm_segment_factored: tk.admm_segment_factored_ref}
 
 
-def kernel_inputs(form, dtype, l1=True):
+def kernel_inputs(form, dtype, l1=True, n=10, m=1, window=24, batch=3,
+                  refine=None):
     """The kernel call of the second segment of a small tracking batch
     in numpy ``dtype``, built by the port's pipeline on the CPU (with a
-    native L1 term so the prox's soft-threshold branch runs)."""
+    native L1 term so the prox's soft-threshold branch runs): ``n``
+    assets, a ``window`` of returns (the factored form's k), and
+    ``m - 1`` seeded random rows in [-1, 1] beside the budget row.
+    ``refine`` overrides the factored forms' refinement rounds."""
+    opts = dict(FORMS[form])
+    if refine is not None:
+        opts["woodbury_refine"] = refine
     params = pt.SolverParams(eps_abs=1e-12, eps_rel=1e-12, polish=False,
-                             scaling_iters=2, backend="pallas", **FORMS[form])
-    Xs, ys = pt.synthetic_universe_np(11, 3, 24, 10)
+                             scaling_iters=2, backend="pallas", **opts)
+    Xs, ys = pt.synthetic_universe_np(11, batch, window, n)
     qp = pt.build_tracking_qp(torch.as_tensor(Xs.astype(dtype)),
                               torch.as_tensor(ys.astype(dtype)))
+    if m > 1:
+        rows = np.random.default_rng(m).standard_normal((batch, m - 1, n))
+        bound = torch.ones((batch, m - 1), dtype=qp.l.dtype)
+        qp = qp._replace(
+            C=torch.cat([qp.C, torch.as_tensor(rows.astype(dtype))], dim=-2),
+            l=torch.cat([qp.l, -bound], dim=-1),
+            u=torch.cat([qp.u, bound], dim=-1),
+            row_mask=torch.ones((batch, m), dtype=qp.row_mask.dtype))
     scaled, scaling = _prepare_impl(qp, params)[:2]
     l1w = torch.full_like(scaled.q, 1e-3) if l1 else None
     l1c = torch.full_like(scaled.q, 0.1) if l1 else None
@@ -58,9 +73,46 @@ def f32_floor(kw):
     return 2 * kw["n_iters"] * 2.0 ** -23
 
 
+def cluster_bytes(n, m, k, refine):
+    """admm_segment_cluster.cu's shared memory per block (smem_floats),
+    in bytes."""
+    ld = (-(-n // 8) + 3) // 4 * 4     # slice width, rounded up to 4
+    floats = (k * ld * (2 if refine > 0 else 1) + 17 * ld + 2 * m * ld
+              + 8 * ld + 4 + 3 * k + 16 * m + 8 * m + m * m)
+    return 4 * floats
+
+
+def stream_bytes(n, m, k):
+    """admm_segment.cu's smem_floats(factored=true), in bytes."""
+    return 4 * (14 * n + 10 * m + m * n + 5 * n + k + n * m + m * m)
+
+
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+def factored_counts():
+    f = tk.admm_segment_factored
+    return f.launches, f.cluster_launches, f.stream_launches
+
+
+def assert_matches_twin(fn, out, args, kw, beside=None):
+    """Per output, the kernel's distance to the twin run in f64 is at
+    most 4x the f32 twin's own, plus two f32 ulps of the output's scale
+    per iteration (chip_smoke.py's rule). ``beside``: the outputs of
+    another f32 implementation on the same inputs; the 4x then applies
+    to the larger of its distance and the twin's."""
+    plain = TWIN[fn](*args, **kw)
+    exact = TWIN[fn](*(a.double() for a in args), **kw)
+    for i, (a, p, e) in enumerate(zip(out, plain, exact)):
+        assert torch.isfinite(a).all(), i
+        scale = float(exact[SCALE_OF[i]].abs().max())
+        e_k = float((a.double() - e).abs().max())
+        e_p = float((p.double() - e).abs().max())
+        if beside is not None:
+            e_p = max(e_p, float((beside[i].double() - e).abs().max()))
+        assert e_k <= 4.0 * e_p + f32_floor(kw) * scale, (i, e_k, e_p)
 
 
 @pytest.mark.gpu
@@ -76,13 +128,84 @@ def test_cuda_kernel_matches_plain_twin(form):
     before = fn.launches
     out = fn(*args, **kw)
     assert fn.launches == before + 1
-    plain = TWIN[fn](*args, **kw)
-    exact = TWIN[fn](*(a.double() for a in args), **kw)
-    for i, (a, p, e) in enumerate(zip(out, plain, exact)):
-        scale = float(exact[SCALE_OF[i]].abs().max())
-        e_k = float((a.double() - e).abs().max())
-        e_p = float((p.double() - e).abs().max())
-        assert e_k <= 4.0 * e_p + f32_floor(kw) * scale, (i, e_k, e_p)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37])
+def test_cluster_kernel_matches_plain_twin(n, m, refine):
+    """The 8-block cluster form at shapes that stress its column
+    partition: n=5 leaves ranks 5-7 without a column, 13 and 37 leave
+    the last ranks ragged. Each launch moves the cluster counter by one
+    and the streaming counter not at all. Held by the twin rule, with
+    the streaming kernel's outputs on the same inputs beside the twin's:
+    at n=5 the budget row's dual moves by rho (z_pre - 1), where z_pre
+    is rounded at an ulp of 1, not of y, and on the card the f32 twin's
+    dy came 10x nearer the f64 answer than either kernel's (2.6e-9
+    against 2.35e-8 for both, y's scale 1.25e-3), which the floor of two
+    ulps of y per iteration (1.0e-8) does not cover."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 refine=refine)
+    args = tuple(a.cuda() for a in args)
+    k = args[0].shape[-2]
+    assert tk.factored_form(n, m, k, refine) == "cluster"
+    launches, cluster, stream = factored_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert factored_counts() == (launches + 1, cluster + 1, stream)
+    streamed = tk._admm_segment_factored_form("stream", *args, **kw)
+    assert_matches_twin(fn, out, args, kw, beside=streamed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine", [0, 1])
+def test_factored_shape_beyond_cluster_goes_to_stream(refine):
+    """2,048 assets, k=256: a block's slice of W (256 x 256 floats) is
+    above the shared-memory limit, so the streaming form runs."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=2048,
+                                 window=256, batch=2, refine=refine)
+    args = tuple(a.cuda() for a in args)
+    assert tk.factored_form(2048, 1, 256, refine) == "stream"
+    launches, cluster, stream = factored_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert factored_counts() == (launches + 1, cluster, stream + 1)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["cluster", "stream"])
+def test_named_factored_form_matches_plain_twin(form):
+    """Both forms at one shape through the private entry that
+    chip_smoke.py times them with."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine1", np.float32, n=37)
+    args = tuple(a.cuda() for a in args)
+    launches, cluster, stream = factored_counts()
+    out = tk._admm_segment_factored_form(form, *args, **kw)
+    torch.cuda.synchronize()
+    assert factored_counts() == (launches + 1, cluster + (form == "cluster"),
+                                 stream + (form == "stream"))
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+def test_cluster_smem_size_is_the_one_the_router_reads():
+    """The shared-memory sizes the CPU routing tests assume
+    (tests/test_torch_cluster_route.py) are the C functions' own."""
+    need_card()
+    stream_lib = tk._library(tk._LIB)
+    cluster_lib = tk._library(tk._CLUSTER_LIB)
+    for n, m, k in [(5, 1, 24), (37, 3, 24), (500, 1, 252), (2048, 1, 256)]:
+        for refine in (0, 1, 2):
+            assert cluster_lib.porqua_admm_cluster_smem_bytes(
+                n, m, k, refine) == cluster_bytes(n, m, k, refine)
+        assert stream_lib.porqua_admm_segment_smem_bytes(
+            1, n, m, k) == stream_bytes(n, m, k)
 
 
 @pytest.mark.gpu
@@ -103,6 +226,23 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
 
 
 @pytest.mark.gpu
+def test_factored_wrapper_raises_where_no_form_fits():
+    """60,000 assets fit neither a cluster block's slice nor the
+    streaming form's block: the wrapper raises before any launch."""
+    need_card()
+    B, n, m, k = 1, 60000, 1, 1
+    f = lambda *s: torch.zeros((B,) + s, device="cuda")
+    # W inv_d Y0 Ginv V Dv C q l u lb ub rho rho_b l1w l1c x z w y mu
+    args = (f(k, n), f(n), f(n, m), f(m, m), f(k, n), f(n), f(m, n), f(n),
+            f(m), f(m), f(n), f(n), f(m), f(n), f(n), f(n), f(n), f(m), f(n),
+            f(m), f(n))
+    before = factored_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.admm_segment_factored(*args, sigma=1e-6, alpha=1.6, n_iters=2)
+    assert factored_counts() == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_tracking_step_on_card_matches_cpu(form):
     """The whole slice on the card against the CPU run (plain twins):
@@ -114,6 +254,29 @@ def test_tracking_step_on_card_matches_cpu(form):
                              backend="pallas", **FORMS[form])
     cpu = pt.tracking_step(Xs, ys, params, device="cpu")
     card = pt.tracking_step(Xs, ys, params, device="cuda")
+    assert card.status.cpu().tolist() == cpu.status.tolist()
+    assert card.iters.cpu().tolist() == cpu.iters.tolist()
+    np.testing.assert_allclose(card.weights.cpu().numpy(),
+                               cpu.weights.numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["factored_refine0", "factored_refine1"])
+def test_tracking_step_on_card_goes_through_cluster(form):
+    """Both woodbury configs run their segments on the cluster kernel
+    and never on the streaming one, and agree with the CPU run."""
+    need_card()
+    Xs, ys = pt.synthetic_universe_np(7, 4, 40, 16)
+    params = pt.SolverParams(max_iter=2000, eps_abs=1e-5, eps_rel=1e-5,
+                             polish=False, scaling_iters=2,
+                             backend="pallas", **FORMS[form])
+    cpu = pt.tracking_step(Xs, ys, params, device="cpu")
+    launches, cluster, stream = factored_counts()
+    card = pt.tracking_step(Xs, ys, params, device="cuda")
+    torch.cuda.synchronize()
+    after = factored_counts()
+    assert after[1] > cluster and after[2] == stream
+    assert after[0] - launches == after[1] - cluster
     assert card.status.cpu().tolist() == cpu.status.tolist()
     assert card.iters.cpu().tolist() == cpu.iters.tolist()
     np.testing.assert_allclose(card.weights.cpu().numpy(),
