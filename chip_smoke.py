@@ -7,22 +7,24 @@ Phases (any failure exits non-zero, and the result line is then not
 printed):
 1. The card's name and power limit, torch and CUDA versions.
 2. Build the fused ADMM segment kernels from ``porqua_tpu_torch/csrc``
-   (both sources at once, one nvcc each) and print ptxas' registers,
-   shared memory and spills of the cluster kernel.
+   (the three sources at once, one nvcc each) and print ptxas'
+   registers, shared memory and spills of the cluster kernels.
 3. Each kernel form against its plain PyTorch twin on the card, on the
    first segment's operator and state of the port's own pipeline for
    the 252-date x 500-asset f32 batch (seed 42): errors, kernel and
    plain times (CUDA events, median of 10 after warm-up) and the
-   roofline bound of the same work. The factored segment has two
-   kernels, the 8-block cluster form and the streaming form; both run
-   on the same inputs, timed in turns (stream, cluster, cluster,
-   stream), beside the device-memory bytes each design moves.
+   roofline bound of the same work. Every segment has two kernels, a
+   cluster form (the factored one on 8 blocks, L^-1 on 8, K^-1 on 16)
+   and the streaming form; both run on the same inputs, timed in turns
+   (stream, cluster, cluster, stream), beside the device-memory bytes
+   each design moves, the shared memory and resident clusters of the
+   cluster form, and the time of a launch with one iteration.
 4. The main path: ``tracking_step`` on that batch with
    ``backend="pallas"`` for every config of the JAX golden
    (``porqua_tpu_torch/testdata/tracking_golden.npz``), with the launch
-   counters set to 0 before each run and read after it (the woodbury
-   configs must go through the cluster form and never the streaming
-   one); status and iterations must equal the golden on every date,
+   counters set to 0 before each run and read after it (every config
+   must go through its cluster form and never the streaming one);
+   status and iterations must equal the golden on every date,
    weights within |dw| <= 1e-4 and the median tracking error within
    1e-4 relative.
    The same solves on the plain path (``backend="xla"``) are timed
@@ -135,7 +137,7 @@ def traffic(name, args, kw):
     """Device-memory bytes a kernel design moves per launch, from its
     access pattern: the streaming forms read their operator on every
     iteration (W twice, V twice more per refinement round, L^-1's lower
-    triangle twice, K^-1 once); the cluster form reads each input once.
+    triangle twice, K^-1 once); the cluster forms read each input once.
     All write each output once."""
     once = work(name, args, kw)[1]
     if "_cluster" in name:
@@ -154,9 +156,10 @@ def traffic(name, args, kw):
 
 
 def ptxas_lines(log):
-    """ptxas' lines on registers, shared memory and spills."""
+    """ptxas' lines on each kernel's registers, shared memory and
+    spills, each group after the line that names its kernel."""
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
 def check_twin(out_k, out_p, out_64, kw):
@@ -203,7 +206,7 @@ def main():
 
     # -- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    libs = (admm_kernel._LIB, admm_kernel._CLUSTER_LIB)
+    libs = admm_kernel.LIBRARIES
     _build.build(*libs)
     for lib in libs:
         admm_kernel._library(lib)
@@ -213,8 +216,9 @@ def main():
         info = _build.build_info[lib]
         print(f"build {lib}.cu: nvcc {info['seconds']:.1f} s\n"
               f"{info['log'].strip()}", flush=True)
-    for ln in ptxas_lines(_build.build_info[admm_kernel._CLUSTER_LIB]["log"]):
-        print(f"ptxas [cluster kernel]: {ln}", flush=True)
+    for lib in (admm_kernel._CLUSTER_LIB, admm_kernel._DENSE_LIB):
+        for ln in ptxas_lines(_build.build_info[lib]["log"]):
+            print(f"ptxas [{lib}.cu]: {ln}", flush=True)
 
     golden = np.load(os.path.join(os.path.dirname(pt.__file__), "testdata",
                                   "tracking_golden.npz"))
@@ -230,24 +234,47 @@ def main():
         p = json.loads(str(golden[f"{name}/params"]))
         p["backend"] = "pallas"
         params[name] = pt.SolverParams(**p)
-    # Kernel rows: (config, form); form None for the dense kernels.
+    # Kernel rows: (config, form).
     kernel_rows = [("woodbury", "cluster"), ("woodbury_refine1", "cluster"),
                    ("woodbury", "stream"), ("woodbury_refine1", "stream"),
-                   ("trinv", None), ("inverse", None)]
+                   ("trinv", "stream"), ("trinv", "cluster"),
+                   ("inverse", "stream"), ("inverse", "cluster")]
+    dense_kind = {"trinv": "triangular", "inverse": "inverse"}
 
     def row_name(name, form):
-        if form is None:
-            return {"trinv": "admm_segment[triangular]",
-                    "inverse": "admm_segment[inverse]"}[name]
+        if name in dense_kind:
+            return f"admm_segment[{dense_kind[name]}]_{form}"
         refine = params[name].woodbury_refine
         return f"admm_segment_factored_{form}[refine={refine}]"
 
-    source = {"cluster": "porqua_tpu_torch/csrc/admm_segment_cluster.cu",
-              "stream": "porqua_tpu_torch/csrc/admm_segment.cu",
-              None: "porqua_tpu_torch/csrc/admm_segment.cu"}
+    def source(name, form):
+        if form == "stream":
+            return "porqua_tpu_torch/csrc/admm_segment.cu"
+        lib = (admm_kernel._DENSE_LIB if name in dense_kind
+               else admm_kernel._CLUSTER_LIB)
+        return f"porqua_tpu_torch/csrc/{lib}.cu"
+
+    def cluster_shape(name, args, kw):
+        """(shared bytes per block, resident clusters) of the cluster
+        form at this call's shape."""
+        if name in dense_kind:
+            lib = admm_kernel._library(admm_kernel._DENSE_LIB)
+            shape = (args[0].shape[-1], args[1].shape[-2],
+                     int(kw["triangular"]))
+            return (lib.porqua_admm_dense_cluster_smem_bytes(*shape),
+                    lib.porqua_admm_dense_cluster_max_active(*shape))
+        lib = admm_kernel._library(admm_kernel._CLUSTER_LIB)
+        B, k, n = args[0].shape
+        shape = (n, args[6].shape[-2], k, kw["refine_steps"])
+        return (lib.porqua_admm_cluster_smem_bytes(*shape),
+                lib.porqua_admm_cluster_max_active(*shape))
+
     plain = {admm_kernel.admm_segment: admm_kernel.admm_segment_ref,
              admm_kernel.admm_segment_factored:
                  admm_kernel.admm_segment_factored_ref}
+    named = {admm_kernel.admm_segment: admm_kernel._admm_segment_form,
+             admm_kernel.admm_segment_factored:
+                 admm_kernel._admm_segment_factored_form}
 
     # -- 3. each kernel against its plain twin ---------------------------
     pt.qp.canonical.HP.apply()
@@ -262,14 +289,9 @@ def main():
         # The function's answer on these inputs, to f32 rounding.
         out_64 = plain[fn](*(a.double() for a in args), **kw)
         plain_ms = cuda_ms(lambda: plain[fn](*args, **kw), 1, 5)
-        if fn is admm_kernel.admm_segment_factored:
-            forms = ("stream", "cluster")
-            launch = {f: (lambda kw=kw, f=f: admm_kernel.
-                          _admm_segment_factored_form(f, *args, **kw))
-                      for f in forms}
-        else:
-            forms = (None,)
-            launch = {None: lambda: fn(*args, **kw)}
+        forms = ("stream", "cluster")
+        launch = {f: (lambda kw=kw, f=f: named[fn](f, *args, **kw))
+                  for f in forms}
         for form in forms:
             out_k = launch[form]()
             torch.cuda.synchronize()
@@ -281,7 +303,7 @@ def main():
             rows[(name, form)] = {
                 "name": rname,
                 "route": "cuda",
-                "source": source[form],
+                "source": source(name, form),
                 "replaces": ("porqua_tpu/ops/admm_kernel.py:340"
                              if name.startswith("woodbury")
                              else "porqua_tpu/ops/admm_kernel.py:251"),
@@ -319,33 +341,24 @@ def main():
                   f"design moves {moved / 1e9:.4f} GB per launch "
                   f"({moved / row['ms'] / 1e9:.1f} TB/s)", flush=True)
             if form == "cluster":
-                lib = admm_kernel._library(admm_kernel._CLUSTER_LIB)
-                B, k, n = args[0].shape
-                shape = (n, args[6].shape[-2], k, kw["refine_steps"])
-                print(f"  {row['name']}: "
-                      f"{lib.porqua_admm_cluster_smem_bytes(*shape)} B of "
-                      f"shared memory per block; "
-                      f"{lib.porqua_admm_cluster_max_active(*shape)} "
-                      f"clusters resident at once for {B} problems",
-                      flush=True)
-            if form:
-                # Set-up (operator load) against the iterations: the
-                # same launch with one iteration.
-                one = cuda_ms(lambda: launch[form](dict(kw, n_iters=1)),
-                              2, 10)
-                per_iter = (row["ms"] - one) / (kw["n_iters"] - 1)
-                print(f"  {row['name']}: 1 iteration {one:.4f} ms; "
-                      f"{per_iter * 1e3:.2f} us per further iteration "
-                      f"for the batch", flush=True)
+                smem, active = cluster_shape(name, args, kw)
+                print(f"  {row['name']}: {smem} B of shared memory per "
+                      f"block; {active} clusters resident at once for "
+                      f"{args[-1].shape[0]} problems", flush=True)
+            # Set-up (operator load) against the iterations: the same
+            # launch with one iteration.
+            one = cuda_ms(lambda: launch[form](dict(kw, n_iters=1)), 2, 10)
+            per_iter = (row["ms"] - one) / (kw["n_iters"] - 1)
+            print(f"  {row['name']}: 1 iteration {one:.4f} ms; "
+                  f"{per_iter * 1e3:.2f} us per further iteration "
+                  f"for the batch", flush=True)
 
     # -- 4. the main path ------------------------------------------------
-    factored = admm_kernel.admm_segment_factored
+    wrappers = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
 
     def reset_counts():
-        admm_kernel.admm_segment.launches = 0
-        factored.launches = 0
-        factored.cluster_launches = 0
-        factored.stream_launches = 0
+        for f in wrappers:
+            f.launches = f.cluster_launches = f.stream_launches = 0
 
     def timed(prm):
         torch.cuda.synchronize()
@@ -357,14 +370,13 @@ def main():
     for name in names:
         prm = params[name]
         times = []
+        wrapper = (admm_kernel.admm_segment if name in dense_kind
+                   else admm_kernel.admm_segment_factored)
         for _ in range(2):   # the first run includes the library warm-up
             reset_counts()
             res, ms = timed(prm)
-            if name.startswith("woodbury"):
-                launches = {"cluster": factored.cluster_launches,
-                            "stream": factored.stream_launches}
-            else:
-                launches = {None: admm_kernel.admm_segment.launches}
+            launches = {"cluster": wrapper.cluster_launches,
+                        "stream": wrapper.stream_launches}
             times.append(ms)
         for form, count in launches.items():
             rows[(name, form)]["launches"] = count
@@ -387,12 +399,10 @@ def main():
               f"{sorted(set(iters.tolist()))}; median TE "
               f"{float(np.median(te)):.6e}; max|dw| vs golden {dw:.3e}; "
               f"TE rel diff {te_rel:.3e}", flush=True)
-        on_path = "cluster" if name.startswith("woodbury") else None
-        check(launches[on_path] > 0, f"[{name}] the main path launched "
-              f"{row_name(name, on_path)}")
-        if name.startswith("woodbury"):
-            check(launches["stream"] == 0, f"[{name}] the main path never "
-                  f"launched {row_name(name, 'stream')}")
+        check(launches["cluster"] > 0, f"[{name}] the main path launched "
+              f"{row_name(name, 'cluster')}")
+        check(launches["stream"] == 0, f"[{name}] the main path never "
+              f"launched {row_name(name, 'stream')}")
         check(bool(np.isfinite(w).all()) and w.shape == g_w.shape,
               f"[{name}] weights finite, shape {w.shape}")
         check(np.array_equal(status, golden[f"{name}/status"]),

@@ -15,14 +15,23 @@
 // more than one SM's shared memory. The matvecs are f32 FMA on the
 // CUDA cores (no tensor cores, hence no TF32): v M' is a warp per row
 // with a shuffle reduction, v M a thread per column with the loop over
-// rows coalesced across threads. The ragged edge is masked by the loop
-// bounds; nothing is padded. One __device__ iteration serves both
-// operator kinds, so the forms cannot drift apart.
+// rows coalesced across threads and summed in blocks of rows. The
+// ragged edge is masked by the loop bounds; nothing is padded. One
+// __device__ iteration serves both operator kinds, so the forms cannot
+// drift apart, and its elementwise updates are the cluster kernels'
+// (cluster_common.cuh). The factored form's Schur step is f64 (see
+// FactoredSolve). Both operator kinds have a second design, on a
+// thread-block cluster with the operator in shared memory
+// (admm_segment_cluster.cu, admm_segment_dense_cluster.cu), for the
+// shapes where it fits; this one serves every shape whose state fits
+// one block.
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "cluster_common.cuh"
 
 namespace {
 
@@ -61,17 +70,45 @@ __device__ void mv_rows(const float* __restrict__ M, int rows, int cols,
   }
 }
 
+// Rows of one block of vm_cols' sum.
+constexpr int kSumBlock = 64;
+
 // out[j] = sum_r v[r] M[r, j] for j < cols. A thread per column.
 // lower: M is lower-triangular, only r >= j is read.
+// The sum over rows is blocked: each block of kSumBlock rows is summed
+// serially, then the blocks' sums in order. A single serial sum over a
+// long column (k = 1024) lost several times the plain version's
+// accuracy; a column of at most kSumBlock rows is summed as before.
 __device__ void vm_cols(const float* v, const float* __restrict__ M,
                         int rows, int cols, float* out, bool lower) {
   for (int j = threadIdx.x; j < cols; j += kThreads) {
-    float acc = 0.f;
     const float* col = M + j;
+    float total = 0.f;
+    for (int r0 = lower ? j : 0; r0 < rows; r0 += kSumBlock) {
+      const int end = min(rows, r0 + kSumBlock);
+      float acc = 0.f;
 #pragma unroll 8
-    for (int r = lower ? j : 0; r < rows; ++r)
-      acc = fmaf(v[r], col[(size_t)r * cols], acc);
-    out[j] = acc;
+      for (int r = r0; r < end; ++r)
+        acc = fmaf(v[r], col[(size_t)r * cols], acc);
+      total = r0 == (lower ? j : 0) ? acc : total + acc;
+    }
+    out[j] = total;
+  }
+}
+
+// out[r] = sum_j M[r, j] v[j] for r < rows, summed in f64: a warp per
+// row.
+__device__ void rows_dot_f64(const float* M, int rows, int cols,
+                             const float* v, double* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* row = M + (size_t)r * cols;
+    double acc = 0.0;
+    for (int j = lane; j < cols; j += 32) acc += (double)row[j] * v[j];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) out[r] = acc;
   }
 }
 
@@ -97,19 +134,21 @@ struct Inputs {
 // launching (porqua_admm_segment_smem_bytes).
 constexpr int kVecN = 14;      // x w mu q lb ub rho_b l1w l1c rhs xt xprev muprev tmp
 constexpr int kVecNFact = 5;   // inv_d Dv x0 r tmp2
-constexpr int kVecM = 10;      // z y l u rho zt yprev tm s vv
+constexpr int kVecM = 8;       // z y l u rho zt yprev tm
 
 __host__ __device__ inline size_t smem_floats(bool factored, int n, int m, int k) {
-  size_t f = (size_t)kVecN * n + (size_t)kVecM * m + (size_t)m * n;  // + C
+  size_t f = 2 * (size_t)m  // C x0 in f64, first
+             + (size_t)kVecN * n + (size_t)kVecM * m + (size_t)m * n;  // + C
   if (factored)
     f += (size_t)kVecNFact * n + (size_t)k + (size_t)n * m + (size_t)m * m;
   return f;
 }
 
 struct Smem {
+  double* sd;  // C x0 of the factored Schur step, summed in f64
   float *x, *w, *mu, *q, *lb, *ub, *rho_b, *l1w, *l1c, *rhs, *xt, *xprev,
       *muprev, *tmp;
-  float *z, *y, *l, *u, *rho, *zt, *yprev, *tm, *s, *vv;
+  float *z, *y, *l, *u, *rho, *zt, *yprev, *tm;
   float* C;
   // factored only
   float *inv_d, *Dv, *x0, *r, *tmp2, *t, *Y0, *Ginv;
@@ -117,13 +156,14 @@ struct Smem {
 
 __device__ Smem carve(float* base, bool factored, int n, int m, int k) {
   Smem s;
-  float* p = base;
+  s.sd = reinterpret_cast<double*>(base);
+  float* p = base + 2 * m;
   float** vn[kVecN] = {&s.x, &s.w, &s.mu, &s.q, &s.lb, &s.ub, &s.rho_b,
                        &s.l1w, &s.l1c, &s.rhs, &s.xt, &s.xprev, &s.muprev,
                        &s.tmp};
   for (int i = 0; i < kVecN; ++i) { *vn[i] = p; p += n; }
   float** vm[kVecM] = {&s.z, &s.y, &s.l, &s.u, &s.rho, &s.zt, &s.yprev,
-                       &s.tm, &s.s, &s.vv};
+                       &s.tm};
   for (int i = 0; i < kVecM; ++i) { *vm[i] = p; p += m; }
   s.C = p; p += (size_t)m * n;
   s.inv_d = s.Dv = s.x0 = s.r = s.tmp2 = s.t = s.Y0 = s.Ginv = nullptr;
@@ -139,19 +179,6 @@ __device__ Smem carve(float* base, bool factored, int n, int m, int k) {
 
 __device__ __forceinline__ void load(float* dst, const float* src, size_t len) {
   for (size_t i = threadIdx.x; i < len; i += kThreads) dst[i] = src[i];
-}
-
-__device__ __forceinline__ float clipf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// Exact prox of I_[lb,ub] + t |. - c|: clipped shifted soft-threshold.
-__device__ __forceinline__ float l1_box_prox(float v, float lb, float ub,
-                                             float t, float c) {
-  const float s = v - c;
-  const float sgn = (float)((s > 0.f) - (s < 0.f));  // sign(0) == 0
-  const float soft = sgn * fmaxf(fabsf(s) - t, 0.f);
-  return clipf(c + soft, lb, ub);
 }
 
 // Dense solve: xt = rhs @ K^-1, or L^-T (L^-1 rhs) when triangular.
@@ -204,13 +231,22 @@ struct FactoredSolve {
       for (int j = threadIdx.x; j < n; j += kThreads) s.x0[j] += s.tmp2[j];
       __syncthreads();
     }
-    mv_rows(s.C, m, n, s.x0, s.s, false);
+    // The Schur step in f64: zt = C xt = C x0 - (C Y0) Ginv (C x0) is a
+    // small difference of terms near C x0 where rho C K0^-1 C' is large,
+    // so the rounding of an f32 C x0 comes back amplified in the row's
+    // dual (past the twin rule at 2,048 assets, k = 256, and at 512, k =
+    // 1024). xt = x0 - Y0 vv, vv = Ginv (C x0): each thread forms vv.
+    rows_dot_f64(s.C, m, n, s.x0, s.sd);
     __syncthreads();
-    vm_cols(s.s, s.Ginv, m, m, s.vv, false);
-    __syncthreads();
-    mv_rows(s.Y0, n, m, s.vv, s.tmp, false);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += kThreads) xt[j] = s.x0[j] - s.tmp[j];
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      double acc = 0.0;
+      for (int c = 0; c < m; ++c) {
+        double vv = 0.0;
+        for (int q = 0; q < m; ++q) vv += s.sd[q] * s.Ginv[q * m + c];
+        acc += s.Y0[(size_t)j * m + c] * vv;
+      }
+      xt[j] = (float)(s.x0[j] - acc);
+    }
     __syncthreads();
   }
 };
@@ -233,29 +269,20 @@ __device__ void one_iteration(const Smem& s, const Inputs& a, const Solve& solve
   solve(s, s.rhs, s.xt);
   mv_rows(s.C, m, n, s.xt, s.zt, false);
   __syncthreads();
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    const float xt = s.xt[j];
-    const float inv_rhob = 1.0f / s.rho_b[j];
-    s.x[j] = al * xt + one_m_al * s.x[j];
-    const float w_pre = al * xt + one_m_al * s.w[j];
-    const float w_new = l1_box_prox(w_pre + s.mu[j] * inv_rhob, s.lb[j],
-                                    s.ub[j], s.l1w[j] * inv_rhob, s.l1c[j]);
-    s.mu[j] = s.mu[j] + s.rho_b[j] * (w_pre - w_new);
-    s.w[j] = w_new;
-  }
-  for (int r = threadIdx.x; r < m; r += kThreads) {
-    const float inv_rho = 1.0f / s.rho[r];
-    const float z_pre = al * s.zt[r] + one_m_al * s.z[r];
-    const float z_new = clipf(z_pre + s.y[r] * inv_rho, s.l[r], s.u[r]);
-    s.y[r] = s.y[r] + s.rho[r] * (z_pre - z_new);
-    s.z[r] = z_new;
-  }
+  for (int j = threadIdx.x; j < n; j += kThreads)
+    col_update(s.xt[j], al, one_m_al, s.rho_b[j], s.lb[j], s.ub[j], s.l1w[j],
+               s.l1c[j], s.x[j], s.w[j], s.mu[j]);
+  for (int r = threadIdx.x; r < m; r += kThreads)
+    row_update(s.zt[r], al, one_m_al, s.rho[r], s.l[r], s.u[r], s.z[r],
+               s.y[r]);
   __syncthreads();
 }
 
+// Two blocks per SM: the register cap (64) keeps the dense form (92
+// registers without it) at two blocks of 512 threads per SM.
 template <bool kFactored>
-__global__ void __launch_bounds__(kThreads) segment_kernel(Inputs a) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 2) segment_kernel(Inputs a) {
+  extern __shared__ __align__(16) float smem[];
   const int n = a.n, m = a.m, k = a.k;
   const size_t b = blockIdx.x;
   const Smem s = carve(smem, kFactored, n, m, k);

@@ -49,7 +49,10 @@
 // vector's float4 is a broadcast. W' t gives each lane a float4 of
 // columns, splits the k-sum across the rows of a warp and across the
 // warps, and adds those partials by shuffles and through shared memory.
-// The operator is copied in with cp.async, many loads in flight.
+// The operator is copied in with cp.async, many loads in flight. The
+// DSMEM, mbarrier, st.async and cp.async primitives, the m-long
+// reduction and the elementwise updates are shared with the other
+// kernels (cluster_common.cuh).
 //
 // The shared-memory size has one definition, smem_floats, which the
 // launcher uses and the Python wrapper asks for
@@ -61,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stddef.h>
+
+#include "cluster_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -74,19 +79,6 @@ constexpr int kCluster = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float clipf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// Exact prox of I_[lb,ub] + t |. - c|: clipped shifted soft-threshold.
-__device__ __forceinline__ float l1_box_prox(float v, float lb, float ub,
-                                             float t, float c) {
-  const float s = v - c;
-  const float sgn = (float)((s > 0.f) - (s < 0.f));  // sign(0) == 0
-  const float soft = sgn * fmaxf(fabsf(s) - t, 0.f);
-  return clipf(c + soft, lb, ub);
-}
 
 struct Inputs {
   // per-problem arrays (batch-strided), row-major
@@ -183,64 +175,6 @@ __host__ __device__ inline size_t smem_floats(int n, int m, int k,
          + (size_t)kVecM * m + (size_t)m * m;   // m-vectors, Ginv
 }
 
-__device__ __forceinline__ unsigned shared_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// The address of the same shared location in block `rank` of the
-// cluster.
-__device__ __forceinline__ unsigned remote_addr(unsigned addr, int rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-// Stores v at addr in another block and counts its 4 bytes on that
-// block's mbarrier bar (both shared::cluster addresses).
-__device__ __forceinline__ void store_remote(unsigned addr, float v,
-                                             unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void expect_bytes(unsigned bar, int bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
-          "r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_phase(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// dst[i] = src[i] for i < len, through cp.async (4 bytes each): the
-// copies stay in flight until wait_copies().
-__device__ __forceinline__ void copy(float* dst, const float* src, int len) {
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     shared_addr(dst + i)),
-                 "l"(src + i)
-                 : "memory");
-  }
-}
-
 // Row i, column j of src (i < rows, j < cols) into row i of dst, float4
 // column (j / 4) ^ (i & swz): a warp per row, through cp.async.
 __device__ __forceinline__ void copy_cols(float* dst, int ld, int swz,
@@ -256,11 +190,6 @@ __device__ __forceinline__ void copy_cols(float* dst, int ld, int swz,
                    : "memory");
     }
   }
-}
-
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
 }
 
 // out[i] = sum_j M[i ld + j] v[j] for i < rows (M swizzled, M and v
@@ -367,42 +296,14 @@ struct Block {
     __syncthreads();
   }
 
-  // out[r] = (C v)[r] for the m rows of C, summed over the cluster in
-  // rank order. Each row's warp sums this block's columns and lanes
-  // 0-7 store the partial into block (lane)'s receive slots with
-  // st.async, counted on that block's mbarrier; each block waits on
-  // its own mbarrier (no cluster barrier) and adds its 8 slots. A
-  // buffer is written again two reductions later, which no block
-  // reaches before every block has read it: each needs the others'
-  // partials of the reduction in between.
+  // out = C v (m long), summed over the cluster (reduce_rows).
   __device__ __forceinline__ void reduce_rows(const float* v, float* out) {
-    const int m = L.m, me = (int)cluster.block_rank();
     const int p = mflip;
     mflip ^= 1;
-    float* slots = L.Recv(p);
-    const unsigned bar = shared_addr(L.Bar(p));
-    if (threadIdx.x == 0) expect_bytes(bar, kCluster * m * 4);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* C = L.C();
-    for (int r = warp; r < m; r += kWarps) {
-      float acc = 0.f;
-      for (int j = lane; j < cols; j += 32)
-        acc = fmaf(C[r * L.ld + j], v[j], acc);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-      if (lane < kCluster)
-        store_remote(remote_addr(shared_addr(slots + me * m + r), lane), acc,
-                     remote_addr(bar, lane));
-    }
-    wait_phase(bar, (mphase >> p) & 1u);
+    ::reduce_rows<kCluster, kThreads>(
+        L.C(), L.ld, L.m, cols, v, L.Recv(p), shared_addr(L.Bar(p)),
+        (mphase >> p) & 1u, (int)cluster.block_rank(), out);
     mphase ^= 1u << p;
-    for (int r = threadIdx.x; r < m; r += kThreads) {
-      float acc = slots[r];
-#pragma unroll
-      for (int q = 1; q < kCluster; ++q) acc += slots[q * m + r];
-      out[r] = acc;
-    }
-    __syncthreads();
   }
 
   // store(j, (r inv_d - (W r) W)[j]) on this block's columns.
@@ -473,23 +374,11 @@ struct Block {
     solve(a.refine_steps);
     const float* xt = L.v(kXt);
     reduce_rows(xt, zt);
-    for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const float xtj = xt[j];
-      const float inv_rhob = 1.0f / rho_b[j];
-      x[j] = al * xtj + one_m_al * x[j];
-      const float w_pre = al * xtj + one_m_al * w[j];
-      const float w_new = l1_box_prox(w_pre + mu[j] * inv_rhob, lb[j], ub[j],
-                                      l1w[j] * inv_rhob, l1c[j]);
-      mu[j] = mu[j] + rho_b[j] * (w_pre - w_new);
-      w[j] = w_new;
-    }
-    for (int r = threadIdx.x; r < m; r += kThreads) {
-      const float inv_rho = 1.0f / rho[r];
-      const float z_pre = al * zt[r] + one_m_al * z[r];
-      const float z_new = clipf(z_pre + y[r] * inv_rho, l[r], u[r]);
-      y[r] = y[r] + rho[r] * (z_pre - z_new);
-      z[r] = z_new;
-    }
+    for (int j = threadIdx.x; j < cols; j += kThreads)
+      col_update(xt[j], al, one_m_al, rho_b[j], lb[j], ub[j], l1w[j], l1c[j],
+                 x[j], w[j], mu[j]);
+    for (int r = threadIdx.x; r < m; r += kThreads)
+      row_update(zt[r], al, one_m_al, rho[r], l[r], u[r], z[r], y[r]);
     __syncthreads();
   }
 };
@@ -511,11 +400,8 @@ __global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
   for (int i = threadIdx.x; i < total; i += kThreads) smem[i] = 0.f;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int p = 0; p < 2; ++p)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       shared_addr(L.Bar(p)))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int p = 0; p < 2; ++p) init_barrier(shared_addr(L.Bar(p)));
+    fence_barrier_init();
   }
   // The operator slices, read from device memory once per launch.
   copy_cols(L.W(), ld, L.swz, a.W + b * k * n + c0, n, k, cols);

@@ -4,9 +4,10 @@ Each source under ``porqua_tpu_torch/csrc`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``. The build runs on first use, never at import,
 into ``build/porqua_tpu_torch/`` beside the package; the library's
-file name carries a hash of its source, so an edited source is rebuilt
-and an unchanged one is loaded as it is. :func:`build` compiles several
-sources at once, one ``nvcc`` each.
+file name carries a hash of its source and of the headers beside it,
+so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. :func:`build` compiles several sources at once, one
+``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -48,9 +49,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header beside it (``csrc/*.cuh``)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> None:

@@ -10,30 +10,34 @@ refinement). Each runs ``n_iters`` OSQP iterations for every problem of
 a batch in one launch and returns ``(x, z, w, y, mu, dx, dy, dmu)``:
 the final state and the increments between the last two iterates.
 
-Two designs, two sources:
+Two designs, three sources:
 
 - ``csrc/admm_segment.cu``, the streaming form: one block per problem,
   everything but the operator in shared memory, the operator (L^-1's
   lower half twice, K^-1 once, W twice; V twice more per refinement
   round) streamed from device memory on every iteration. It is bound by
-  device-memory bandwidth. The dense forms use it, and so does the
-  factored form where the cluster form does not fit.
+  device-memory bandwidth. Every form uses it where its cluster form
+  does not fit.
 - ``csrc/admm_segment_cluster.cu``, the factored form on a cluster of
   8 blocks per problem: the columns of W (and V) are split across the
   blocks' shared memory, read from device memory once per launch, and
   the three reductions of an iteration go through distributed shared
   memory.
+- ``csrc/admm_segment_dense_cluster.cu``, the dense forms on a cluster
+  per problem: L^-1's lower columns interleaved across 8 blocks, or
+  K^-1's columns across 16, held in shared memory and read once per
+  launch; one n-long and one m-long exchange per iteration.
 
-:func:`factored_form` chooses between the two factored kernels by shape,
+:func:`factored_form` and :func:`dense_form` choose a kernel by shape,
 before the launch: the cluster form where its shared memory fits a
 block and the card can hold such a cluster, else the streaming form
-where that fits, else it raises.
+where that fits, else they raise.
 
-Both are built by :mod:`porqua_tpu_torch.ops._build` on first use. The
+Each is built by :mod:`porqua_tpu_torch.ops._build` on first use. The
 wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
-in a plain int attribute, ``launches``; the factored wrapper also counts
-each form's own (``cluster_launches``, ``stream_launches``).
+in a plain int attribute, ``launches``, and each form's own
+(``cluster_launches``, ``stream_launches``).
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from porqua_tpu_torch.qp.admm import (_make_iteration, _mv, _vm,
 
 _LIB = "admm_segment"
 _CLUSTER_LIB = "admm_segment_cluster"
+_DENSE_LIB = "admm_segment_dense_cluster"
+LIBRARIES = (_LIB, _CLUSTER_LIB, _DENSE_LIB)
 
 
 # --------------------------------------------------------------------------
@@ -111,12 +117,12 @@ _FACTORED_ARGS = [ctypes.c_void_p] * 29 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
     ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p] * 24 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _SIGNATURES = {
     _LIB: {
-        "porqua_admm_segment_dense": [ctypes.c_void_p] * 24 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p],
+        "porqua_admm_segment_dense": _DENSE_ARGS,
         "porqua_admm_segment_factored": _FACTORED_ARGS,
         "porqua_admm_segment_smem_bytes": [ctypes.c_int] * 4,
         "porqua_max_smem_optin": [],
@@ -127,11 +133,20 @@ _SIGNATURES = {
         "porqua_admm_cluster_smem_bytes": [ctypes.c_int] * 4,
         "porqua_admm_cluster_max_active": [ctypes.c_int] * 4,
     },
+    _DENSE_LIB: {
+        "porqua_admm_segment_dense_cluster": _DENSE_ARGS,
+        "porqua_admm_dense_cluster_smem_bytes": [ctypes.c_int] * 3,
+        "porqua_admm_dense_cluster_max_active": [ctypes.c_int] * 3,
+    },
 }
 # form -> (library, launcher)
 _FACTORED_LAUNCHER = {
     "cluster": (_CLUSTER_LIB, "porqua_admm_segment_factored_cluster"),
     "stream": (_LIB, "porqua_admm_segment_factored"),
+}
+_DENSE_LAUNCHER = {
+    "cluster": (_DENSE_LIB, "porqua_admm_segment_dense_cluster"),
+    "stream": (_LIB, "porqua_admm_segment_dense"),
 }
 
 
@@ -190,14 +205,51 @@ def _smem_refusal(form, need, limit, n, m, k):
             f"per block (n={n}, m={m}, k={k}); the card allows {limit}")
 
 
-def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
-                 x, z, w, y, mu, *, sigma: float, alpha: float,
-                 n_iters: int, triangular: bool = False):
-    """Run ``n_iters`` fused ADMM iterations on a batch of scaled
-    problems with a dense operator: ``Kinv`` (B, n, n) holds ``L^-1``
-    (``triangular=True``) or the explicit ``K^-1``. ``C`` is (B, m, n),
-    the vectors (B, n) or (B, m). Returns
-    ``(x, z, w, y, mu, dx, dy, dmu)``."""
+def _choose_form(kind, need_cluster, active_clusters, need_stream, n, m, k):
+    """``"cluster"`` where ``need_cluster`` bytes of shared memory fit a
+    block of the card and ``active_clusters()`` (the card's occupancy
+    query) is above 0, else ``"stream"`` where ``need_stream`` fits;
+    raises ValueError where neither fits."""
+    limit = _library(_LIB).porqua_max_smem_optin()
+    if need_cluster <= limit:
+        active = active_clusters()
+        if active < 0:
+            raise RuntimeError("cluster occupancy query failed: "
+                               f"{_cuda_error(-active)}")
+        if active > 0:
+            return "cluster"
+    if need_stream <= limit:
+        return "stream"
+    raise ValueError(_smem_refusal(kind, min(need_cluster, need_stream),
+                                   limit, n, m, k))
+
+
+def _count(wrapper, form):
+    wrapper.launches += 1
+    if form == "cluster":
+        wrapper.cluster_launches += 1
+    else:
+        wrapper.stream_launches += 1
+
+
+def dense_form(n: int, m: int, triangular: bool) -> str:
+    """Which hand-written kernel runs a dense segment of this shape on
+    the current card: ``"cluster"`` where one problem's operator slice
+    (L^-1's packed lower columns over 8 blocks, or K^-1's columns over
+    16) fits the shared memory of a block and the card can hold such a
+    cluster, else ``"stream"`` where the streaming form's state fits one
+    block. Raises ValueError where neither fits."""
+    lib = _library(_DENSE_LIB)
+    tri = int(triangular)
+    return _choose_form(
+        "dense", lib.porqua_admm_dense_cluster_smem_bytes(n, m, tri),
+        lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri),
+        _library(_LIB).porqua_admm_segment_smem_bytes(0, n, m, 0), n, m, 0)
+
+
+def _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w,
+                  y, mu, n_iters):
+    """Validate a dense call; returns its inputs as a list."""
     B, n = x.shape
     m = z.shape[-1]
     if n_iters < 1:
@@ -206,23 +258,62 @@ def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
     inputs = [Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w, y, mu]
     _check(inputs, [(B, n, n), (B, m, n), vn, vm, vm, vn, vn, vm, vn, vn,
                     vn, vn, vm, vn, vm, vn])
-    if x.device.type == "cpu":
-        return admm_segment_ref(*inputs, sigma=sigma, alpha=alpha,
-                                n_iters=n_iters, triangular=triangular)
-    lib = _library()
-    outs = [torch.empty_like(t) for t in (x, z, w, y, mu, x, y, mu)]
+    return inputs
+
+
+def _dense_on_card(form, inputs, *, sigma, alpha, n_iters, triangular):
+    """Launch one dense kernel on validated inputs: the one ``form``
+    names, or with ``form=None`` the one :func:`dense_form` picks."""
+    x, z = inputs[11], inputs[12]
+    (B, n), m = x.shape, z.shape[-1]
+    # x z w y mu, then the increments dx dy dmu
+    outs = [torch.empty_like(inputs[i]) for i in (11, 12, 13, 14, 15, 11,
+                                                  14, 15)]
     with _on_card(x.device) as stream:
-        need = lib.porqua_admm_segment_smem_bytes(0, n, m, 0)
-        limit = lib.porqua_max_smem_optin()
-        if need > limit:
-            raise ValueError(_smem_refusal("dense", need, limit, n, m, 0))
-        _launch(lib, "porqua_admm_segment_dense", stream, inputs, outs,
+        if form is None:
+            form = dense_form(n, m, triangular)
+        lib_name, fn_name = _DENSE_LAUNCHER[form]
+        _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, n_iters), sigma, alpha, int(triangular))
-    admm_segment.launches += 1
+    _count(admm_segment, form)
     return tuple(outs)
 
 
-admm_segment.launches = 0
+def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
+                 x, z, w, y, mu, *, sigma: float, alpha: float,
+                 n_iters: int, triangular: bool = False):
+    """Run ``n_iters`` fused ADMM iterations on a batch of scaled
+    problems with a dense operator: ``Kinv`` (B, n, n) holds ``L^-1``
+    (``triangular=True``) or the explicit ``K^-1``. ``C`` is (B, m, n),
+    the vectors (B, n) or (B, m). On the card the kernel is chosen by
+    :func:`dense_form`. Returns ``(x, z, w, y, mu, dx, dy, dmu)``."""
+    inputs = _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
+                           x, z, w, y, mu, n_iters)
+    kw = dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
+              triangular=triangular)
+    if x.device.type == "cpu":
+        return admm_segment_ref(*inputs, **kw)
+    return _dense_on_card(None, inputs, **kw)
+
+
+admm_segment.launches = 0          # both forms
+admm_segment.cluster_launches = 0
+admm_segment.stream_launches = 0
+
+
+def _admm_segment_form(form: str, *args, sigma: float, alpha: float,
+                       n_iters: int, triangular: bool = False):
+    """:func:`admm_segment` on the card through the kernel ``form``
+    names ("cluster" or "stream") instead of the one chosen by shape, so
+    that both forms can be held against the plain twin and timed on the
+    same inputs."""
+    if form not in _DENSE_LAUNCHER:
+        raise ValueError(f"no dense kernel form {form!r}")
+    inputs = _dense_inputs(*args, n_iters)
+    if inputs[0].device.type != "cuda":
+        raise ValueError("a named kernel form runs on a CUDA device only")
+    return _dense_on_card(form, inputs, sigma=sigma, alpha=alpha,
+                          n_iters=n_iters, triangular=triangular)
 
 
 def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:
@@ -231,23 +322,11 @@ def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:
     fit the shared memory of a block and the card can hold such an
     8-block cluster, else ``"stream"`` where the streaming form's state
     fits one block. Raises ValueError where neither fits."""
-    stream_lib = _library(_LIB)
-    cluster_lib = _library(_CLUSTER_LIB)
-    limit = stream_lib.porqua_max_smem_optin()
-    need = cluster_lib.porqua_admm_cluster_smem_bytes(n, m, k, refine_steps)
-    if need <= limit:
-        active = cluster_lib.porqua_admm_cluster_max_active(n, m, k,
-                                                            refine_steps)
-        if active < 0:
-            raise RuntimeError("cluster occupancy query failed: "
-                               f"{_cuda_error(-active)}")
-        if active > 0:
-            return "cluster"
-    need_s = stream_lib.porqua_admm_segment_smem_bytes(1, n, m, k)
-    if need_s <= limit:
-        return "stream"
-    raise ValueError(_smem_refusal("factored", min(need, need_s), limit,
-                                   n, m, k))
+    lib = _library(_CLUSTER_LIB)
+    return _choose_form(
+        "factored", lib.porqua_admm_cluster_smem_bytes(n, m, k, refine_steps),
+        lambda: lib.porqua_admm_cluster_max_active(n, m, k, refine_steps),
+        _library(_LIB).porqua_admm_segment_smem_bytes(1, n, m, k), n, m, k)
 
 
 def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
@@ -281,12 +360,7 @@ def _factored_on_card(form, inputs, *, sigma, alpha, n_iters, refine_steps):
         lib_name, fn_name = _FACTORED_LAUNCHER[form]
         _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, k, n_iters), sigma, alpha, int(refine_steps))
-    counts = admm_segment_factored
-    counts.launches += 1
-    if form == "cluster":
-        counts.cluster_launches += 1
-    else:
-        counts.stream_launches += 1
+    _count(admm_segment_factored, form)
     return tuple(outs)
 
 

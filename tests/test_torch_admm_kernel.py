@@ -186,6 +186,18 @@ def test_factored_twin_matches_pallas_at_cluster_test_shapes(n, m, refine):
     assert_segment_close(port, pallas(fn, args, kw), kw)
 
 
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37])
+@pytest.mark.parametrize("form", ["triangular", "inverse"])
+def test_dense_twin_matches_pallas_at_cluster_test_shapes(form, n, m):
+    """The dense twin, which the dense cluster kernels are held against
+    on the card, at the shapes of that test (ranks without a column,
+    ragged last ranks, extra constraint rows): float64, 1e-9."""
+    fn, args, kw = kernel_inputs(form, np.float64, n=n, m=m)
+    port = tk.admm_segment_ref(*args, **kw)
+    assert_segment_close(port, pallas(fn, args, kw), kw)
+
+
 def test_cpu_wrapper_runs_the_twin_and_counts_nothing():
     fn, args, kw = kernel_inputs("triangular", np.float64)
     before = fn.launches

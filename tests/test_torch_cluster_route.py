@@ -19,15 +19,17 @@ import torch
 
 from porqua_tpu_torch.ops import admm_kernel as tk
 
-from tests.test_torch_cuda import cluster_bytes, stream_bytes
+from tests.test_torch_cuda import (cluster_bytes, dense_cluster_bytes,
+                                   dense_stream_bytes, stream_bytes)
 
 # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
 H100_SMEM = 232448
 
 
 class StubLibrary:
-    """Both kernel libraries at once: sizes from the layouts above, the
-    limit and the cluster occupancy as given, and a log of launches."""
+    """The three kernel libraries at once: sizes from the layouts above,
+    the limit and the cluster occupancy as given, and a log of
+    launches."""
 
     def __init__(self, active=40, limit=H100_SMEM, rc=0):
         self.active, self.limit, self.rc = active, limit, rc
@@ -43,8 +45,21 @@ class StubLibrary:
         return self.active
 
     def porqua_admm_segment_smem_bytes(self, factored, n, m, k):
-        assert factored == 1
-        return stream_bytes(n, m, k)
+        return stream_bytes(n, m, k) if factored else dense_stream_bytes(n, m)
+
+    def porqua_admm_dense_cluster_smem_bytes(self, n, m, triangular):
+        return dense_cluster_bytes(n, m, bool(triangular))
+
+    def porqua_admm_dense_cluster_max_active(self, n, m, triangular):
+        return self.active
+
+    def porqua_admm_segment_dense_cluster(self, *args):
+        self.calls.append(("cluster", args))
+        return self.rc
+
+    def porqua_admm_segment_dense(self, *args):
+        self.calls.append(("stream", args))
+        return self.rc
 
     def porqua_admm_segment_factored_cluster(self, *args):
         self.calls.append(("cluster", args))
@@ -66,9 +81,9 @@ def stub(monkeypatch):
     monkeypatch.setattr(tk, "_library", lambda name=tk._LIB: lib)
     monkeypatch.setattr(tk, "_on_card",
                         lambda device: contextlib.nullcontext(0))
-    f = tk.admm_segment_factored
-    for name in ("launches", "cluster_launches", "stream_launches"):
-        monkeypatch.setattr(f, name, 0)
+    for f in (tk.admm_segment_factored, tk.admm_segment):
+        for name in ("launches", "cluster_launches", "stream_launches"):
+            monkeypatch.setattr(f, name, 0)
     return lib
 
 

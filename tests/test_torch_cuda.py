@@ -84,7 +84,33 @@ def cluster_bytes(n, m, k, refine):
 
 def stream_bytes(n, m, k):
     """admm_segment.cu's smem_floats(factored=true), in bytes."""
-    return 4 * (14 * n + 10 * m + m * n + 5 * n + k + n * m + m * m)
+    return dense_stream_bytes(n, m) + 4 * (5 * n + k + n * m + m * m)
+
+
+def dense_stream_bytes(n, m):
+    """admm_segment.cu's smem_floats(factored=false), in bytes."""
+    return 4 * (14 * n + 10 * m + m * n)
+
+
+def dense_cluster_bytes(n, m, triangular):
+    """admm_segment_dense_cluster.cu's shared memory per block
+    (Layout::total), in bytes: 8 ranks holding L^-1's packed lower
+    columns j = r (mod 8), or 16 holding K^-1's consecutive columns."""
+    def round4(v):
+        return (v + 3) // 4 * 4
+    ranks = 8 if triangular else 16
+    nc = -(-n // ranks)
+    ld, n4 = round4(nc), round4(n)
+    op = (round4(nc * n - ranks * nc * (nc - 1) // 2) if triangular
+          else n * ld)
+    # exchange buffers, then the reduce-scatter slots of t (triangular,
+    # at least a staged 32 x 33 set-up tile) or the warps' partials
+    if triangular:
+        work = max(2 * n4 + round4(2 * ranks * nc), 32 * 33)
+    else:
+        work = 2 * n4 + 8 * ld
+    floats = op + 13 * ld + m * ld + work + 12 + 2 * ranks * m + 7 * m
+    return 4 * floats
 
 
 def need_card():
@@ -93,25 +119,35 @@ def need_card():
 
 
 def factored_counts():
-    f = tk.admm_segment_factored
-    return f.launches, f.cluster_launches, f.stream_launches
+    return counts_of(tk.admm_segment_factored)
 
 
-def assert_matches_twin(fn, out, args, kw, beside=None):
+def counts_of(wrapper):
+    return wrapper.launches, wrapper.cluster_launches, wrapper.stream_launches
+
+
+def assert_matches_twin(fn, out, args, kw, beside=None, cpu_twin=False):
     """Per output, the kernel's distance to the twin run in f64 is at
     most 4x the f32 twin's own, plus two f32 ulps of the output's scale
     per iteration (chip_smoke.py's rule). ``beside``: the outputs of
     another f32 implementation on the same inputs; the 4x then applies
-    to the larger of its distance and the twin's."""
+    to the larger of its distance and the twin's. ``cpu_twin``: the 4x
+    applies to the larger of the f32 twin's distance on the card and on
+    the CPU, two summation orders of the same function: a model of f32
+    rounding noise measured from the twin alone."""
     plain = TWIN[fn](*args, **kw)
     exact = TWIN[fn](*(a.double() for a in args), **kw)
+    others = [] if beside is None else [beside]
+    if cpu_twin:
+        others.append(TWIN[fn](*(a.cpu() for a in args), **kw))
     for i, (a, p, e) in enumerate(zip(out, plain, exact)):
         assert torch.isfinite(a).all(), i
         scale = float(exact[SCALE_OF[i]].abs().max())
         e_k = float((a.double() - e).abs().max())
         e_p = float((p.double() - e).abs().max())
-        if beside is not None:
-            e_p = max(e_p, float((beside[i].double() - e).abs().max()))
+        for other in others:
+            e_p = max(e_p, float((other[i].double().to(e.device) - e)
+                                 .abs().max()))
         assert e_k <= 4.0 * e_p + f32_floor(kw) * scale, (i, e_k, e_p)
 
 
@@ -162,14 +198,18 @@ def test_cluster_kernel_matches_plain_twin(n, m, refine):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("refine", [0, 1])
-def test_factored_shape_beyond_cluster_goes_to_stream(refine):
-    """2,048 assets, k=256: a block's slice of W (256 x 256 floats) is
-    above the shared-memory limit, so the streaming form runs."""
+@pytest.mark.parametrize("n, k", [(2048, 256), (512, 1024)])
+def test_factored_shape_beyond_cluster_goes_to_stream(n, k, refine):
+    """2,048 assets at k=256 and 512 at k=1024: a block's slice of W
+    (256 x 256 or 1024 x 64 floats, with V beside it when refining) is
+    above the shared-memory limit, so the streaming form runs. The long
+    window sums W' t over 1,024 rows, which the streaming form sums in
+    blocks so as to stay within the twin rule."""
     need_card()
-    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=2048,
-                                 window=256, batch=2, refine=refine)
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n,
+                                 window=k, batch=2, refine=refine)
     args = tuple(a.cuda() for a in args)
-    assert tk.factored_form(2048, 1, 256, refine) == "stream"
+    assert tk.factored_form(n, 1, k, refine) == "stream"
     launches, cluster, stream = factored_counts()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -191,6 +231,93 @@ def test_named_factored_form_matches_plain_twin(form):
     assert factored_counts() == (launches + 1, cluster + (form == "cluster"),
                                  stream + (form == "stream"))
     assert_matches_twin(fn, out, args, kw)
+
+
+DENSE = {True: "triangular", False: "inverse"}
+
+
+def dense_call(triangular, n, m, n_iters):
+    """A dense kernel call on the card at n assets and m rows, with the
+    segment cut or stretched to ``n_iters`` iterations."""
+    fn, args, kw = kernel_inputs(DENSE[triangular], np.float32, n=n, m=m)
+    assert fn is tk.admm_segment and kw["triangular"] == triangular
+    return fn, tuple(a.cuda() for a in args), dict(kw, n_iters=n_iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37, 500])
+@pytest.mark.parametrize("triangular", [True, False])
+def test_dense_cluster_kernel_matches_plain_twin(triangular, n, m, n_iters):
+    """The dense cluster forms (L^-1 over 8 ranks, K^-1 over 16) at
+    shapes that stress their column partitions: n=5 and 13 leave ranks
+    without a column, 37 leaves the last ranks ragged, 500 is the
+    headline width. Each launch moves the cluster counter by one and
+    the streaming counter not at all. Held by the twin rule with the
+    twin's noise measured on the card and on the CPU: on the duals (y,
+    dy, mu, dmu) at small n the twin's one run on the card came up to
+    2,700x nearer the f64 answer than its run on the CPU, and the
+    streaming form (PR 1's arithmetic) failed the rule against the card
+    run alone at n=13 and 37 too (scripts/torch_twin_margins.py prints
+    both distances)."""
+    need_card()
+    fn, args, kw = dense_call(triangular, n, m, n_iters)
+    assert tk.dense_form(n, m, triangular) == "cluster"
+    launches, cluster, stream = counts_of(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (launches + 1, cluster + 1, stream)
+    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("triangular", [True, False])
+def test_dense_shape_beyond_cluster_goes_to_stream(triangular):
+    """1,024 assets: rank 0's packed L^-1 columns (258 KB) or a 16th of
+    K^-1 (256 KB) are above the shared-memory limit, so the streaming
+    form runs and matches the twin."""
+    need_card()
+    fn, args, kw = dense_call(triangular, 1024, 1, 25)
+    assert tk.dense_form(1024, 1, triangular) == "stream"
+    launches, cluster, stream = counts_of(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (launches + 1, cluster, stream + 1)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["cluster", "stream"])
+@pytest.mark.parametrize("triangular", [True, False])
+def test_named_dense_form_matches_plain_twin(triangular, form):
+    """Both dense forms at one shape through the private entry that
+    chip_smoke.py times them with, each held by the twin rule with the
+    twin's noise measured on the card and on the CPU (as the dense
+    cluster tests are)."""
+    need_card()
+    fn, args, kw = dense_call(triangular, 37, 1, 25)
+    launches, cluster, stream = counts_of(fn)
+    out = tk._admm_segment_form(form, *args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (launches + 1, cluster + (form == "cluster"),
+                             stream + (form == "stream"))
+    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
+
+
+@pytest.mark.gpu
+def test_dense_cluster_smem_size_is_the_one_the_router_reads():
+    """The dense sizes the CPU routing tests assume
+    (tests/test_torch_dense_route.py) are the C functions' own."""
+    need_card()
+    stream_lib = tk._library(tk._LIB)
+    dense_lib = tk._library(tk._DENSE_LIB)
+    for n, m in [(5, 1), (13, 3), (37, 3), (500, 1), (1024, 1)]:
+        for tri in (True, False):
+            assert dense_lib.porqua_admm_dense_cluster_smem_bytes(
+                n, m, int(tri)) == dense_cluster_bytes(n, m, tri)
+        assert stream_lib.porqua_admm_segment_smem_bytes(
+            0, n, m, 0) == dense_stream_bytes(n, m)
 
 
 @pytest.mark.gpu
@@ -261,20 +388,23 @@ def test_tracking_step_on_card_matches_cpu(form):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["factored_refine0", "factored_refine1"])
+@pytest.mark.parametrize("form", sorted(FORMS))
 def test_tracking_step_on_card_goes_through_cluster(form):
-    """Both woodbury configs run their segments on the cluster kernel
-    and never on the streaming one, and agree with the CPU run."""
+    """Every config (both woodbury ones, trinv and inverse) runs its
+    segments on its cluster kernel and never on the streaming one, and
+    agrees with the CPU run."""
     need_card()
     Xs, ys = pt.synthetic_universe_np(7, 4, 40, 16)
     params = pt.SolverParams(max_iter=2000, eps_abs=1e-5, eps_rel=1e-5,
                              polish=False, scaling_iters=2,
                              backend="pallas", **FORMS[form])
     cpu = pt.tracking_step(Xs, ys, params, device="cpu")
-    launches, cluster, stream = factored_counts()
+    wrapper = (tk.admm_segment_factored if form.startswith("factored")
+               else tk.admm_segment)
+    launches, cluster, stream = counts_of(wrapper)
     card = pt.tracking_step(Xs, ys, params, device="cuda")
     torch.cuda.synchronize()
-    after = factored_counts()
+    after = counts_of(wrapper)
     assert after[1] > cluster and after[2] == stream
     assert after[0] - launches == after[1] - cluster
     assert card.status.cpu().tolist() == cpu.status.tolist()
