@@ -6,6 +6,7 @@ passes ``device="cpu"``. Its kernels (``ops/``) are compiled on first
 use, never at import.
 """
 
+from porqua_tpu_torch.constraints import Constraints
 from porqua_tpu_torch.qp import (
     CanonicalQP,
     QPSolution,
@@ -14,6 +15,35 @@ from porqua_tpu_torch.qp import (
     solve_qp,
     solve_qp_batch,
 )
+from porqua_tpu_torch.estimators.covariance import Covariance, CovarianceSpecification
+from porqua_tpu_torch.estimators.mean import MeanEstimator
+from porqua_tpu_torch.optimization_data import OptimizationData
+from porqua_tpu_torch.optimization import (
+    Optimization,
+    OptimizationParameter,
+    Objective,
+    EmptyOptimization,
+    MeanVariance,
+    QEQW,
+    LeastSquares,
+    WeightedLeastSquares,
+    LAD,
+    PercentilePortfolios,
+)
+from porqua_tpu_torch.selection import Selection
+from porqua_tpu_torch.builders import SelectionItemBuilder, OptimizationItemBuilder
+from porqua_tpu_torch.portfolio import Portfolio, Strategy, floating_weights
+from porqua_tpu_torch.backtest import Backtest, BacktestData, BacktestService
+from porqua_tpu_torch.batch import (
+    FIXED_UNIVERSE,
+    as_requests,
+    build_problems,
+    run_batch,
+    solve_scan_l1,
+    solve_scan_l1_grid,
+    solve_scan_turnover,
+)
+from porqua_tpu_torch.synthetic import synthetic_usa_np
 from porqua_tpu_torch.tracking import (
     TrackingResult,
     build_tracking_qp,
@@ -22,7 +52,18 @@ from porqua_tpu_torch.tracking import (
 )
 
 __all__ = [
-    "CanonicalQP", "QPSolution", "SolverParams", "Status", "TrackingResult",
-    "build_tracking_qp", "solve_qp", "solve_qp_batch",
-    "synthetic_universe_np", "tracking_step",
+    "Constraints", "CanonicalQP", "QPSolution", "SolverParams", "Status",
+    "solve_qp", "solve_qp_batch",
+    "Covariance", "CovarianceSpecification", "MeanEstimator",
+    "OptimizationData", "Optimization", "OptimizationParameter",
+    "Objective", "EmptyOptimization", "MeanVariance", "QEQW",
+    "LeastSquares", "WeightedLeastSquares", "LAD", "PercentilePortfolios",
+    "Selection", "SelectionItemBuilder", "OptimizationItemBuilder",
+    "Portfolio", "Strategy", "floating_weights",
+    "Backtest", "BacktestData", "BacktestService",
+    "FIXED_UNIVERSE", "as_requests", "build_problems", "run_batch",
+    "solve_scan_l1", "solve_scan_l1_grid", "solve_scan_turnover",
+    "synthetic_usa_np",
+    "TrackingResult", "build_tracking_qp", "synthetic_universe_np",
+    "tracking_step",
 ]

@@ -39,3 +39,20 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device) -> ADMMState:
     """An :class:`ADMMState` from a JAX ``ADMMState._asdict()`` whose
     arrays went through ``np.asarray``; dtypes are kept."""
     return _tensors(ADMMState, fields, device)
+
+
+def batch_from_numpy(qp_fields: Mapping[str, np.ndarray], device="cpu",
+                     l1_weight=None, l1_center=None, **meta):
+    """A :class:`porqua_tpu_torch.batch.BatchProblems` from the JAX
+    package's ``BatchProblems``: its stacked ``CanonicalQP._asdict()``
+    through ``np.asarray``, its ``l1_weight``/``l1_center`` (arrays or
+    None) and its host fields (``rebdates``, ``universes``,
+    ``n_assets_max``, ``turnover_rows``, ``constants``) as keywords
+    (an unknown one raises ``TypeError``); dtypes are kept."""
+    from porqua_tpu_torch.batch import BatchProblems
+
+    as_t = lambda a: None if a is None else torch.tensor(np.asarray(a),
+                                                         device=device)
+    return BatchProblems(qp=qp_from_numpy(qp_fields, device),
+                         l1_weight=as_t(l1_weight),
+                         l1_center=as_t(l1_center), **meta)

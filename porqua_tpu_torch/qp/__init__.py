@@ -1,5 +1,5 @@
-"""Canonical QP form, equilibration, the batched ADMM solver and its
-solve API (PyTorch)."""
+"""Canonical QP form, equilibration, the batched ADMM solver, the
+active-set polish and the solve API (PyTorch)."""
 
 from porqua_tpu_torch.qp.admm import ADMMCarry, ADMMState, SolverParams, Status
 from porqua_tpu_torch.qp.canonical import HP, CanonicalQP, pad_qp, stack_qps

@@ -54,6 +54,17 @@ class _PrecisionPolicy:
 HP = _PrecisionPolicy()
 
 
+def as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from ``None`` (float32), a torch dtype, or anything
+    numpy reads as a dtype (``np.float64``, ``"float32"``, a JAX dtype
+    object), so a strategy's ``dtype`` setting carries over unchanged."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
 class CanonicalQP(NamedTuple):
     """One batch of canonical QPs; all fields are tensors with a
     leading batch axis (shapes given per problem)."""
@@ -126,11 +137,12 @@ class CanonicalQP(NamedTuple):
               *,
               device) -> "CanonicalQP":
         """Assemble + pad a single problem (no batch axis) from numpy
-        arrays into tensors on ``device``; ``dtype=None`` means float32.
+        arrays into tensors on ``device``; ``dtype`` goes through
+        :func:`as_torch_dtype` (``None`` means float32).
         ``Pf``/``Pdiag`` expose ``P == 2 Pf' Pf + diag(Pdiag)``, checked
         here by one matvec: a gross mismatch raises, rounding-grade
         drift warns and drops the factor."""
-        dtype = torch.float32 if dtype is None else dtype
+        dtype = as_torch_dtype(dtype)
         P = np.asarray(P, dtype=np.float64)
         q = np.asarray(q, dtype=np.float64).reshape(-1)
         n = q.shape[0]

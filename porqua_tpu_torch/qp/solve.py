@@ -1,9 +1,8 @@
 """Public QP solve API: batched and single.
 
-equilibrate -> ADMM -> unscale, on the device the problem's tensors
-live on. ``solve_qp_batch`` solves a batch (leading axis);
-``solve_qp`` is the one-problem case. The active-set polish of the
-reference is not ported yet: ``params.polish=True`` raises.
+equilibrate -> ADMM -> polish -> unscale, on the device the problem's
+tensors live on. ``solve_qp_batch`` solves a batch (leading axis);
+``solve_qp`` is the one-problem case.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from porqua_tpu_torch.qp.admm import (
     _support,
 )
 from porqua_tpu_torch.qp.canonical import HP, CanonicalQP
+from porqua_tpu_torch.qp.polish import polish_iterate as _polish_iterate
 from porqua_tpu_torch.qp.ruiz import Scaling, equilibrate, equilibrate_factored
 
 
@@ -65,13 +65,6 @@ class QPSolution(NamedTuple):
         return self.status == Status.SOLVED
 
 
-def _require_no_polish(params: SolverParams) -> None:
-    if params.polish:
-        raise NotImplementedError(
-            "polish is not ported yet (it lands in a later slice); pass "
-            "SolverParams(polish=False)")
-
-
 def _prepare_impl(qp: CanonicalQP,
                   params: SolverParams,
                   x0=None,
@@ -109,13 +102,20 @@ def _finalize_impl(qp: CanonicalQP,
                    l1_center=None,
                    l1w_s=None,
                    l1c_s=None) -> QPSolution:
-    """Retire a still-RUNNING lane to MAX_ITER, re-grade it SOLVED if
-    its point meets tolerance, unscale, and assemble the
-    :class:`QPSolution`."""
-    _require_no_polish(params)
+    """Retire a still-RUNNING lane to MAX_ITER, polish, re-grade a
+    MAX_ITER lane SOLVED if its (polished) point meets tolerance,
+    unscale, and assemble the :class:`QPSolution`. This is the
+    "MAX_ITER + polish fallback": a lane retired out of budget still
+    gets the active-set polish."""
     status = torch.where(state.status == Status.RUNNING, Status.MAX_ITER,
                          state.status).to(torch.int32)
     x, z, w, y, mu = state.x, state.z, state.w, state.y, state.mu
+
+    # Active-set polish, prox-aware with a live L1 term (qp/polish.py).
+    if params.polish:
+        x, z, w, y, mu = _polish_iterate(
+            scaled, scaling, params, x, z, w, y, mu,
+            l1_weight=l1w_s, l1_center=l1c_s)
 
     r_prim, r_dual, eps_p, eps_d, _, _ = _residuals(
         scaled, scaling, x, z, w, y, mu, params
@@ -170,7 +170,6 @@ def _solve_impl(qp: CanonicalQP,
                 l1_weight=None,
                 l1_center=None) -> QPSolution:
     HP.check()
-    _require_no_polish(params)
     _, _, solver = _backend(params)
     scaled, scaling, x0_s, y0_s, l1w_s, l1c_s = _prepare_impl(
         qp, params, x0, y0, l1_weight, l1_center)

@@ -411,3 +411,81 @@ def test_tracking_step_on_card_goes_through_cluster(form):
     assert card.iters.cpu().tolist() == cpu.iters.tolist()
     np.testing.assert_allclose(card.weights.cpu().numpy(),
                                cpu.weights.numpy(), atol=1e-4, rtol=0)
+
+
+def small_backtest(optimization, n_assets=8, n_days=300, width=120,
+                   n_dates=4, seed=5):
+    """A BacktestService over a seeded market (a window longer than the
+    universe, so each date's optimum is a point) and its frames."""
+    import pandas as pd
+    from porqua_tpu_torch import builders as tb
+
+    rng = np.random.default_rng(seed)
+    dates = pd.bdate_range("2020-01-01", periods=n_days)
+    X = pd.DataFrame(rng.standard_normal((n_days, n_assets)) * 0.01,
+                     index=dates, columns=[f"A{i}" for i in range(n_assets)])
+    bm = pd.DataFrame({"bm": X.to_numpy() @ rng.dirichlet(np.ones(n_assets))
+                       + rng.standard_normal(n_days) * 0.001}, index=dates)
+    rebdates = [str(d.date()) for d in dates[150::30][:n_dates]]
+    bs = pt.BacktestService(
+        data={"return_series": X, "bm_series": bm},
+        selection_item_builders={
+            "data": pt.SelectionItemBuilder(bibfn=tb.bibfn_selection_data)},
+        optimization_item_builders={
+            "returns": pt.OptimizationItemBuilder(
+                bibfn=tb.bibfn_return_series, width=width),
+            "bm": pt.OptimizationItemBuilder(
+                bibfn=tb.bibfn_bm_series, width=width, align=True),
+            "budget": pt.OptimizationItemBuilder(
+                bibfn=tb.bibfn_budget_constraint),
+            "box": pt.OptimizationItemBuilder(
+                bibfn=tb.bibfn_box_constraints, upper=0.3)},
+        optimization=optimization,
+        settings={"rebdates": rebdates, "quiet": True})
+    return bs, X, bm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("polish", [True, False])
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_run_batch_on_card_matches_cpu(form, polish):
+    """The batched backtest with the library-default polish on the card
+    (kernels) against the CPU run (plain twins): same status and
+    iterations per date, weights within 1e-4, and it goes through the
+    config's kernel."""
+    need_card()
+    params = pt.SolverParams(eps_abs=1e-4, eps_rel=1e-4, polish=polish,
+                             backend="pallas", **FORMS[form])
+    cpu = pt.run_batch(small_backtest(pt.LeastSquares())[0], params,
+                       device="cpu")
+    wrapper = (tk.admm_segment_factored if form.startswith("factored")
+               else tk.admm_segment)
+    before = counts_of(wrapper)
+    card = pt.run_batch(small_backtest(pt.LeastSquares())[0], params,
+                        device="cuda")
+    assert counts_of(wrapper)[0] > before[0]
+    for k in ("status", "iters"):
+        assert card.output["batch"][k].tolist() == cpu.output["batch"][k].tolist()
+    w_card = card.strategy.get_weights_df().to_numpy(float)
+    w_cpu = cpu.strategy.get_weights_df().to_numpy(float)
+    np.testing.assert_allclose(w_card, w_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_serial_backtest_and_accounting_on_card():
+    """Backtest.run and simulate_strategy on the card against the CPU
+    (f64: the plain path, no kernel)."""
+    from porqua_tpu_torch.accounting import simulate_strategy
+
+    need_card()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        bs, X, bm = small_backtest(pt.MeanVariance(
+            dtype=np.float64, eps_abs=1e-8, eps_rel=1e-8, max_iter=20000))
+        bt = pt.Backtest()
+        bt.run(bs, device=dev)
+        runs[dev] = (bt.strategy.get_weights_df().to_numpy(float),
+                     simulate_strategy(bt.strategy, X, vc=0.001, fc=0.01,
+                                       device=dev).to_numpy())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-7)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], atol=1e-9)

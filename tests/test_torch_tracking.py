@@ -194,7 +194,6 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("over, exc", [
-    (dict(polish=True), NotImplementedError),
     (dict(method="pdhg"), NotImplementedError),
     (dict(method="napg"), NotImplementedError),
     (dict(method="lbfgs"), ValueError),
@@ -209,16 +208,33 @@ def test_unported_options_raise(over, exc):
 
 
 def test_port_imports_no_jax():
-    """The port imports and solves with JAX made unimportable, and
-    pulls in no module of the JAX package."""
+    """The port imports every module, solves and runs a batched
+    backtest with JAX made unimportable, and pulls in no module of the
+    JAX package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "import porqua_tpu_torch as pt\n"
+        "for m in pkgutil.walk_packages(pt.__path__, 'porqua_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "Xs, ys = pt.synthetic_universe_np(1, 2, 20, 8)\n"
         "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
         "backend='pallas'), device='cpu')\n"
         "assert r.status.tolist() == [1, 1], r.status\n"
+        "from porqua_tpu_torch import builders as tb\n"
+        "X, _ = pt.synthetic_usa_np(n_days=300, n_assets=12)\n"
+        "bm = X.mean(axis=1).to_frame('bm')\n"
+        "O = pt.OptimizationItemBuilder\n"
+        "bs = pt.BacktestService(data={'return_series': X, 'bm_series': bm},"
+        " selection_item_builders={'d': pt.SelectionItemBuilder("
+        "bibfn=tb.bibfn_selection_data)}, optimization_item_builders={"
+        "'r': O(bibfn=tb.bibfn_return_series, width=60), 'b': O("
+        "bibfn=tb.bibfn_bm_series, width=60, align=True), 'u': O("
+        "bibfn=tb.bibfn_budget_constraint), 'x': O("
+        "bibfn=tb.bibfn_box_constraints)}, optimization=pt.LeastSquares(),"
+        " settings={'rebdates': ['2018-06-01', '2018-09-03'], 'quiet': True})\n"
+        "bt = pt.run_batch(bs, device='cpu')\n"
+        "assert bt.output['batch']['status'].tolist() == [1, 1]\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
         "assert not bad, bad\n"
