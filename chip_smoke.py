@@ -39,7 +39,22 @@ printed):
    host-to-device copy, solve, polish and accounting times, launches
    per form, and the checks listed at ``backtest_phase``. Each config's
    segment kernel is also held against its plain twin at this shape.
-6. One JSON line per kernel, then the card line, then the result line.
+6. The date-chained backtests, against the JAX golden
+   (``porqua_tpu_torch/testdata/scan_golden.npz``; checks listed at
+   ``scan_phases`` and ``turnover_phase``): ``solve_scan_l1`` over 64
+   dates of the 500-asset universe (the factored kernel in its cluster
+   form at one problem per launch, the L1 cost on, each date
+   warm-started from the last), ``solve_scan_l1_grid`` over 8 benchmark
+   columns (the triangular-inverse kernel at 8 problems per launch),
+   the checkpointed runners killed by an injected crash and resumed
+   (bit-identical to an uninterrupted run), and ``solve_scan_turnover``
+   on ``examples/backtest_usa.py``'s configuration 2 (f64, the plain
+   path, no kernel). Each date is held from the golden's carry, and the
+   grid's chain by a twin rule against the f64 chain; controls with a
+   faulty carry must fail the checks. Each chain's kernel call on its
+   third date is held against its plain twin and timed; one
+   ``solve_scan_l1`` run is profiled.
+7. One JSON line per kernel, then the card line, then the result line.
 """
 
 import dataclasses
@@ -88,6 +103,41 @@ TE_RTOL = 1e-4
 # face) at most KERNEL_VS_PLAIN times XLA-CPU's.
 BT_PATH = os.path.join("porqua_tpu_torch", "testdata",
                        "backtest_usa_golden.npz")
+# The date-chained backtests (scan phases) hold the card against the
+# JAX package on XLA-CPU. The L1 chain and its grid: each date solved
+# alone from the golden's carry by W_ATOL/TE_RTOL above, with equal status
+# and iterations; the chain as the entry point runs it by status on every
+# date. Its weights drift from chain to chain: each date's optimum is a
+# face, so a last-bit difference that moves one date's stopping point
+# stays in every later date's L1 center (ROADMAP section C). The grid's
+# chain is held by the chain twin rule: per lane, the card's largest
+# distance over the dates to the f64 chain at most CHAIN_VS_TWIN times
+# the largest of three f32 twins' (XLA-CPU's chain, the plain path on
+# the card and on the CPU). Healthy f32 chains of one algorithm differ
+# in that distance by up to 10.9x (the card's plain path against the
+# kernel's and the CPU's on lane 0 at seed 7, H100 SXM 700 W; 11.2x
+# between XLA-CPU and the port on the CPU at a small size,
+# scripts/torch_scan_drift.py and tests/test_torch_scan.py), so the rule
+# takes 16, not KERNEL_VS_PLAIN; a chain whose holdings never advance
+# sits 1,140x off on the card. The single chain's rule is printed, not
+# held: there even two f64 chains (the card's plain path, XLA-CPU) end
+# 1.7e-2 apart, and the chain whose holdings never advance is no
+# farther from the f64 chain than a sound one.
+SCAN_PATH = os.path.join("porqua_tpu_torch", "testdata", "scan_golden.npz")
+CHAIN_VS_TWIN = 16.0
+USA_WIDTH, USA_UPPER, USA_BUDGET = 252, 0.05, 0.25
+# examples/backtest_usa.py configuration 2 (f64, eps 1e-8, the plain
+# path) by status on every date, |dw| <= USA_W_ATOL and its turnover
+# budget to 1e-6. Its weights are fixed only to about the residual over
+# the ridge's modulus (1e-8 / 2e-4). The limit sits between the sound
+# readings (the card 7.4e-5; the port on the CPU, f64 as XLA-CPU,
+# 2.0e-4 over the chain, ROADMAP section C) and the controls over the
+# first USA_CONTROL_DATES dates (holdings never advanced: 1.05e-3 to
+# 1.73e-3 on dates 1-5 on the card; rows written one row early: no date
+# solved), and is the bound the example's own serial and scan engines
+# are held to (tests/test_backtest_usa.py).
+USA_W_ATOL = 5e-4
+USA_CONTROL_DATES = 6
 FAILURES = []
 
 
@@ -216,6 +266,27 @@ def check_twin(out_k, out_p, out_64, kw, out_cpu=None):
     return ok, max(errs), max(rels), floor
 
 
+def usa_service(X, bm, rebdates, meta):
+    """``examples/backtest_usa.py``'s configuration 1 (budget and box,
+    LeastSquares) as a BacktestService of the port."""
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import builders as tb
+
+    O = pt.OptimizationItemBuilder
+    return pt.BacktestService(
+        data={"return_series": X, "bm_series": bm},
+        selection_item_builders={
+            "data": pt.SelectionItemBuilder(bibfn=tb.bibfn_selection_data)},
+        optimization_item_builders={
+            "returns": O(bibfn=tb.bibfn_return_series, width=meta["width"]),
+            "bm": O(bibfn=tb.bibfn_bm_series, width=meta["width"],
+                    align=True),
+            "budget": O(bibfn=tb.bibfn_budget_constraint),
+            "box": O(bibfn=tb.bibfn_box_constraints, upper=meta["upper"])},
+        optimization=pt.LeastSquares(),
+        settings={"rebdates": rebdates, "quiet": True})
+
+
 def backtest_phase(rows, reset_counts):
     """The backtest on the card for both configs; returns the kernel
     rows it adds to ``rows`` (keyed like the tracking rows).
@@ -241,7 +312,6 @@ def backtest_phase(rows, reset_counts):
 
     import porqua_tpu_torch as pt
     from porqua_tpu_torch import batch as tbatch
-    from porqua_tpu_torch import builders as tb
     from porqua_tpu_torch.accounting import (performance_summary,
                                              simulate_strategy)
     from porqua_tpu_torch.ops import admm_kernel
@@ -260,23 +330,7 @@ def backtest_phase(rows, reset_counts):
           f"[backtest] {len(rebdates)} rebalance dates")
 
     def service():
-        return pt.BacktestService(
-            data={"return_series": X, "bm_series": bm},
-            selection_item_builders={
-                "data": pt.SelectionItemBuilder(
-                    bibfn=tb.bibfn_selection_data)},
-            optimization_item_builders={
-                "returns": pt.OptimizationItemBuilder(
-                    bibfn=tb.bibfn_return_series, width=meta["width"]),
-                "bm": pt.OptimizationItemBuilder(
-                    bibfn=tb.bibfn_bm_series, width=meta["width"],
-                    align=True),
-                "budget": pt.OptimizationItemBuilder(
-                    bibfn=tb.bibfn_budget_constraint),
-                "box": pt.OptimizationItemBuilder(
-                    bibfn=tb.bibfn_box_constraints, upper=meta["upper"])},
-            optimization=pt.LeastSquares(),
-            settings={"rebdates": rebdates, "quiet": True})
+        return usa_service(X, bm, rebdates, meta)
 
     def weights(strategy):
         return (strategy.get_weights_df().reindex(columns=X.columns)
@@ -490,6 +544,673 @@ def backtest_phase(rows, reset_counts):
         for k, fn in originals.items():
             setattr(tsolve, k, fn)
     return added
+
+
+def kernel_row(rows, key, rname, base, fn, args, kw, launches):
+    """Hold one kernel call against its plain twin (its distance the
+    larger of its runs on the card and the CPU), time it and its twin,
+    and add its row to ``rows`` under ``key``."""
+    import torch
+
+    from porqua_tpu_torch.ops import admm_kernel
+
+    plain = (admm_kernel.admm_segment_ref if fn is admm_kernel.admm_segment
+             else admm_kernel.admm_segment_factored_ref)
+    out_k = fn(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = plain(*args, **kw)
+    out_64 = plain(*(a.double() for a in args), **kw)
+    out_cpu = plain(*(a.cpu() for a in args), **kw)
+    print(f"kernel {rname} against its plain twin (its distance the larger "
+          f"of its runs on the card and the CPU):", flush=True)
+    ok, err, rel, tfloor = check_twin(out_k, out_p, out_64, kw, out_cpu)
+    check(ok, f"{rname} agrees with its plain twin: per output |kernel-f64| "
+          f"<= {KERNEL_VS_PLAIN:g} |plain-f64| + {tfloor:.3g} scale")
+    flops, nbytes = work(rname, args, kw)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, 5)
+    moved = traffic(rname, args, kw)
+    dense = fn is admm_kernel.admm_segment
+    smem, active = cluster_shape(dense, args, kw)
+    rows[key] = {
+        "name": rname,
+        "route": "cuda",
+        "source": rows[base]["source"],
+        "replaces": rows[base]["replaces"],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+    print(f"time {rname}: B={args[-1].shape[0]} n_iters={kw['n_iters']}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{rows[key]['bound_ms']:.4f} ms ({rows[key]['bound_by']}; "
+          f"{flops:.4g} flop, {nbytes:.4g} B); design moves "
+          f"{moved / 1e9:.4f} GB per launch; {smem} B of shared memory per "
+          f"block, {active} clusters resident at once; max_abs_err "
+          f"{err:.3e} (max_rel {rel:.3e})", flush=True)
+
+
+def in_sample_te(Xs, ys, w):
+    """Per date ``sqrt(mean((X_t w_t - y_t)^2))`` over the window."""
+    import numpy as np
+
+    resid = np.einsum("btn,bn->bt", Xs.astype(np.float64),
+                      w.astype(np.float64)) - ys
+    return np.sqrt(np.mean(resid ** 2, axis=1))
+
+
+def chain_turnover(w_init, w):
+    """sum_t ||w_t - w_{t-1}||_1 along the chain, from ``w_init``."""
+    import numpy as np
+
+    prev = np.vstack([w_init[None], w[:-1]])
+    return float(np.abs(w - prev).sum())
+
+
+def same_bits(a, b):
+    """Every field of two QPSolutions equal, bit for bit."""
+    import torch
+
+    return all((x is None and y is None) or (
+        x is not None and y is not None and torch.equal(x, y))
+        for x, y in zip(a, b))
+
+
+def per_date(qp, w0, params, date_problem, x_prev, y_prev):
+    """A chain's per-date function alone (``batch._scan_dates`` with the
+    per-date problem ``date_problem``): date 0 from ``w0`` and a cold
+    start, every date t >= 1 from a given carry of date t - 1
+    (``x_prev`` / ``y_prev`` with leading ``(lanes, T)`` axes, ``x_prev``
+    also the holdings), rather than from this run's own date t - 1. For
+    holding each date against a reference chain without the chain's
+    amplification of rounding."""
+    import torch
+
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.qp.canonical import CanonicalQP
+    from porqua_tpu_torch.qp.solve import QPSolution
+
+    sols = []
+    for t in range(qp.q.shape[1]):
+        q = CanonicalQP(*(None if f is None else f[:, t:t + 1] for f in qp))
+        w, x0, y0 = ((w0, None, None) if t == 0 else
+                     (x_prev[:, t - 1], x_prev[:, t - 1], y_prev[:, t - 1]))
+        sols.append(tbatch._scan_dates(q, w, params, date_problem,
+                                       x_init=x0, y_init=y0))
+    return QPSolution(*(None if f[0] is None else torch.cat(f, dim=1)
+                        for f in zip(*sols)))
+
+
+def scan_kernel_call(qp, w0, l1w, params, date):
+    """The fused-segment call that the first segment of ``date`` makes
+    in ``batch._scan_l1_core`` (``qp`` with leading ``(lanes, T)``
+    axes): the scaled-frame L1 term and the warm carry that the chain
+    hands the kernel there, as ``(wrapper, args, kwargs)`` of
+    ``qp.admm.segment_kernel_call``. For holding a kernel against its
+    plain twin on the scan's own inputs."""
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.qp.admm import admm_init, segment_kernel_call
+    from porqua_tpu_torch.qp.canonical import CanonicalQP
+    from porqua_tpu_torch.qp.solve import _prepare_impl
+
+    head = CanonicalQP(*(None if f is None else f[:, :date] for f in qp))
+    _, (w_prev, x_prev, y_prev) = tbatch._scan_l1_core(
+        head, w0, l1w, params, return_carry=True)
+    scaled, _, x0_s, y0_s, l1w_s, l1c_s = _prepare_impl(
+        tbatch._date(qp, date), params, x_prev, y_prev,
+        l1w.expand_as(w_prev), w_prev)
+    return segment_kernel_call(admm_init(scaled, params, x0_s, y0_s),
+                               scaled, params, l1w_s, l1c_s)
+
+
+def scan_phases(rows, reset_counts):
+    """The date-chained backtests on the card; returns the kernel rows
+    they add to ``rows``. Checks listed in each phase's messages; the
+    goldens are the JAX package's on XLA-CPU
+    (``porqua_tpu_torch/testdata/scan_golden.npz``, written by
+    ``tests/test_torch_scan.py --write-golden``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.checkpoint import (run_batch_checkpointed,
+                                             solve_scan_l1_checkpointed)
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.resilience import faults
+    from porqua_tpu_torch.synthetic import (synthetic_usa_np,
+                                            usa_benchmark_np, usa_rebdates)
+    from porqua_tpu_torch.tracking import benchmark_grid_np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SCAN_PATH))
+    meta = json.loads(str(golden["meta"]))
+    T, n, B, tc = (meta["n_dates"], meta["n_assets"], meta["n_columns"],
+                   meta["tc"])
+    fixed = pt.FIXED_UNIVERSE
+    dev = torch.device("cuda")
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+
+    def params(phase, **over):
+        return pt.SolverParams(**{**json.loads(str(golden[f"{phase}/params"])),
+                                  **over})
+
+    def counts(wrapper):
+        return {"cluster": wrapper.cluster_launches,
+                "stream": wrapper.stream_launches}
+
+    def run(fn):
+        """``fn()`` twice (the first includes the warm-up), the launch
+        counts set to 0 before and read after each; returns the second
+        run's result, wall ms and counts."""
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            got = (counts(K1), counts(K2))
+        return out, wall, got
+
+    def np_of(sol):
+        return {k: getattr(sol, k).cpu().numpy() for k in
+                ("x", "status", "iters")}
+
+    def forced(qp_l, w_first, l1w, prm, gx, gy):
+        """Each date solved alone from the golden's carry of the date
+        before (its x and y, and its x as the holdings: the golden
+        solved every date): the chain's per-date function, without the
+        chain's amplification of rounding."""
+        return per_date(qp_l, w_first, prm, tbatch._l1_cost(l1w),
+                        torch.as_tensor(gx, device=dev),
+                        torch.as_tensor(gy, device=dev))
+
+    def against_golden(tag, got, g):
+        """Status, iterations and |dw| <= W_ATOL on every date."""
+        dw = np.abs(got["x"] - g["x"]).max(axis=-1)
+        check(np.array_equal(got["status"], g["status"]),
+              f"[{tag}] status equals the JAX golden on every date "
+              f"({int((got['status'] == 1).sum())}/{got['status'].size} "
+              f"solved)")
+        check(np.array_equal(got["iters"], g["iters"]),
+              f"[{tag}] iterations equal the JAX golden on every date")
+        check(bool(np.isfinite(got["x"]).all()) and got["x"].shape ==
+              g["x"].shape and float(dw.max()) <= W_ATOL,
+              f"[{tag}] weights finite, shape {got['x'].shape}, per-date "
+              f"max|dw| {float(dw.max()):.3e} <= {W_ATOL:g} (median "
+              f"{float(np.median(dw)):.3e})")
+        return dw
+
+    def free_chain(tag, got, phase, twins, control, hold):
+        """The chain as the entry point runs it: status on every date
+        (each date's solution meets eps on its own problem, given its
+        own carry), finite weights of the golden's shape, and, where
+        ``hold``, the weights by the chain twin rule (CHAIN_VS_TWIN): per
+        lane, the card's largest distance over the dates to the f64
+        chain (the golden's ``x_f64``) at most CHAIN_VS_TWIN times the
+        largest of its f32 twins' (XLA-CPU's chain, the golden's ``x``,
+        and the same chain on the plain path, ``twins``); ``control``,
+        the chain whose holdings never advance, must fail that rule.
+        Where not ``hold``, the rule's readings are printed."""
+        g = {k: golden[f"{phase}/{k}"] for k in ("x", "status", "iters")}
+        check(np.array_equal(got["status"], g["status"])
+              and bool(np.isfinite(got["x"]).all())
+              and got["x"].shape == g["x"].shape,
+              f"[{tag}] status equals the JAX golden on every date "
+              f"({int((got['status'] == 1).sum())}/{got['status'].size} "
+              f"solved), weights finite, shape {got['x'].shape}")
+        x64 = golden[f"{phase}/x_f64"].astype(np.float64)
+
+        def drift(x):
+            """Per lane, the largest max|x - x64| over the dates."""
+            d = np.abs(x - x64).max(axis=-1)
+            return d.reshape(-1, d.shape[-1]).max(axis=-1)
+
+        def fmt(v):
+            return [float(f"{e:.3e}") for e in v]
+
+        d_twins = {"XLA-CPU": drift(g["x"]),
+                   **{k: drift(v["x"]) for k, v in twins.items()}}
+        twin = np.maximum.reduce(list(d_twins.values()))
+        d_card, d_ctrl = drift(got["x"]), drift(control["x"])
+        rule = (f"[{tag}] the chain's weights by the chain twin rule: per "
+                f"lane, the card's largest distance to the f64 chain "
+                f"{fmt(d_card)} <= {CHAIN_VS_TWIN:g} x the largest of its "
+                f"f32 twins' ({'; '.join(f'{k} {fmt(v)}' for k, v in d_twins.items())}"
+                f"); largest ratio {float((d_card / twin).max()):.3f}")
+        ctrl = (f"distance to the f64 chain {fmt(d_ctrl)}, largest ratio "
+                f"{float((d_ctrl / twin).max()):.1f}")
+        if hold:
+            check(bool((d_card <= CHAIN_VS_TWIN * twin).all()), rule)
+            check(bool((d_ctrl > CHAIN_VS_TWIN * twin).any()),
+                  f"[{tag} control: holdings never advanced] the rule fails "
+                  f"it: {ctrl}")
+        else:
+            print(f"{rule} (printed, not held)\n[{tag} control: holdings "
+                  f"never advanced] {ctrl} (printed)", flush=True)
+        dw = np.abs(got["x"] - g["x"]).max(axis=-1).reshape(-1)
+        same = (got["iters"] == g["iters"]).reshape(-1)
+        print(f"[{tag}] the free chain: iterations equal the golden on "
+              f"{int(same.sum())}/{same.size} dates (first other at flat "
+              f"date {int(np.argmin(same)) if not same.all() else None}); "
+              f"max|dw| vs golden per date, first 8 "
+              f"{np.round(dw[:8], 9).tolist()}, largest "
+              f"{float(dw.max()):.3e} at {int(dw.argmax())}", flush=True)
+        return g
+
+    def held_still(qp_l, w_first, l1w, prm):
+        """The control: the L1 chain with its cost centered on the
+        holdings before date 0 on every date."""
+        l1 = tbatch._l1_cost(l1w)
+        return np_of(tbatch._scan_dates(qp_l, w_first, prm,
+                                        lambda qp_t, w: l1(qp_t, w_first)))
+
+    # -- the inputs: one universe, 64 dates, 8 benchmark columns --------
+    t0 = time.perf_counter()
+    Xs_np, ys_np = pt.synthetic_universe_np(meta["seed"], T, meta["window"],
+                                            n)
+    Ys_np = benchmark_grid_np(Xs_np, ys_np, B)
+    Xs = torch.as_tensor(Xs_np, device=dev)
+    qp = pt.build_tracking_qp(Xs, torch.as_tensor(ys_np, device=dev))
+    cols = [pt.build_tracking_qp(Xs, torch.as_tensor(y, device=dev))
+            for y in Ys_np]
+    grid = pt.CanonicalQP(*(None if f[0] is None else torch.stack(f)
+                            for f in zip(*cols)))
+    del cols
+    # The same problems on the host, for the port's plain path on the CPU.
+    qp_cpu = pt.build_tracking_qp(torch.as_tensor(Xs_np),
+                                  torch.as_tensor(ys_np))
+    grid_cpu = pt.CanonicalQP(*(None if f[0] is None else torch.stack(f)
+                                for f in zip(*(pt.build_tracking_qp(
+                                    torch.as_tensor(Xs_np),
+                                    torch.as_tensor(y)) for y in Ys_np))))
+    torch.cuda.synchronize()
+    print(f"scan inputs: {T} dates x {meta['window']} days x {n} assets, "
+          f"{B} benchmark columns, problems built on the card in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+    w_init = np.full(n, 1.0 / n, np.float32)
+    lanes = tbatch._lanes(qp)
+    w0 = torch.as_tensor(w_init, device=dev)[None]
+    l1w = tbatch._l1_weight(n, n, tc, torch.float32, dev)
+    added = []
+
+    # -- scan_l1: K1 cluster at B = 1, L1 on, warm carry ----------------
+    prm = params("scan_l1", backend="pallas")
+    sol, wall, (c1, c2) = run(lambda: pt.solve_scan_l1(
+        qp, n, w_init, tc, prm, universes=fixed))
+    got = np_of(sol)
+    plain = dataclasses.replace(prm, backend="xla")
+    plain_sol, plain_wall, _ = run(lambda: pt.solve_scan_l1(
+        qp, n, w_init, tc, plain, universes=fixed))
+    cpu_sol = pt.solve_scan_l1(qp_cpu, n, w_init, tc, plain, universes=fixed,
+                               device="cpu")
+    g = free_chain("scan_l1", got, "scan_l1",
+                   {"plain path, card": np_of(plain_sol),
+                    "plain path, CPU": np_of(cpu_sol)},
+                   held_still(lanes, w0, l1w, prm), hold=False)
+    segs = got["iters"] // prm.check_interval
+    check(c1["cluster"] == int(segs.sum()) and c1["stream"] == 0
+          and c2["cluster"] + c2["stream"] == 0,
+          f"[scan_l1] one K1 cluster launch per segment on every date "
+          f"({c1['cluster']} = {int(segs.sum())} segments), no streaming "
+          f"or dense launch")
+    t0 = time.perf_counter()
+    fsol = np_of(pt.QPSolution(*(None if f is None else f[0] for f in forced(
+        lanes, w0, l1w, prm, g["x"][None], golden["scan_l1/y"][None]))))
+    forced_ms = (time.perf_counter() - t0) * 1e3
+    against_golden("scan_l1 per date", fsol, g)
+    te, g_te = (in_sample_te(Xs_np, ys_np, fsol["x"]),
+                in_sample_te(Xs_np, ys_np, g["x"]))
+    te_rel = abs(float(np.median(te)) - float(np.median(g_te))) / float(
+        np.median(g_te))
+    check(te_rel <= TE_RTOL, f"[scan_l1 per date] median in-sample TE "
+          f"{float(np.median(te)):.6e} within {TE_RTOL:g} relative of the "
+          f"golden's {float(np.median(g_te)):.6e} ({te_rel:.3e})")
+    x64 = golden["scan_l1/x_f64"].astype(np.float64)
+    print(f"scan_l1: {wall:.1f} ms end to end for {T} dates "
+          f"({wall / T:.2f} ms per date; plain path {plain_wall:.1f} ms; "
+          f"the {T} dates from the golden's carry {forced_ms:.1f} ms); "
+          f"segments per date {segs.mean():.3f} (iters "
+          f"{sorted(set(got['iters'].tolist()))}); launches {c1}; chained "
+          f"turnover {chain_turnover(w_init, got['x']):.6f} (golden "
+          f"{chain_turnover(w_init, g['x']):.6f}, f64 chain "
+          f"{chain_turnover(w_init, x64):.6f}); median in-sample TE "
+          f"{float(np.median(in_sample_te(Xs_np, ys_np, got['x']))):.6e} "
+          f"(golden {float(np.median(g_te)):.6e}, f64 chain "
+          f"{float(np.median(in_sample_te(Xs_np, ys_np, x64))):.6e})",
+          flush=True)
+    scan_sol = sol
+    fn, args, kw = scan_kernel_call(lanes, w0, l1w, prm, 2)
+    check(fn is K1 and admm_kernel.factored_form(
+        n, 1, args[0].shape[-2], prm.woodbury_refine) == "cluster",
+        "[scan_l1] the chain's kernel call is K1 in its cluster form")
+    kernel_row(rows, ("scan_l1", "cluster"),
+               "admm_segment_factored_cluster[refine=0]@scan",
+               ("woodbury", "cluster"), fn, args, kw, c1["cluster"])
+    added.append(("scan_l1", "cluster"))
+    profile_run(lambda: pt.solve_scan_l1(qp, n, w_init, tc, prm,
+                                         universes=fixed), "profile [scan_l1]")
+
+    # -- scan_l1_grid: K2 cluster at B = 8 ------------------------------
+    prm_g = params("scan_l1_grid", backend="pallas")
+    w_grid = np.tile(w_init, (B, 1))
+    w0g = torch.as_tensor(w_grid, device=dev)
+    sol_g, wall_g, (c1, c2) = run(lambda: pt.solve_scan_l1_grid(
+        grid, n, w_grid, tc, prm_g, universes=fixed))
+    got_g = np_of(sol_g)
+    plain = dataclasses.replace(prm_g, backend="xla")
+    plain_g, plain_wall_g, _ = run(lambda: pt.solve_scan_l1_grid(
+        grid, n, w_grid, tc, plain, universes=fixed))
+    cpu_g = pt.solve_scan_l1_grid(grid_cpu, n, w_grid, tc, plain,
+                                  universes=fixed, device="cpu")
+    g_g = free_chain("scan_l1_grid", got_g, "scan_l1_grid",
+                     {"plain path, card": np_of(plain_g),
+                      "plain path, CPU": np_of(cpu_g)},
+                     held_still(grid, w0g, l1w, prm_g), hold=True)
+    segs_g = got_g["iters"] // prm_g.check_interval
+    check(c2["cluster"] == int(segs_g.max(axis=0).sum()) and c2["stream"] == 0
+          and c1["cluster"] + c1["stream"] == 0,
+          f"[scan_l1_grid] one K2 cluster launch per segment of every date's "
+          f"{B}-lane batch ({c2['cluster']} = {int(segs_g.max(axis=0).sum())}"
+          f"), no streaming or factored launch")
+    gy_g = golden["scan_l1_grid/y"]
+    fsol_g = forced(grid, w0g, l1w, prm_g, g_g["x"], gy_g)
+    against_golden("scan_l1_grid per date", np_of(fsol_g), g_g)
+    # Lane 0 of the grid against the single-column scan of column 0, each
+    # date from the same golden carry.
+    col0 = forced(lanes, w0, l1w, prm_g, g_g["x"][:1], gy_g[:1])
+    lane0 = pt.QPSolution(*(None if f is None else f[:1] for f in fsol_g))
+    c0, l0 = np_of(col0), np_of(lane0)
+    d0 = float(np.abs(l0["x"] - c0["x"]).max())
+    check(np.array_equal(l0["status"], c0["status"])
+          and np.array_equal(l0["iters"], c0["iters"]) and d0 <= W_ATOL,
+          f"[scan_l1_grid] lane 0 equals the single-column scan of column 0 "
+          f"with the same params, each date from the same carry: status and "
+          f"iterations on every date, max|dw| {d0:.3e} <= {W_ATOL:g}; bit "
+          f"for bit: {same_bits(lane0, col0)}")
+    print(f"scan_l1_grid: {wall_g:.1f} ms end to end for {T} dates x {B} "
+          f"columns ({wall_g / T:.2f} ms per date; plain path "
+          f"{plain_wall_g:.1f} ms); segments per date "
+          f"{segs_g.max(axis=0).mean():.3f} (iters "
+          f"{sorted(set(got_g['iters'].ravel().tolist()))}); launches {c2}; "
+          f"chained turnover per column "
+          f"{[round(chain_turnover(w_init, got_g['x'][b]), 6) for b in range(B)]}"
+          f" (golden "
+          f"{[round(chain_turnover(w_init, g_g['x'][b]), 6) for b in range(B)]}"
+          f")", flush=True)
+    fn, args, kw = scan_kernel_call(grid, w0g, l1w, prm_g, 2)
+    check(fn is K2 and kw["triangular"] and admm_kernel.dense_form(
+        n, 1, True) == "cluster",
+        "[scan_l1_grid] the grid's kernel call is K2 in its cluster form")
+    kernel_row(rows, ("scan_l1_grid", "cluster"),
+               "admm_segment[triangular]_cluster@grid", ("trinv", "cluster"),
+               fn, args, kw, c2["cluster"])
+    added.append(("scan_l1_grid", "cluster"))
+    del grid, grid_cpu, sol_g, fsol_g, plain_g, cpu_g
+
+    # -- scan_l1_checkpointed: crash at the seam, resume ----------------
+    crash = faults.Scenario("crash", (faults.FaultSpec.make(
+        "backtest.chunk", "crash", start=1, count=1),))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full, info = solve_scan_l1_checkpointed(
+            qp, n, w_init, tc, os.path.join(tmp, "full"), prm,
+            segment_size=16, universes=fixed)
+        torch.cuda.synchronize()
+        ck_ms = (time.perf_counter() - t0) * 1e3
+        crashed = False
+        with faults.active(crash):
+            try:
+                solve_scan_l1_checkpointed(
+                    qp, n, w_init, tc, os.path.join(tmp, "cut"), prm,
+                    segment_size=16, universes=fixed)
+            except faults.InjectedCrash:
+                crashed = True
+        t0 = time.perf_counter()
+        resumed, info2 = solve_scan_l1_checkpointed(
+            qp, n, w_init, tc, os.path.join(tmp, "cut"), prm,
+            segment_size=16, universes=fixed)
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        check(crashed and info["total_segments"] == 4
+              and info2["resumed_segments"] == 2,
+              f"[scan_l1_checkpointed] the crash at the backtest.chunk seam "
+              f"after segment 1 ended the run; the rerun resumed "
+              f"{info2['resumed_segments']} of {info2['total_segments']} "
+              f"segments")
+        check(same_bits(resumed, full),
+              "[scan_l1_checkpointed] resumed run bit-identical to the "
+              "uninterrupted checkpointed run (every field)")
+        check(same_bits(full, scan_sol),
+              "[scan_l1_checkpointed] checkpointed run bit-identical to "
+              "the plain solve_scan_l1 run (every field)")
+        print(f"scan_l1_checkpointed: uninterrupted {ck_ms:.1f} ms ({T} dates "
+              f"in {info['total_segments']} segments of 16, with the saves); "
+              f"resume of the last {info2['total_segments'] - 2} segments "
+              f"{resume_ms:.1f} ms", flush=True)
+
+        bt_golden = np.load(os.path.join(here, BT_PATH))
+        bmeta = json.loads(str(bt_golden["meta"]))
+        X, _ = synthetic_usa_np(n_days=bmeta["n_days"],
+                                n_assets=bmeta["n_assets"])
+        bm = usa_benchmark_np(X)
+        rebdates = usa_rebdates(X.index)
+        p = json.loads(str(bt_golden["usa_trinv/params"]))
+        prm_u = pt.SolverParams(**{**p, "backend": "pallas"})
+
+        def ck_run(d):
+            return run_batch_checkpointed(usa_service(X, bm, rebdates, bmeta),
+                                          os.path.join(tmp, d),
+                                          chunk_size=16, params=prm_u)
+
+        t0 = time.perf_counter()
+        bt_full = ck_run("usa_full")
+        torch.cuda.synchronize()
+        usa_ms = (time.perf_counter() - t0) * 1e3
+        crashed = False
+        with faults.active(crash):
+            try:
+                ck_run("usa_cut")
+            except faults.InjectedCrash:
+                crashed = True
+        bt_res = ck_run("usa_cut")
+        wf = bt_full.strategy.get_weights_df().to_numpy(float)
+        wr = bt_res.strategy.get_weights_df().to_numpy(float)
+        same = np.array_equal(wf, wr) and all(
+            np.array_equal(v, bt_res.output["batch"][k])
+            for k, v in bt_full.output["batch"].items())
+        check(crashed and bt_res.output["checkpoint"]["resumed_chunks"] == 2
+              and same,
+              f"[run_batch_checkpointed usa_trinv] crashed after chunk 1 of "
+              f"{bt_full.output['checkpoint']['total_chunks']}, resumed 2 "
+              f"chunks, weights and per-date counters bit-identical to the "
+              f"uninterrupted run")
+        print(f"run_batch_checkpointed usa_trinv: {usa_ms:.1f} ms end to end "
+              f"({len(rebdates)} dates in chunks of 16); solved "
+              f"{int((bt_full.output['batch']['status'] == 1).sum())}/"
+              f"{len(rebdates)}", flush=True)
+    return added
+
+
+def usa_turnover_inputs(golden):
+    """``examples/backtest_usa.py`` configuration 2 as the golden ran it,
+    built on the host: the return series, ``build_problems`` (f64) on
+    the golden's dates, the pre-backtest holdings (equal weight over the
+    set the filter admits on the first date) and the build's ms."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch import builders as tb
+    from porqua_tpu_torch.synthetic import (synthetic_usa_np,
+                                            usa_benchmark_np, usa_rebdates)
+
+    meta = json.loads(str(golden["meta"]))
+    usa = meta["usa"]
+    X, V = synthetic_usa_np(n_days=usa["n_days"], n_assets=usa["n_assets"])
+    bm = usa_benchmark_np(X)
+    rebdates = usa_rebdates(X.index)[:meta["usa_dates"]]
+    O = pt.OptimizationItemBuilder
+
+    def service(w0=None):
+        return pt.BacktestService(
+            data={"return_series": X, "bm_series": bm, "volume_series": V},
+            selection_item_builders={
+                "volume": pt.SelectionItemBuilder(
+                    bibfn=tb.bibfn_selection_min_volume, width=90,
+                    min_volume=1e6)},
+            optimization_item_builders={
+                "returns": O(bibfn=tb.bibfn_return_series, width=USA_WIDTH),
+                "bm": O(bibfn=tb.bibfn_bm_series, width=USA_WIDTH,
+                        align=True),
+                "budget": O(bibfn=tb.bibfn_budget_constraint),
+                "box": O(bibfn=tb.bibfn_box_constraints, upper=USA_UPPER),
+                "turnover": O(bibfn=tb.bibfn_turnover_constraint,
+                              turnover_budget=USA_BUDGET)},
+            optimization=pt.LeastSquares(dtype=torch.float64,
+                                         l2_penalty=1e-4),
+            settings={"rebdates": rebdates, "quiet": True,
+                      "prev_weights": dict(w0 or {})})
+
+    probe = service()
+    probe.prepare_rebalancing(rebalancing_date=rebdates[0])
+    universe = list(probe.optimization.constraints.selection)
+    w0 = {a: 1.0 / len(universe) for a in universe}
+    t0 = time.perf_counter()
+    problems = tbatch.build_problems(service(w0), dtype=torch.float64)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    w_init = np.array([w0[a] for a in problems.universes[0]])
+    return X, problems, w_init, host_ms
+
+
+def turnover_phase(reset_counts):
+    """``examples/backtest_usa.py`` configuration 2 on the card:
+    build_problems (f64) -> solve_scan_turnover -> assemble_backtest ->
+    simulate_strategy, on the plain torch path (the kernels take f32
+    only), against the JAX golden."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.accounting import simulate_strategy
+    from porqua_tpu_torch.ops import admm_kernel
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SCAN_PATH))
+    X, problems, w_init, host_ms = usa_turnover_inputs(golden)
+    n_assets = len(problems.universes[0])
+    rebdates = problems.rebdates
+    prm = pt.SolverParams(**json.loads(str(golden["usa_turnover/params"])))
+    wrappers = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = tbatch.solve_scan_turnover(
+        problems.qp, n_assets=n_assets, row_start=1, w_init=w_init,
+        params=prm, universes=problems.universes)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    launches = sum(f.launches for f in wrappers)
+    bt = tbatch.assemble_backtest(problems, sol)
+    sim = simulate_strategy(bt.strategy, X, fc=0.0, vc=0.001)
+
+    status = sol.status.cpu().numpy()
+    iters = sol.iters.cpu().numpy()
+    w = sol.x[:, :n_assets].cpu().numpy()
+    g_w = golden["usa_turnover/x"][:, :n_assets]
+    dw = np.abs(w - g_w).max(axis=1)
+    spent = np.abs(w - np.vstack([w_init[None], w[:-1]])).sum(axis=1)
+    g_spent = np.abs(g_w - np.vstack([w_init[None], g_w[:-1]])).sum(axis=1)
+    wdf = bt.strategy.get_weights_df().fillna(0.0)
+    realized = wdf.diff().abs().sum(axis=1).iloc[1:]
+    T = len(rebdates)
+    check(n_assets == int(golden["usa_turnover/n_assets"]),
+          f"[usa_turnover] the filter admits {n_assets} of {X.shape[1]} "
+          f"assets")
+    check(np.array_equal(status, golden["usa_turnover/status"]),
+          f"[usa_turnover] status equals the JAX golden on every date "
+          f"({int((status == 1).sum())}/{T} solved)")
+    same = iters == golden["usa_turnover/iters"]
+    check(bool(np.isfinite(w).all()) and float(dw.max()) <= USA_W_ATOL,
+          f"[usa_turnover] per-date max|dw| {float(dw.max()):.3e} <= "
+          f"{USA_W_ATOL:g}, the configuration's conditioning bound "
+          f"(iterations equal the golden on {int(same.sum())}/{T} dates)")
+    print(f"[usa_turnover] max|dw| per date: first 8 "
+          f"{np.round(dw[:8], 9).tolist()}, median {float(np.median(dw)):.3e}"
+          f", largest {float(dw.max()):.3e} at date {int(dw.argmax())}; "
+          f"objective rel diff max "
+          f"{float(np.max(np.abs(sol.obj_val.cpu().numpy() - golden['usa_turnover/obj_val']) / np.abs(golden['usa_turnover/obj_val']))):.3e}",
+          flush=True)
+    # Controls: the chain with a deliberate fault in how a date takes the
+    # previous holdings, over its first USA_CONTROL_DATES dates (date 0 is
+    # the sound run's date 0). The phase's checks (status, |dw|, budget)
+    # must fail the first two. The third changes rows that do not bind
+    # after date 0 (the budget is spent in full on date 0 only), so no
+    # check of the answer can see it: its readings are printed.
+    dev = torch.device("cuda")
+    nvar = problems.qp.q.shape[-1]
+    head = tbatch._lanes(pt.CanonicalQP(*(
+        None if f is None else f[:USA_CONTROL_DATES] for f in problems.qp))
+        .to(dev))
+    w_first = tbatch._holdings(w_init, n_assets, 1, nvar, torch.float64, dev)
+    rows = tbatch._turnover_rows(1, n_assets)
+
+    def upper_only(qp_t, w):
+        u = qp_t.u.clone()
+        u[:, 1:1 + n_assets] = w[:, :n_assets]
+        return qp_t._replace(u=u), {}
+
+    for name, hook, must_fail in (
+            ("holdings never advanced", lambda qp_t, w: rows(qp_t, w_first),
+             True),
+            ("the turnover rows written one row early",
+             tbatch._turnover_rows(0, n_assets), True),
+            ("only the upper turnover rows rewritten", upper_only, False)):
+        c = tbatch._scan_dates(head, w_first, prm, hook)
+        cw = c.x[0, :, :n_assets].cpu().numpy()
+        cdw = np.abs(cw - g_w[:USA_CONTROL_DATES]).max(axis=1)
+        c_spent = np.abs(cw - np.vstack([w_init[None], cw[:-1]])).sum(axis=1)
+        c_status = c.status[0].cpu().numpy()
+        fails = (float(cdw.max()) > USA_W_ATOL
+                 or float(c_spent.max()) > USA_BUDGET + 1e-6
+                 or not np.array_equal(c_status, golden[
+                     "usa_turnover/status"][:USA_CONTROL_DATES]))
+        msg = (f"[usa_turnover control: {name}] the phase's checks fail it: "
+               f"{fails}; solved {int((c_status == 1).sum())}/"
+               f"{c_status.size}, max|dw| {float(cdw.max()):.3e} (limit "
+               f"{USA_W_ATOL:g}), per date "
+               f"{[float(f'{v:.3e}') for v in cdw]}; spent per date "
+               f"{[round(float(v), 6) for v in c_spent]} (budget "
+               f"{USA_BUDGET}; the sound chain "
+               f"{[round(float(v), 6) for v in spent[:USA_CONTROL_DATES]]})")
+        if must_fail:
+            check(fails, msg)
+        else:
+            print(f"{msg} (printed, not held)", flush=True)
+    check(bool(np.all(spent <= USA_BUDGET + 1e-6)),
+          f"[usa_turnover] turnover budget holds on every date (max spent "
+          f"{float(spent.max()):.9f} <= {USA_BUDGET} + 1e-6)")
+    check(launches == 0, f"[usa_turnover] f64 on the plain path: "
+          f"{launches} kernel launches")
+    print(f"usa_turnover: {T} dates, n {problems.qp.q.shape[-1]} (2 x "
+          f"{n_assets}), m {problems.qp.l.shape[-1]}, f64; host build "
+          f"{host_ms:.1f} ms; solve_scan_turnover {solve_ms:.1f} ms "
+          f"({solve_ms / T:.1f} ms per date); segments per date "
+          f"{(iters / prm.check_interval).mean():.2f} (iters "
+          f"{sorted(set(iters.tolist()))}); realized median turnover "
+          f"{float(realized.median()):.6f} (golden "
+          f"{float(np.median(g_spent[1:])):.6f}); simulated cumulative net "
+          f"return {float((1 + sim).prod() - 1):.6f}", flush=True)
 
 
 def profile_run(run, label, top=10):
@@ -755,7 +1476,12 @@ def main():
     profile_run(lambda: pt.tracking_step(Xs_np, ys_np, params["woodbury"]),
                 "profile [woodbury]")
 
-    # -- 6. report -------------------------------------------------------
+    # -- 6. the date-chained backtests -----------------------------------
+    del Xs, ys
+    kernel_rows += scan_phases(rows, reset_counts)
+    turnover_phase(reset_counts)
+
+    # -- 7. report -------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

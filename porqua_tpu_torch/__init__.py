@@ -43,6 +43,10 @@ from porqua_tpu_torch.batch import (
     solve_scan_l1_grid,
     solve_scan_turnover,
 )
+from porqua_tpu_torch.checkpoint import (
+    run_batch_checkpointed,
+    solve_scan_l1_checkpointed,
+)
 from porqua_tpu_torch.synthetic import synthetic_usa_np
 from porqua_tpu_torch.tracking import (
     TrackingResult,
@@ -63,6 +67,7 @@ __all__ = [
     "Backtest", "BacktestData", "BacktestService",
     "FIXED_UNIVERSE", "as_requests", "build_problems", "run_batch",
     "solve_scan_l1", "solve_scan_l1_grid", "solve_scan_turnover",
+    "run_batch_checkpointed", "solve_scan_l1_checkpointed",
     "synthetic_usa_np",
     "TrackingResult", "build_tracking_qp", "synthetic_universe_np",
     "tracking_step",

@@ -10,13 +10,20 @@ solve (the port of ``porqua_tpu/batch.py``, in part).
   and solve all dates in one batched solve (equilibrate, ADMM through
   the fused segment kernels with ``backend="pallas"``, polish,
   unscale).
+* **Pass 2, chained dates** — where a turnover constraint or cost
+  couples each date to the previous solution, a host loop over dates
+  (the JAX package's ``lax.scan``) solves one date at a time on the
+  device, warm-started from the previous date's (x, y) and carrying the
+  holdings: ``solve_scan_turnover`` (the constraint's rows),
+  ``solve_scan_l1`` (the native L1 prox) and ``solve_scan_l1_grid``
+  (one lane per benchmark column, every column's date solved as one
+  batch).
 
 The result converts back into the ``Strategy``/``Portfolio`` objects
 the serial engine produces, so accounting and reporting are shared.
 
 Not ported yet, and raising ``NotImplementedError`` where reached: the
-date-chained scans (``solve_scan_turnover``, ``solve_scan_l1``,
-``solve_scan_l1_grid``, including its device-mesh sharding), the
+device-mesh sharding of ``solve_scan_l1_grid`` (``mesh=``), the
 compacted solve (``solve_batch_compacted``), the telemetry ``harvest=``
 sink, and the JAX package's ``PORQUA_SANITIZE=1`` transfer guard.
 """
@@ -32,11 +39,14 @@ import torch
 
 from porqua_tpu_torch.backtest import Backtest, BacktestService
 from porqua_tpu_torch.portfolio import Portfolio, Strategy
-from porqua_tpu_torch.qp.canonical import CanonicalQP, as_torch_dtype, stack_qps
+from porqua_tpu_torch.qp.canonical import (HP, CanonicalQP, as_torch_dtype,
+                                           stack_qps)
 from porqua_tpu_torch.qp.solve import (
     QPSolution,
     SolverParams,
     Status,
+    _solve_impl,
+    resolve_device,
     solve_qp_batch,
 )
 from porqua_tpu_torch.utils.helpers import to_numpy
@@ -191,30 +201,221 @@ def _require_fixed_universe(universes) -> None:
                 f"instead of shrinking the selection.")
 
 
-def solve_scan_turnover(qp: CanonicalQP, n_assets: int, row_start: int,
-                        w_init, params: SolverParams = SolverParams(), *,
-                        universes: Sequence[Sequence[str]]) -> QPSolution:
-    """Turnover-constraint-coupled dates, each warm-started from the
-    previous solution (the next slice)."""
-    raise _not_ported("solve_scan_turnover", "item 12")
+def _lanes(qp: CanonicalQP) -> CanonicalQP:
+    """A single column's stacked dates ``(T, ...)`` as one lane
+    ``(1, T, ...)`` (views)."""
+    return CanonicalQP(*(None if f is None else f.unsqueeze(0) for f in qp))
 
 
-def solve_scan_l1(qp: CanonicalQP, n_assets: int, w_init,
+def _date(qp: CanonicalQP, t: int) -> CanonicalQP:
+    """Date ``t`` of a ``(lanes, T, ...)`` batch: a ``(lanes, ...)``
+    view, never written."""
+    return CanonicalQP(*(None if f is None else f[:, t] for f in qp))
+
+
+def _stack_dates(sols: List[QPSolution]) -> QPSolution:
+    """Per-date ``(lanes, ...)`` solutions stacked as ``(lanes, T, ...)``,
+    the layout ``lax.scan`` under ``vmap`` gives."""
+    return QPSolution(*(None if f[0] is None else torch.stack(f, dim=1)
+                        for f in zip(*sols)))
+
+
+def _one_lane(sol: QPSolution) -> QPSolution:
+    return QPSolution(*(None if f is None else f[0] for f in sol))
+
+
+def _on_device(qp: CanonicalQP, device) -> CanonicalQP:
+    """The stacked problems on the entry point's device (default: the
+    card), under the precision policy."""
+    HP.apply()
+    return qp.to(resolve_device(device))
+
+
+def _l1_weight(nvar: int, n_assets: int, transaction_cost: float, dtype,
+               device) -> torch.Tensor:
+    """``transaction_cost`` on the first ``n_assets`` variables, 0 on
+    padding."""
+    tc = torch.tensor(transaction_cost, dtype=dtype, device=device)
+    return torch.where(torch.arange(nvar, device=device) < n_assets, tc,
+                       torch.zeros((), dtype=dtype, device=device))
+
+
+def _holdings(w_init, n_assets: int, lanes: int, nvar: int, dtype,
+              device) -> torch.Tensor:
+    """The pre-backtest holdings, ``(lanes, nvar)``, zero on padding."""
+    w = torch.as_tensor(w_init, dtype=dtype).to(device)
+    w0 = torch.zeros((lanes, nvar), dtype=dtype, device=device)
+    w0[:, :n_assets] = w.reshape(lanes, -1)[:, :n_assets]
+    return w0
+
+
+def solve_scan_turnover(qp: CanonicalQP,
+                        n_assets: int,
+                        row_start: int,
+                        w_init,
+                        params: SolverParams = SolverParams(),
+                        *,
+                        universes: Sequence[Sequence[str]],
+                        device=None) -> QPSolution:
+    """Turnover-constraint-coupled dates, one date at a time with warm
+    starts, on ``device`` (default: the card).
+
+    The lifted problem's constraint rows ``[row_start, row_start+n)``
+    carry the upper bound ``x0`` and rows ``[row_start+n,
+    row_start+2n)`` carry ``-x0`` (:func:`porqua_tpu_torch.qp.lift.
+    lift_turnover_constraint`). Each date writes the previous date's
+    holdings into a copy of ``u`` at those rows and warm-starts from
+    the previous primal/dual point. ``qp`` is a stacked batch (leading
+    axis = dates) built with placeholder x0 = 0; ``w_init`` the
+    pre-backtest holdings; ``universes`` the per-date asset lists or
+    :data:`FIXED_UNIVERSE` (checked, not optional). Holdings advance
+    only on a SOLVED date (the reference keeps the previous portfolio
+    when a date fails)."""
+    _require_fixed_universe(universes)
+    qp = _lanes(_on_device(qp, device))
+    dtype, dev = qp.q.dtype, qp.q.device
+    w0 = _holdings(w_init, n_assets, 1, qp.q.shape[-1], dtype, dev)
+    return _one_lane(_scan_dates(
+        qp, w0, params, _turnover_rows(row_start, n_assets)))
+
+
+def _turnover_rows(row_start: int, n: int):
+    """The turnover scan's per-date problem: the holdings ``w`` (their
+    first ``n`` entries) written into a copy of ``u`` at rows
+    ``[row_start, row_start+n)`` and their negation at ``[row_start+n,
+    row_start+2n)``, the JAX package's ``dynamic_update_slice`` pair."""
+    def date_problem(qp_t: CanonicalQP, w):
+        u = qp_t.u.clone()
+        u[:, row_start:row_start + n] = w[:, :n]
+        u[:, row_start + n:row_start + 2 * n] = -w[:, :n]
+        return qp_t._replace(u=u), {}
+    return date_problem
+
+
+def solve_scan_l1(qp: CanonicalQP,
+                  n_assets: int,
+                  w_init,
                   transaction_cost: float,
-                  params: SolverParams = SolverParams(), *,
-                  universes: Sequence[Sequence[str]]) -> QPSolution:
-    """Turnover-cost-coupled dates through the native L1 prox (the next
-    slice)."""
-    raise _not_ported("solve_scan_l1", "item 12")
+                  params: SolverParams = SolverParams(),
+                  *,
+                  universes: Sequence[Sequence[str]],
+                  device=None) -> QPSolution:
+    """Turnover-cost-coupled dates through the native L1 prox, on
+    ``device`` (default: the card).
+
+    Each date pays ``transaction_cost * |w - w_prev|_1`` against the
+    previous date's *solved* weights through the solver's L1 prox at n
+    variables, warm-started from the previous date's (x, y). ``qp`` is
+    a stacked batch (leading axis = dates) over one identically-ordered
+    asset universe: the carry is positional. ``universes``: the per-date
+    asset lists or :data:`FIXED_UNIVERSE`. ``w_init``: the pre-backtest
+    holdings (zeros for a cash start). Returns a :class:`QPSolution`
+    with a leading dates axis."""
+    _require_fixed_universe(universes)
+    qp = _lanes(_on_device(qp, device))
+    dtype, dev = qp.q.dtype, qp.q.device
+    nvar = qp.q.shape[-1]
+    l1w = _l1_weight(nvar, n_assets, transaction_cost, dtype, dev)
+    w0 = _holdings(w_init, n_assets, 1, nvar, dtype, dev)
+    return _one_lane(_scan_l1_core(qp, w0, l1w, params))
 
 
-def solve_scan_l1_grid(qp_grid: CanonicalQP, n_assets: int, w_init,
+def _scan_l1_core(qp: CanonicalQP, w0, l1w,
+                  params: SolverParams,
+                  x_init=None, y_init=None,
+                  return_carry: bool = False):
+    """The chained-L1 backtest, shared by :func:`solve_scan_l1` (one
+    lane), :func:`solve_scan_l1_grid` (a lane per benchmark column) and
+    the checkpointed runner: :func:`_scan_dates` with the L1 term
+    ``l1w`` (broadcast against the ``(lanes, nvar)`` holdings) centered
+    on the holdings."""
+    return _scan_dates(qp, w0, params, _l1_cost(l1w), x_init, y_init,
+                       return_carry)
+
+
+def _l1_cost(l1w):
+    """The L1 scans' per-date problem: the date as built, with the L1
+    term ``l1w`` centered on the holdings ``w``."""
+    def date_problem(qp_t: CanonicalQP, w):
+        return qp_t, dict(l1_weight=l1w.expand_as(w), l1_center=w)
+    return date_problem
+
+
+def _scan_dates(qp: CanonicalQP, w0, params: SolverParams, date_problem,
+                x_init=None, y_init=None, return_carry: bool = False):
+    """The one date loop of every chained backtest, so the carry and
+    failed-date semantics cannot drift between them.
+
+    ``qp`` has leading ``(lanes, T)`` axes on the device; ``w0`` is the
+    ``(lanes, nvar)`` holdings before date 0. ``date_problem(qp_t, w)``
+    gives date t's problem and the L1 keywords of ``_solve_impl`` from
+    the date's ``(lanes, ...)`` view (never written) and the holdings.
+    ``x_init`` / ``y_init`` seed the warm-start half of the carry
+    (default zeros, a cold start) and ``return_carry=True`` also
+    returns the final ``(w, x, y)`` carry: together they let
+    :func:`porqua_tpu_torch.checkpoint.solve_scan_l1_checkpointed` cut
+    the dates into segments whose chained run is bit-identical to one
+    uncut run."""
+    dtype, dev = qp.q.dtype, qp.q.device
+    lanes, T, nvar = qp.q.shape
+    m = qp.l.shape[-1]
+    w_prev = w0
+    x_prev = (torch.zeros((lanes, nvar), dtype=dtype, device=dev)
+              if x_init is None else torch.as_tensor(x_init, dtype=dtype)
+              .to(dev).reshape(lanes, nvar))
+    y_prev = (torch.zeros((lanes, m), dtype=dtype, device=dev)
+              if y_init is None else torch.as_tensor(y_init, dtype=dtype)
+              .to(dev).reshape(lanes, m))
+    sols = []
+    for t in range(T):
+        qp_t, kw = date_problem(_date(qp, t), w_prev)
+        sol = _solve_impl(qp_t, params, x_prev, y_prev, **kw)
+        # Holdings advance only on a SOLVED date (the reference keeps
+        # the previous portfolio when a date fails), with no host read.
+        ok = (sol.status == Status.SOLVED)[:, None]
+        w_prev = torch.where(ok, sol.x, w_prev)
+        x_prev, y_prev = sol.x, sol.y
+        sols.append(sol)
+    sols = _stack_dates(sols)
+    if return_carry:
+        return sols, (w_prev, x_prev, y_prev)
+    return sols
+
+
+def solve_scan_l1_grid(qp_grid: CanonicalQP,
+                       n_assets: int,
+                       w_init,
                        transaction_cost: float,
-                       params: SolverParams = SolverParams(), mesh=None, *,
-                       universes: Sequence[Sequence[str]]) -> QPSolution:
-    """Turnover-cost backtests for a benchmark grid, optionally sharded
-    over a device mesh (the next slice; the mesh with item 21)."""
-    raise _not_ported("solve_scan_l1_grid", "item 12")
+                       params: SolverParams = SolverParams(),
+                       mesh=None,
+                       *,
+                       universes: Sequence[Sequence[str]],
+                       device=None) -> QPSolution:
+    """Turnover-cost backtests for a whole benchmark grid on one
+    ``device`` (default: the card): the dates are chained, the columns
+    independent, so each date's problems of all B columns are solved as
+    one batch of B lanes, each lane with its own holdings and warm
+    start (the JAX package's ``vmap`` of the scan).
+
+    ``qp_grid`` has leading ``(B, T)`` axes over one fixed asset
+    universe per column (``universes`` checks it); ``w_init`` is
+    ``(B, n)``. The device-mesh sharding (``mesh=``) is not ported."""
+    _require_fixed_universe(universes)
+    if qp_grid.P.dim() != 4:
+        raise ValueError(
+            f"qp_grid must have leading (benchmarks, dates) axes: P of "
+            f"shape (B, T, n, n), got {tuple(qp_grid.P.shape)}; for a "
+            f"single column use solve_scan_l1")
+    if mesh is not None:
+        raise _not_ported(
+            "the device-mesh sharding of solve_scan_l1_grid (mesh=)",
+            "item 21")
+    qp_grid = _on_device(qp_grid, device)
+    dtype, dev = qp_grid.q.dtype, qp_grid.q.device
+    B, nvar = qp_grid.q.shape[0], qp_grid.q.shape[-1]
+    l1w = _l1_weight(nvar, n_assets, transaction_cost, dtype, dev)
+    w0 = _holdings(w_init, n_assets, B, nvar, dtype, dev)
+    return _scan_l1_core(qp_grid, w0, l1w, params)
 
 
 def as_requests(problems: BatchProblems) -> List[CanonicalQP]:

@@ -443,11 +443,16 @@ def _segment_plan(qp: CanonicalQP, params: SolverParams,
             f"unknown backend {params.backend!r}; expected 'auto', 'xla' "
             "or 'pallas'")
     if params.backend == "pallas" and params.halpern:
-        # The fused segment has no Halpern anchor; the kernel path
+        # An intended divergence from the JAX package: there this config
+        # warns and runs the XLA Halpern segment; here the kernel path
         # launches its kernel or raises, it never runs the plain segment.
         raise NotImplementedError(
-            "backend='pallas' does not implement Halpern anchoring; pass "
-            "halpern=False, or backend='xla' for the plain Halpern segment")
+            "backend='pallas' does not implement Halpern anchoring. The "
+            "JAX package warns and runs its XLA Halpern segment for this "
+            "config; the port's fused-kernel path never runs the plain "
+            "segment. Pass backend='xla', halpern=True for the Halpern "
+            "segment the JAX package runs, or halpern=False for the fused "
+            "kernel")
     linsolve = resolve_linsolve(params, qp)
     use_pallas = params.backend == "pallas"
     use_inverse = use_pallas or linsolve in ("inverse", "trinv", "woodbury")

@@ -113,3 +113,18 @@ def synthetic_universe_np(seed: int,
     ys = np.einsum("btn,bn->bt", Xs, w_true)
     ys = ys + rng.standard_normal(ys.shape).astype(np.float32) * 0.001
     return Xs, ys
+
+
+def benchmark_grid_np(Xs, ys, n_columns: int):
+    """A grid of benchmarks over one universe, ``(n_columns, dates,
+    window)`` float32: column 0 is ``ys``; column b >= 1 tracks the
+    portfolio ``w_b = default_rng(1000 + b).dirichlet(ones(n_assets))``
+    with daily noise of 0.001 standard deviation from the same
+    generator."""
+    cols = [np.asarray(ys, np.float32)]
+    for b in range(1, n_columns):
+        rng = np.random.default_rng(1000 + b)
+        w_b = rng.dirichlet(np.ones(Xs.shape[-1])).astype(np.float32)
+        noise = rng.standard_normal(Xs.shape[:2]).astype(np.float32)
+        cols.append(np.einsum("btn,n->bt", Xs, w_b) + 0.001 * noise)
+    return np.stack(cols)

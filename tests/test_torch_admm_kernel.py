@@ -253,3 +253,30 @@ def test_segment_plan_f32_clamp_and_halpern():
     plan = tadmm._segment_plan(scaled._replace(P=scaled.P.double()),
                                SolverParams(linsolve="chol"))
     assert (plan.rho_lo, plan.rho_hi) == (1e-6, 1e6)
+
+
+def test_halpern_xla_matches_jax_pallas_halpern():
+    """The intended divergence: with backend="pallas", halpern=True the
+    JAX package warns and runs its XLA Halpern segment, the port raises
+    (above). The port's backend="xla", halpern=True runs that segment:
+    same status and iterations per lane on the same small f32 batch,
+    weights by the f32 tracking rule (5e-5)."""
+    import warnings
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu.tracking import tracking_step as jax_tracking_step
+
+    Xs, ys = synthetic_universe_np(3, 3, 30, 12)
+    opts = dict(max_iter=2000, eps_abs=1e-4, eps_rel=1e-4, polish=False,
+                scaling_iters=2, check_interval=4, halpern=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ref = jax_tracking_step(jnp.asarray(Xs), jnp.asarray(ys),
+                                JaxParams(backend="pallas", **opts))
+    assert any("Halpern" in str(w.message) for w in caught)
+    port = pt.tracking_step(Xs, ys, SolverParams(backend="xla", **opts),
+                            device="cpu")
+    np.testing.assert_array_equal(port.status.numpy(), np.asarray(ref.status))
+    np.testing.assert_array_equal(port.iters.numpy(), np.asarray(ref.iters))
+    np.testing.assert_allclose(port.weights.numpy(), np.asarray(ref.weights),
+                               atol=5e-5, rtol=0)

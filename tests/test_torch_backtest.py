@@ -403,17 +403,29 @@ def _small_problems(rng):
 
 
 @pytest.mark.parametrize("call", [
-    "solve_scan_turnover", "solve_scan_l1", "solve_scan_l1_grid",
+    "scan_grid_mesh", "scan_checkpoint_harvest", "retry_policy",
     "solve_batch_compacted", "harvest", "sanitize", "named_backend",
     "ltr_builder",
 ])
 def test_unported_options_raise(call, rng, monkeypatch):
-    if call == "solve_scan_turnover":
-        fn = lambda: tbatch.solve_scan_turnover(
-            None, 2, 1, np.zeros(2), universes=tbatch.FIXED_UNIVERSE)
-    elif call in ("solve_scan_l1", "solve_scan_l1_grid"):
-        fn = lambda: getattr(tbatch, call)(
-            None, 2, np.zeros(2), 0.01, universes=tbatch.FIXED_UNIVERSE)
+    if call == "scan_grid_mesh":
+        grid = tbatch._lanes(_small_problems(rng).qp)
+        fn = lambda: tbatch.solve_scan_l1_grid(
+            grid, 2, np.zeros((1, 2)), 0.01, mesh=object(),
+            universes=tbatch.FIXED_UNIVERSE, device="cpu")
+        item = "item 21"
+    elif call == "scan_checkpoint_harvest":
+        from porqua_tpu_torch.checkpoint import solve_scan_l1_checkpointed
+
+        fn = lambda: solve_scan_l1_checkpointed(
+            _small_problems(rng).qp, 2, np.zeros(2), 0.01, "unused",
+            harvest=[], universes=tbatch.FIXED_UNIVERSE, device="cpu")
+        item = "item 18"
+    elif call == "retry_policy":
+        import porqua_tpu_torch.resilience as res
+
+        fn = lambda: res.RetryPolicy
+        item = "item 17"
     elif call == "solve_batch_compacted":
         fn = lambda: tbatch.solve_batch_compacted(_small_problems(rng))
     elif call == "harvest":
@@ -430,8 +442,10 @@ def test_unported_options_raise(call, rng, monkeypatch):
     else:
         data = make_market(rng)
         fn = lambda: tb.bibfn_selection_ltr(None, "2020-06-01")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as err:
         fn()
+    if call in ("scan_grid_mesh", "scan_checkpoint_harvest", "retry_policy"):
+        assert item in str(err.value)
 
 
 def test_entry_points_need_a_device_without_cuda(rng, monkeypatch):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import porqua_tpu_torch as pt
 from porqua_tpu_torch.ops import admm_kernel as tk
 from porqua_tpu_torch.qp import admm as tadmm
@@ -367,6 +368,56 @@ def test_factored_wrapper_raises_where_no_form_fits():
     with pytest.raises(ValueError, match="shared memory"):
         tk.admm_segment_factored(*args, sigma=1e-6, alpha=1.6, n_iters=2)
     assert factored_counts() == before
+
+
+def scan_kernel_inputs(form, lanes, device, n=40, window=24, n_dates=3):
+    """The kernel call that date 2 of a small chained L1 scan makes on
+    ``device`` (the scaled L1 weight and center, the warm carry of date
+    1): one lane for the factored form, a grid of ``lanes`` benchmark
+    columns over one universe for the dense ones."""
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.tracking import benchmark_grid_np
+
+    params = pt.SolverParams(max_iter=2000, eps_abs=1e-3, eps_rel=1e-3,
+                             polish=False, scaling_iters=2, backend="pallas",
+                             **FORMS[form])
+    Xs, ys = pt.synthetic_universe_np(13, n_dates, window, n)
+    cols = [pt.build_tracking_qp(torch.as_tensor(Xs, device=device),
+                                 torch.as_tensor(y, device=device))
+            for y in benchmark_grid_np(Xs, ys, lanes)]
+    qp = pt.CanonicalQP(*(None if f[0] is None else torch.stack(f)
+                          for f in zip(*cols)))
+    pt.qp.canonical.HP.apply()
+    w0 = torch.full((lanes, n), 1.0 / n, device=device)
+    l1w = tbatch._l1_weight(n, n, 0.002, torch.float32, device)
+    return chip_smoke.scan_kernel_call(qp, w0, l1w, params, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form, lanes", [("factored_refine0", 1),
+                                         ("triangular", 8)])
+def test_scan_kernel_call_matches_plain_twin(form, lanes):
+    """The chained scans' kernel calls on the card: K1 in its cluster
+    form at one lane (solve_scan_l1), K2 in its cluster form at 8 lanes
+    (solve_scan_l1_grid), each with the L1 term on and the warm carry
+    of the chain. One launch of the cluster form each, held by the
+    twin rule with the twin's noise measured on the card and on the
+    CPU."""
+    need_card()
+    fn, args, kw = scan_kernel_inputs(form, lanes, "cuda")
+    n, m = args[-1].shape[-1], args[-4].shape[-1]
+    assert args[-1].shape[0] == lanes
+    for v in args[-7:-5] + args[-5:-1]:   # l1w, l1c, x, z, w, y
+        assert float(v.abs().max()) > 0
+    if fn is tk.admm_segment:
+        assert tk.dense_form(n, m, kw["triangular"]) == "cluster"
+    else:
+        assert tk.factored_form(n, m, args[0].shape[-2], 0) == "cluster"
+    launches, cluster, stream = counts_of(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (launches + 1, cluster + 1, stream)
+    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
 
 
 @pytest.mark.gpu

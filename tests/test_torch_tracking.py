@@ -208,9 +208,9 @@ def test_unported_options_raise(over, exc):
 
 
 def test_port_imports_no_jax():
-    """The port imports every module, solves and runs a batched
-    backtest with JAX made unimportable, and pulls in no module of the
-    JAX package."""
+    """The port imports every module, solves, runs a batched backtest,
+    a chained scan and a crashed and resumed checkpointed scan with JAX
+    made unimportable, and pulls in no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -235,6 +235,26 @@ def test_port_imports_no_jax():
         " settings={'rebdates': ['2018-06-01', '2018-09-03'], 'quiet': True})\n"
         "bt = pt.run_batch(bs, device='cpu')\n"
         "assert bt.output['batch']['status'].tolist() == [1, 1]\n"
+        "import tempfile\n"
+        "from porqua_tpu_torch.resilience import faults\n"
+        "import torch\n"
+        "qp = pt.build_tracking_qp(*(torch.as_tensor(a) for a in "
+        "pt.synthetic_universe_np(2, 3, 20, 8)))\n"
+        "prm = pt.SolverParams(polish=False, backend='pallas')\n"
+        "s = pt.solve_scan_l1(qp, 8, [1 / 8] * 8, 0.01, prm, "
+        "universes=pt.FIXED_UNIVERSE, device='cpu')\n"
+        "crash = faults.Scenario('c', (faults.FaultSpec.make("
+        "'backtest.chunk', 'crash'),))\n"
+        "d = tempfile.mkdtemp()\n"
+        "with faults.active(crash):\n"
+        "    try:\n"
+        "        pt.solve_scan_l1_checkpointed(qp, 8, [1 / 8] * 8, 0.01, d, "
+        "prm, segment_size=2, universes=pt.FIXED_UNIVERSE, device='cpu')\n"
+        "    except faults.InjectedCrash:\n"
+        "        pass\n"
+        "c, info = pt.solve_scan_l1_checkpointed(qp, 8, [1 / 8] * 8, 0.01, "
+        "d, prm, segment_size=2, universes=pt.FIXED_UNIVERSE, device='cpu')\n"
+        "assert info['resumed_segments'] == 1 and bool((c.x == s.x).all())\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
         "assert not bad, bad\n"
