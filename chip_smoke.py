@@ -54,7 +54,18 @@ printed):
    faulty carry must fail the checks. Each chain's kernel call on its
    third date is held against its plain twin and timed; one
    ``solve_scan_l1`` run is profiled.
-7. One JSON line per kernel, then the card line, then the result line.
+7. Serving: the reference loadgen's north-star stream (512 tracking
+   requests of 500 assets, bucket 512 x 8) through ``SolveService`` on
+   the card (max_batch 256, the whole slot ladder prewarmed) in three
+   runs, ``serve_trinv`` and ``serve_woodbury`` (the micro-batcher;
+   the triangular-inverse and the factored kernel) and
+   ``serve_continuous`` (the continuous batcher, one segment per
+   launch), each a burst of 512 then ``run_loadgen``'s closed loop at
+   24 in flight, against the JAX golden
+   (``porqua_tpu_torch/testdata/serve_golden.npz``; checks listed at
+   ``serve_phase``), with one profiled burst; each micro-batcher run's
+   kernel is held against its plain twin on its first full batch.
+8. One JSON line per kernel, then the card line, then the result line.
 """
 
 import dataclasses
@@ -138,6 +149,11 @@ USA_WIDTH, USA_UPPER, USA_BUDGET = 252, 0.05, 0.25
 # are held to (tests/test_backtest_usa.py).
 USA_W_ATOL = 5e-4
 USA_CONTROL_DATES = 6
+# The serving phase holds every request of the north-star stream by the
+# tracking limits above (the same per-date QP at ridge 0, bucket-padded
+# to 512 x 8) against the JAX golden: status and iterations equal,
+# |dx| <= W_ATOL over the 500 real entries, budget and box to eps_abs.
+SERVE_PATH = os.path.join("porqua_tpu_torch", "testdata", "serve_golden.npz")
 FAILURES = []
 
 
@@ -1213,6 +1229,205 @@ def turnover_phase(reset_counts):
           f"return {float((1 + sim).prod() - 1):.6f}", flush=True)
 
 
+def serve_kernel_call(reqs, params, device):
+    """The fused-segment call that the first segment of the service's
+    full batch (the first 256 requests, bucket-padded) makes, as
+    ``(wrapper, args, kwargs)`` of ``qp.admm.segment_kernel_call``."""
+    import torch
+
+    from porqua_tpu_torch.qp.admm import segment_kernel_call
+    from porqua_tpu_torch.qp.canonical import stack_qps
+    from porqua_tpu_torch.qp.solve import prepare_batch
+    from porqua_tpu_torch.serve.bucketing import BucketLadder
+
+    qp = stack_qps([BucketLadder().pad(q)[1] for q in reqs]).to(device)
+    x0 = torch.zeros_like(qp.q)
+    y0 = torch.zeros_like(qp.l)
+    scaled, _, carry, _, _ = prepare_batch(qp, params, x0, y0)
+    return segment_kernel_call(carry, scaled, params)
+
+
+def serve_phase(rows, reset_counts, device="cuda"):
+    """The online solve service on ``device`` (the card); returns the
+    kernel rows it adds to ``rows``. Three runs of the reference
+    loadgen's north-star stream (512 tracking requests, 500 assets,
+    window 252, seed 5; bucket 512 x 8) through ``SolveService``
+    (max_batch 256, max_wait 2 ms, warm starts off, the whole slot
+    ladder prewarmed): ``serve_trinv`` (the micro-batcher, dense
+    requests, the triangular-inverse kernel), ``serve_woodbury`` (the
+    micro-batcher, factored requests, the factored kernel at refine 0)
+    and ``serve_continuous`` (the continuous batcher on the dense
+    stream, one segment per launch). Each run submits the 512 requests
+    as one burst, then runs ``run_loadgen``'s closed loop at 24 in
+    flight. Checks, per run, against the JAX golden
+    (``porqua_tpu_torch/testdata/serve_golden.npz``):
+    - status and iterations of every burst request equal the golden's;
+    - max|dx| <= W_ATOL over the 500 real entries of every request;
+    - the budget and the long-only box hold to eps_abs;
+    - the kernel went through its cluster form, never the streaming one;
+    - every result on the card (``cuda:0``), no breaker trip, no failed
+      dispatch, no failed, expired or shed request, every future
+      resolved; the closed loop without errors, with as many solved as
+      the golden;
+    - compiles equal what prewarm reported, and none after warmup.
+    Printed: throughput, latency percentiles, batches by slot count,
+    segments per lane, prewarm seconds per bucket, launches per form,
+    and one profiled burst of serve_trinv."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.analysis import sanitize
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.serve import SolveService, slot_ladder
+    from porqua_tpu_torch.serve.loadgen import (build_tracking_requests,
+                                                run_loadgen)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SERVE_PATH))
+    meta = json.loads(str(golden["meta"]))
+    n = meta["n_assets"]
+    dev = torch.device(device)
+    label = f"{dev.type}:{dev.index or 0}"
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    runs = (("serve_trinv", "trinv", False, K2),
+            ("serve_woodbury", "woodbury", False, K1),
+            ("serve_continuous", "trinv", True, K2))
+    requests = {factor: build_tracking_requests(
+        meta["n_requests"], n, meta["window"], meta["seed"], factor)
+        for factor in (False, True)}
+    launches, calls = {}, {}
+
+    def burst(svc, reqs):
+        tickets = [svc.submit(q) for q in reqs]
+        return [svc.result(t, timeout=600) for t in tickets]
+
+    for tag, config, continuous, wrapper in runs:
+        p = json.loads(str(golden[f"{config}/params"]))
+        params = pt.SolverParams(**{**p, "backend": "pallas"})
+        reqs = requests[config == "woodbury"]
+        calls[tag] = (params, reqs)
+        sanitize.reset()
+        reset_counts()
+        svc = SolveService(params, max_batch=256, max_wait_ms=2.0,
+                           warm_start=False, continuous=continuous,
+                           device=device)
+        slots = {}
+        get = (svc.cache.get_continuous if continuous else svc.cache.get)
+
+        def counted(bucket, s, dtype, dev_=None, get=get, slots=slots):
+            slots[s] = slots.get(s, 0) + 1
+            return get(bucket, s, dtype, dev_)
+
+        svc.start()
+        try:
+            t0 = time.perf_counter()
+            n_prewarm = svc.prewarm(reqs[0])
+            prewarm_s = time.perf_counter() - t0
+            setattr(svc.cache, "get_continuous" if continuous else "get",
+                    counted)
+            t0 = time.perf_counter()
+            res = burst(svc, reqs)
+            burst_s = time.perf_counter() - t0
+            snap = svc.snapshot()
+            by_slots = dict(sorted(slots.items()))
+            slots.clear()
+            report = run_loadgen(reqs, params, inflight=24, max_batch=256,
+                                 service=svc, continuous=continuous)
+            loop = svc.snapshot()
+            loop_slots = dict(sorted(slots.items()))
+            post = sanitize.post_warmup_compiles()
+            launches[tag] = {"cluster": wrapper.cluster_launches,
+                             "stream": wrapper.stream_launches}
+            if tag == "serve_trinv":
+                profile_run(lambda: burst(svc, reqs),
+                            "profile [serve_trinv burst of "
+                            f"{len(reqs)}]")
+        finally:
+            svc.stop()
+        status = np.array([r.status for r in res])
+        iters = np.array([r.iters for r in res])
+        x = np.stack([r.x for r in res])
+        g_status = golden[f"{config}/status"]
+        dx = np.abs(x - golden[f"{config}/x"]).max(axis=1)
+        eps = params.eps_abs
+        budget = float(np.abs(x.sum(axis=1) - 1.0).max())
+        box = float(max(-x.min(), x.max() - 1.0, 0.0))
+        devices = sorted({r.device for r in res})
+        print(f"{tag}: prewarm {n_prewarm} entries in {prewarm_s:.2f} s "
+              f"({svc.cache.bucket_stats()}); burst of {len(res)} in "
+              f"{burst_s * 1e3:.1f} ms ({len(res) / burst_s:.1f} solves/s; "
+              f"p50 {snap['latency_p50_ms']:.1f} ms, p99 "
+              f"{snap['latency_p99_ms']:.1f} ms; batches by slot count "
+              f"{by_slots}); closed loop at 24 in flight: "
+              f"{report['throughput_solves_per_s']:.1f} solves/s, p50 "
+              f"{report['latency_p50_ms']:.1f} ms, p99 "
+              f"{report['latency_p99_ms']:.1f} ms, occupancy "
+              f"{report['occupancy_mean']:.3f}, batches by slot count "
+              f"{loop_slots}; "
+              + (f"segments per lane "
+                 f"{loop['lane_segments'] / max(loop['completed'], 1):.3f} "
+                 f"(segment occupancy "
+                 f"{loop['segment_occupancy_mean']:.3f}); "
+                 if continuous else "")
+              + f"launches {launches[tag]}; solved "
+              f"{int((status == 1).sum())}/{len(status)}, iters "
+              f"{sorted(set(iters.tolist()))}; max|dx| {float(dx.max()):.3e} "
+              f"(median {float(np.median(dx)):.3e}; XLA-CPU f32 to its f64 "
+              f"answer {float(golden[f'{config}/x_f64_gap'].max()):.3e}); "
+              f"max|sum x - 1| {budget:.3e}, box violation {box:.3e}",
+              flush=True)
+        check(np.array_equal(status, g_status),
+              f"[{tag}] status equals the JAX golden on every request "
+              f"({int((status == 1).sum())}/{len(status)} solved)")
+        check(np.array_equal(iters, golden[f"{config}/iters"]),
+              f"[{tag}] iterations equal the JAX golden on every request")
+        check(bool(np.isfinite(x).all()) and x.shape == (len(g_status), n)
+              and float(dx.max()) <= W_ATOL,
+              f"[{tag}] x finite, shape {x.shape}, max|dx| "
+              f"{float(dx.max()):.3e} <= {W_ATOL:g}")
+        check(budget <= eps and box <= eps,
+              f"[{tag}] budget and box hold to eps_abs {eps:g}")
+        check(launches[tag]["cluster"] > 0 and launches[tag]["stream"] == 0,
+              f"[{tag}] launched the cluster form, never the streaming "
+              f"one ({launches[tag]})")
+        check(devices == [label] and not loop["degraded"]
+              and loop["device"] == label
+              and snap["device_switches"] == loop["device_switches"] == 0
+              and snap["dispatch_failures"] == loop["dispatch_failures"] == 0,
+              f"[{tag}] every result on {label}; no breaker trip, no "
+              f"failed dispatch")
+        check(snap["completed"] == len(res) and all(
+            s[k] == 0 for s in (snap, loop)
+            for k in ("failed", "expired", "rejected")),
+              f"[{tag}] every future resolved; none failed, expired or "
+              f"shed")
+        check(report["errors"] == 0 and report["dropped_arrivals"] == 0
+              and report["solved"] == int((g_status == 1).sum()),
+              f"[{tag}] closed loop: {report['solved']} solved, "
+              f"{report['errors']} errors")
+        check(snap["compiles"] == n_prewarm == len(slot_ladder(256))
+              and report["prewarm_compiles"] == 0
+              and report["recompiles_after_warmup"] == 0 and post == 0,
+              f"[{tag}] compiles {snap['compiles']} == prewarm's "
+              f"{n_prewarm}; {post} after warmup")
+
+    added = []
+    for key, rname, base, tag in (
+            ("serve_k2", "admm_segment[triangular]_cluster, serve",
+             ("trinv", "cluster"), "serve_trinv"),
+            ("serve_k1", "admm_segment_factored_cluster[refine=0], serve",
+             ("woodbury", "cluster"), "serve_woodbury")):
+        params, reqs = calls[tag]
+        fn, args, kw = serve_kernel_call(reqs[:256], params, dev)
+        kernel_row(rows, key, rname, base, fn, args, kw,
+                   launches[tag]["cluster"])
+        added.append(key)
+    print(f"serve_continuous launched {launches['serve_continuous']} "
+          f"(one per segment of the cohort)", flush=True)
+    return added
+
+
 def profile_run(run, label, top=10):
     """One run under torch.profiler: wall time, the device's busy time
     (the sum of its kernels' and copies' own times) and idle share, and
@@ -1481,7 +1696,10 @@ def main():
     kernel_rows += scan_phases(rows, reset_counts)
     turnover_phase(reset_counts)
 
-    # -- 7. report -------------------------------------------------------
+    # -- 7. serving ------------------------------------------------------
+    kernel_rows += serve_phase(rows, reset_counts)
+
+    # -- 8. report -------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

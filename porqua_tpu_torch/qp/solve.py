@@ -194,7 +194,8 @@ def resolve_device(device=None) -> torch.device:
 
 def default_segment_budget(params: SolverParams) -> int:
     """The per-lane segment budget that reproduces plain ``max_iter``
-    semantics: ``ceil(max_iter / check_interval)``."""
+    semantics: ``ceil(max_iter / check_interval)``. One definition,
+    shared by every segment-stepped loop (the continuous batcher)."""
     return max(1, math.ceil(params.max_iter / params.check_interval))
 
 
@@ -209,6 +210,248 @@ def select_lanes(mask, new, old):
         return torch.where(m, new, old)
     parts = [select_lanes(mask, a, b) for a, b in zip(new, old)]
     return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
+
+
+def map_tensors(fn, tree):
+    """``fn`` applied to every tensor of nested (named) tuples; ``None``
+    leaves stay ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    parts = [map_tensors(fn, a) for a in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# Segment-stepped batch API (the continuous-batching core)
+# ---------------------------------------------------------------------------
+#
+# The three phases of ``solve_qp_batch`` exposed separately, so batch
+# orchestration (run a segment, retire and refill lanes, go on) lives
+# above the solver instead of inside its host loop. Per-lane arithmetic
+# is the code the fused path runs (``_prepare_impl``,
+# ``admm_segment_step``, ``_finalize_impl``): with ``backend="pallas"``
+# on the card each ``segment_step_batch`` is one fused kernel launch.
+
+def prepare_batch(qp: CanonicalQP,
+                  params: SolverParams,
+                  x0=None,
+                  y0=None,
+                  l1_weight=None,
+                  l1_center=None):
+    """Equilibrate every lane and build its segment-loop carry.
+    Returns ``(scaled, scaling, carry, l1w_s, l1c_s)``, all with the
+    leading lane axis (the l1 entries ``None`` without an L1 term)."""
+    HP.check()
+    init, _, _ = _backend(params)
+    scaled, scaling, x0_s, y0_s, l1w_s, l1c_s = _prepare_impl(
+        qp, params, x0, y0, l1_weight, l1_center)
+    return scaled, scaling, init(scaled, params, x0_s, y0_s), l1w_s, l1c_s
+
+
+def segment_step_batch(scaled: CanonicalQP,
+                       scaling: Scaling,
+                       carry,
+                       params: SolverParams,
+                       l1w_s=None,
+                       l1c_s=None):
+    """Advance every lane one residual-check segment; returns the new
+    carry (per-lane status in ``carry.state.status``). The step never
+    retires a lane on its iteration count: that is the caller's
+    policy."""
+    HP.check()
+    _, seg_step, _ = _backend(params)
+    return seg_step(carry, scaled, scaling, params, l1w_s, l1c_s)[0]
+
+
+def finalize_batch(qp: CanonicalQP,
+                   scaled: CanonicalQP,
+                   scaling: Scaling,
+                   state: ADMMState,
+                   params: SolverParams,
+                   l1_weight=None,
+                   l1_center=None,
+                   l1w_s=None,
+                   l1c_s=None) -> QPSolution:
+    """Polish + unscale + grade every lane. Still-RUNNING lanes
+    (retired out of segment budget) are graded MAX_ITER and get the
+    polish fallback, as the fused path's out-of-iterations exit."""
+    return _finalize_impl(qp, scaled, scaling, state, params,
+                          l1_weight, l1_center, l1w_s, l1c_s)
+
+
+def batch_shape_struct(batch: int, n: int, m: int,
+                       dtype=torch.float32,
+                       factor_rows: Optional[int] = None) -> CanonicalQP:
+    """The shape and dtype of a ``CanonicalQP`` batch without data
+    (``meta`` tensors): the static shape an entry is compiled for.
+    ``factor_rows`` adds the objective factor ``Pf (batch, r, n)`` and
+    ``Pdiag (batch, n)``, so factored and dense problems are distinct
+    entries."""
+    s = lambda *shape: torch.empty((batch,) + shape, dtype=dtype,
+                                   device="meta")
+    return CanonicalQP(
+        P=s(n, n), q=s(n), C=s(m, n), l=s(m), u=s(m), lb=s(n), ub=s(n),
+        var_mask=s(n), row_mask=s(m), constant=s(),
+        Pf=None if factor_rows is None else s(factor_rows, n),
+        Pdiag=None if factor_rows is None else s(n),
+    )
+
+
+def neutral_batch(struct: CanonicalQP, device) -> CanonicalQP:
+    """The problem an empty slot holds, at ``struct``'s shape on
+    ``device``: identity objective, free rows, variables pinned to
+    zero (with a factor: ``Pf = 0`` and a unit ``Pdiag``, which gives
+    the identity exactly). Well conditioned, so the operator builds
+    and kernel launches computed for such slots stay tame."""
+    B, n = struct.q.shape
+    m = struct.l.shape[-1]
+    dtype = struct.q.dtype
+    zeros = lambda *shape: torch.zeros((B,) + shape, dtype=dtype,
+                                       device=device)
+    full = lambda v: torch.full((B, m), v, dtype=dtype, device=device)
+    eye = torch.eye(n, dtype=dtype, device=device)
+    return CanonicalQP(
+        P=eye.expand(B, n, n).clone(), q=zeros(n), C=zeros(m, n),
+        l=full(-math.inf), u=full(math.inf), lb=zeros(n), ub=zeros(n),
+        var_mask=zeros(n), row_mask=zeros(m), constant=zeros(),
+        Pf=None if struct.Pf is None else zeros(struct.Pf.shape[-2], n),
+        Pdiag=None if struct.Pdiag is None else zeros(n) + 1.0,
+    )
+
+
+def _check_struct(qp: CanonicalQP, struct: CanonicalQP) -> None:
+    """An entry runs only the shape and dtype it was compiled for."""
+    for name, got, want in zip(CanonicalQP._fields, qp, struct):
+        if (got is None) != (want is None) or (got is not None and (
+                got.shape != want.shape or got.dtype != want.dtype)):
+            raise ValueError(
+                f"field {name}: {None if got is None else tuple(got.shape)}"
+                f" {None if got is None else got.dtype} does not match the "
+                f"compiled {None if want is None else tuple(want.shape)} "
+                f"{None if want is None else want.dtype}")
+
+
+def kernel_form(struct: CanonicalQP, params: SolverParams, device):
+    """The fused-segment kernel form (``"cluster"`` or ``"stream"``)
+    that ``struct``'s shape launches on ``device`` under ``params``, or
+    ``None`` where no kernel runs (the plain path, or the CPU). Raises
+    ValueError where no form fits the card."""
+    if params.backend != "pallas" or torch.device(device).type != "cuda":
+        return None
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp.admm import resolve_linsolve
+
+    n, m = struct.q.shape[-1], struct.l.shape[-1]
+    linsolve = resolve_linsolve(params, struct)
+    with torch.cuda.device(device):
+        if linsolve == "woodbury":
+            return admm_kernel.factored_form(
+                n, m, struct.Pf.shape[-2], params.woodbury_refine)
+        return admm_kernel.dense_form(n, m, linsolve == "trinv")
+
+
+def continuous_entries(params: SolverParams = SolverParams()):
+    """The continuous-batching entry closures ``(admit, step,
+    finalize)``; :func:`aot_compile_continuous` binds exactly these to
+    a device and a shape."""
+
+    def admit(qp, x0, y0, mask, scaled_old, scaling_old, carry_old):
+        scaled, scaling, carry, _, _ = prepare_batch(qp, params, x0, y0)
+        return (qp,
+                select_lanes(mask, scaled, scaled_old),
+                select_lanes(mask, scaling, scaling_old),
+                select_lanes(mask, carry, carry_old))
+
+    def step(scaled, scaling, carry, active):
+        new = segment_step_batch(scaled, scaling, carry, params)
+        new = select_lanes(active, new, carry)
+        return new, new.state.status, new.state.iters
+
+    def fin(qp, scaled, scaling, state):
+        return finalize_batch(qp, scaled, scaling, state, params)
+
+    return admit, step, fin
+
+
+def aot_compile_continuous(qp_struct: CanonicalQP,
+                           params: SolverParams = SolverParams(),
+                           device=None):
+    """Compile the continuous-batching triple for one static cohort
+    shape; returns ``(admit, step, finalize, structs)``, the JAX
+    package's argument lists:
+
+    * ``admit(qp, x0, y0, mask, scaled_old, scaling_old, carry_old)
+      -> (qp, scaled, scaling, carry)``: equilibrate + carry-init every
+      slot, then per-lane select (admitted slots take the fresh state);
+      ``qp`` comes back on the device for ``finalize``.
+    * ``step(scaled, scaling, carry, active) -> (carry, status,
+      iters)``: one residual-check segment, inactive lanes frozen.
+    * ``finalize(qp, scaled, scaling, state) -> QPSolution``.
+
+    Host inputs (``qp``, ``x0``, ``y0``, the masks) are moved to the
+    device by the entries. "Compile" here binds the closures to
+    ``(params, device, shape)``, resolves the kernel form the shape
+    launches (:func:`kernel_form` raises where none fits) and runs the
+    triple once on a neutral cohort, which loads the kernel library and
+    creates the solver handles before any request arrives. ``structs``
+    is ``(scaled, scaling, carry)`` as ``meta`` tensors."""
+    dev = resolve_device(device)
+    HP.apply()
+    kernel_form(qp_struct, params, dev)
+    admit, step, fin = continuous_entries(params)
+    B, n = qp_struct.q.shape
+    m = qp_struct.l.shape[-1]
+    on = lambda t: t.to(dev)
+
+    def admit_entry(qp, x0, y0, mask, scaled_old, scaling_old, carry_old):
+        _check_struct(qp, qp_struct)
+        return admit(qp.to(dev), on(x0), on(y0), on(mask), scaled_old,
+                     scaling_old, carry_old)
+
+    def step_entry(scaled, scaling, carry, active):
+        return step(scaled, scaling, carry, on(active))
+
+    neutral = neutral_batch(qp_struct, dev)
+    x0 = torch.zeros((B, n), dtype=qp_struct.q.dtype, device=dev)
+    y0 = torch.zeros((B, m), dtype=qp_struct.q.dtype, device=dev)
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    state = prepare_batch(neutral, params, x0, y0)[:3]
+    qp_dev, scaled, scaling, carry = admit_entry(neutral, x0, y0, every,
+                                                 *state)
+    carry = step_entry(scaled, scaling, carry, every)[0]
+    fin(qp_dev, scaled, scaling, carry.state)
+    structs = map_tensors(lambda t: t.to("meta"), state)
+    return admit_entry, step_entry, fin, structs
+
+
+def aot_compile_batch(qp_struct: CanonicalQP,
+                      params: SolverParams = SolverParams(),
+                      device=None):
+    """Compile the batch solve for one static shape: the serving entry.
+
+    The returned ``entry(qp, x0, y0)`` takes host or device tensors of
+    ``qp_struct``'s shape plus warm starts ``x0 (batch, n)`` / ``y0
+    (batch, m)`` and returns a batched :class:`QPSolution` on
+    ``device`` (default: the card). Warm starts are always part of the
+    signature: zeros run the identical arithmetic as a cold start. What
+    "compile" means here: :func:`aot_compile_continuous`."""
+    dev = resolve_device(device)
+    HP.apply()
+    kernel_form(qp_struct, params, dev)
+    B, n = qp_struct.q.shape
+    m = qp_struct.l.shape[-1]
+
+    def entry(qp, x0, y0):
+        _check_struct(qp, qp_struct)
+        return _solve_impl(qp.to(dev), params, x0.to(dev), y0.to(dev))
+
+    dtype = qp_struct.q.dtype
+    entry(neutral_batch(qp_struct, dev),
+          torch.zeros((B, n), dtype=dtype, device=dev),
+          torch.zeros((B, m), dtype=dtype, device=dev))
+    return entry
 
 
 def solve_qp_batch(qp: CanonicalQP,

@@ -1,0 +1,353 @@
+"""Shape buckets + the compiled-entry cache (the port of
+``porqua_tpu/serve/bucketing.py``).
+
+Each incoming problem is padded up a small geometric ladder of
+``(n_vars, m_rows)`` buckets, and each batch up a power-of-two slot
+ladder, so the set of shapes that can reach a solve entry is the finite
+product ``rungs x slot-sizes``. Every entry is compiled once per
+``(bucket, slots, dtype, device)`` (:func:`qp.solve.aot_compile_batch`,
+:func:`qp.solve.aot_compile_continuous`: bound to the shape, its kernel
+form resolved, run once on a neutral batch) and cached; steady-state
+serving compiles nothing (the ``compiles`` counter after warmup is the
+regression signal).
+
+The padding is :func:`porqua_tpu_torch.qp.canonical.pad_qp`, the
+neutrality scheme the batched backtest uses, so a padded request solves
+to the same solution with zeros in the padding slots.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from porqua_tpu_torch.analysis import sanitize, tsan
+from porqua_tpu_torch.batch import _not_ported
+from porqua_tpu_torch.qp.canonical import CanonicalQP, pad_qp
+from porqua_tpu_torch.qp.solve import (
+    SolverParams,
+    aot_compile_batch,
+    aot_compile_continuous,
+    batch_shape_struct,
+)
+from porqua_tpu_torch.resilience import faults as _faults
+
+#: Default shape ladder, the JAX package's rungs: n covers the repo's
+#: workloads (24-asset MSCI grid -> 32; 500-asset north star -> 512;
+#: headroom to 2048) at ratio 2; m is sparser (budget + a handful of
+#: linear rows; the lifted turnover form adds 2n).
+DEFAULT_N_RUNGS: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048)
+DEFAULT_M_RUNGS: Tuple[int, ...] = (8, 32, 128, 512, 2048)
+
+
+class Bucket(NamedTuple):
+    """One shape bucket. ``factor_rows`` is part of the identity: a
+    problem carrying the objective factor (``Pf``) runs a different
+    entry than a dense one, and factor rows are never padded."""
+
+    n: int
+    m: int
+    factor_rows: Optional[int] = None
+
+
+class BucketOverflow(ValueError):
+    """The problem exceeds the ladder's largest rung."""
+
+
+class BucketLadder:
+    """Maps a problem's natural shape to its padded bucket."""
+
+    def __init__(self,
+                 n_rungs: Sequence[int] = DEFAULT_N_RUNGS,
+                 m_rungs: Sequence[int] = DEFAULT_M_RUNGS) -> None:
+        if not n_rungs or not m_rungs:
+            raise ValueError("ladder needs at least one rung per axis")
+        self.n_rungs = tuple(sorted(int(r) for r in n_rungs))
+        self.m_rungs = tuple(sorted(int(r) for r in m_rungs))
+
+    @staticmethod
+    def _select(rungs: Tuple[int, ...], value: int, axis: str) -> int:
+        i = bisect.bisect_left(rungs, value)
+        if i == len(rungs):
+            raise BucketOverflow(
+                f"problem {axis}={value} exceeds the ladder's largest "
+                f"rung {rungs[-1]}; extend the ladder explicitly rather "
+                f"than letting one request mint an unbounded shape")
+        return rungs[i]
+
+    def select(self, qp: CanonicalQP) -> Bucket:
+        r = None if qp.Pf is None else int(qp.Pf.shape[-2])
+        return Bucket(self._select(self.n_rungs, qp.n, "n_vars"),
+                      self._select(self.m_rungs, qp.m, "m_rows"), r)
+
+    def pad(self, qp: CanonicalQP) -> Tuple[Bucket, CanonicalQP]:
+        """Select the bucket and pad the problem into it (tensors on
+        the problem's device, the host for a request)."""
+        bucket = self.select(qp)
+        return bucket, pad_qp(qp, bucket.n, bucket.m)
+
+
+def slot_count(n_requests: int, max_batch: int) -> int:
+    """Batch-size ladder: next power of two >= n_requests, capped at
+    ``max_batch``. Occupancy >= 50% for every partial batch, about
+    log2(max_batch) entries per bucket."""
+    if n_requests <= 0:
+        raise ValueError("empty batch")
+    if n_requests >= max_batch:
+        return max_batch
+    return min(1 << (n_requests - 1).bit_length(), max_batch)
+
+
+def slot_ladder(max_batch: int) -> Tuple[int, ...]:
+    """Every batch size :func:`slot_count` can produce for a cap."""
+    out = []
+    s = 1
+    while s < max_batch:
+        out.append(s)
+        s <<= 1
+    out.append(max_batch)
+    return tuple(out)
+
+
+class ExecutableCache:
+    """(bucket, slots, dtype, device) -> compiled batch-solve entry.
+
+    ``SolverParams`` is fixed per cache (it is part of the service
+    identity, not the request); the device is part of the key so the
+    circuit breaker's fallback device gets its own entries. Thread-safe;
+    compiles happen outside the lock, so a multi-second warm-up of one
+    cold shape never blocks another bucket's hits. Two threads racing
+    the same miss compile once: the first claims the key with a pending
+    marker and builds, the rest wait on the marker and re-read.
+
+    ``cost_log`` is the JAX package's device-cost harvest
+    (``obs/devprof``): not ported, so anything but ``None``/``False``
+    raises.
+    """
+
+    def __init__(self, params: SolverParams = SolverParams(),
+                 metrics=None, events=None, cost_log=None) -> None:
+        if events is not None:
+            raise _not_ported("the event bus (events=)", "item 18")
+        if cost_log not in (None, False):
+            raise _not_ported("the device-cost harvest (cost_log=)",
+                              "item 19")
+        self.params = params
+        self.metrics = metrics
+        self._lock = tsan.lock("ExecutableCache")
+        self._cache: Dict[tuple, object] = {}  # guarded-by: self._lock
+        # Per-bucket cache health (hits / compiles / compile seconds),
+        # keyed by the bucket label ("NxM"[xfR]); cumulative.
+        self._bucket_stats: Dict[str, Dict[str, float]] = {}  # guarded-by: self._lock
+        # key -> threading.Event while a compile for it is in flight.
+        self._inflight: Dict[tuple, threading.Event] = {}  # guarded-by: self._lock
+        # Sanitizer warmup state, scoped per cache and per device: a
+        # device whose ladder prewarmed is sealed (misses on it are
+        # steady-state recompiles, refused under PORQUA_SANITIZE=1); a
+        # device never prewarmed pays its compiles lazily.
+        self._warmed_devices: set = set()  # guarded-by: self._lock
+        # (bucket, device_key) -> in-flight prewarm depth: those
+        # compiles are warmup even on a sealed device, without
+        # exempting concurrent misses on other buckets or devices.
+        self._warming: Dict[tuple, int] = {}  # guarded-by: self._lock
+
+    @staticmethod
+    def _device_key(device) -> tuple:
+        if device is None:
+            return ("default",)
+        device = torch.device(device)
+        return (device.type, 0 if device.index is None else device.index)
+
+    @staticmethod
+    def _bucket_label(bucket: Bucket) -> str:
+        label = f"{bucket.n}x{bucket.m}"
+        if bucket.factor_rows is not None:
+            label += f"xf{bucket.factor_rows}"
+        return label
+
+    def _bucket_stat(self, bucket: Bucket) -> Dict[str, float]:  # guarded-by: self._lock
+        return self._bucket_stats.setdefault(
+            self._bucket_label(bucket),
+            {"cache_hits": 0, "compiles": 0, "compile_seconds": 0.0})
+
+    def get(self, bucket: Bucket, slots: int, dtype, device=None):
+        """The compiled entry for one (bucket, batch, device)."""
+        return self._get(bucket, slots, dtype, device)[0]
+
+    def get_continuous(self, bucket: Bucket, slots: int, dtype,
+                       device=None):
+        """The continuous-batching triple ``(admit, step, finalize,
+        structs)`` for one cohort shape (see
+        :func:`porqua_tpu_torch.qp.solve.aot_compile_continuous`); one
+        cache entry and one compile event."""
+        return self._get(bucket, slots, dtype, device,
+                         kind="continuous")[0]
+
+    def _get(self, bucket: Bucket, slots: int, dtype, device=None,
+             kind: str = "solve"):
+        """(entry, missed): ``missed`` lets prewarm count its own
+        compiles exactly."""
+        dev_key = self._device_key(device)
+        key = (kind, bucket, int(slots), str(dtype), dev_key)
+        if _faults.enabled():
+            # cache.get seam: a compile_storm directive evicts this
+            # entry, so a post-warmup dispatch pays a fresh compile —
+            # the induced steady-state-recompile regression. Fired
+            # outside the cache lock (the injector takes its own).
+            act = _faults.fire("cache.get", cache_kind=kind,
+                               slots=int(slots))
+            if act is not None and act.kind == "compile_storm":
+                with self._lock:
+                    self._cache.pop(key, None)
+        while True:
+            wait_for = None
+            with self._lock:
+                exe = self._cache.get(key)
+                if exe is not None:
+                    hit = True
+                    self._bucket_stat(bucket)["cache_hits"] += 1
+                else:
+                    hit = False
+                    wait_for = self._inflight.get(key)
+                    if wait_for is None:
+                        # Claim the key; the warmup decision snapshots
+                        # atomically with the claim.
+                        self._inflight[key] = threading.Event()
+                        post_warmup = (
+                            dev_key in self._warmed_devices
+                            and not self._warming.get((bucket, dev_key)))
+            if hit:
+                if self.metrics is not None:
+                    self.metrics.inc("cache_hits")
+                return exe, False
+            if wait_for is not None:
+                # Another thread is compiling this key: wait outside
+                # the lock and re-read; if that compile failed, this
+                # thread compiles the key itself.
+                wait_for.wait()
+                continue
+            return self._build(key, bucket, slots, dtype, device,
+                               kind, dev_key, post_warmup), True
+
+    def _build(self, key, bucket: Bucket, slots: int, dtype, device,
+               kind: str, dev_key, post_warmup: bool):
+        """Compile one claimed entry outside the cache lock, publish it
+        and release the waiters."""
+        t0 = time.perf_counter()
+        try:
+            # Every compile is counted; after prewarm() sealed this
+            # device, a miss raises under PORQUA_SANITIZE=1.
+            sanitize.note_compile(
+                f"kind={kind} bucket={bucket} slots={int(slots)} "
+                f"device={dev_key}",
+                post_warmup=post_warmup)
+            struct = batch_shape_struct(
+                int(slots), bucket.n, bucket.m, dtype=dtype,
+                factor_rows=bucket.factor_rows)
+            if kind == "continuous":
+                exe = aot_compile_continuous(struct, self.params,
+                                             device=device)
+            else:
+                exe = aot_compile_batch(struct, self.params, device=device)
+            with self._lock:
+                self._cache[key] = exe
+        finally:
+            # Success or failure, drop the claim and wake the waiters
+            # (on failure they re-race the miss).
+            with self._lock:
+                pending = self._inflight.pop(key, None)
+            if pending is not None:
+                pending.set()
+        seconds = time.perf_counter() - t0
+        with self._lock:
+            stat = self._bucket_stat(bucket)
+            stat["compiles"] += 1
+            stat["compile_seconds"] += seconds
+        if self.metrics is not None:
+            self.metrics.observe_compile(seconds)
+        return exe
+
+    def cost_records(self) -> list:
+        """The JAX package's harvested XLA cost records: not ported."""
+        raise _not_ported("ExecutableCache.cost_records (obs/devprof.py)",
+                          "item 19")
+
+    def cost_record_for(self, *args, **kwargs):
+        """The JAX package's per-entry XLA cost record: not ported."""
+        raise _not_ported("ExecutableCache.cost_record_for "
+                          "(obs/devprof.py)", "item 19")
+
+    def bucket_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-bucket cache health: hits, compiles (== misses that
+        built) and cumulative compile seconds."""
+        with self._lock:
+            return {label: dict(stat)
+                    for label, stat in self._bucket_stats.items()}
+
+    def prometheus_gauges(self) -> Dict[str, list]:
+        """Per-bucket cache-health series for a ``/metrics`` exposition:
+        compile seconds, compile and hit counters. (The JAX package
+        adds peak device memory from its cost harvest, item 19.)"""
+        stats = self.bucket_stats()
+        out: Dict[str, list] = {
+            "bucket_compile_seconds_total": [],
+            "bucket_compiles_total": [],
+            "bucket_cache_hits_total": [],
+        }
+        for label in sorted(stats):
+            stat = stats[label]
+            tag = {"bucket": label}
+            out["bucket_compile_seconds_total"].append(
+                (tag, stat.get("compile_seconds", 0.0)))
+            out["bucket_compiles_total"].append(
+                (tag, stat.get("compiles", 0)))
+            out["bucket_cache_hits_total"].append(
+                (tag, stat.get("cache_hits", 0)))
+        return out
+
+    @property
+    def warmed(self) -> bool:
+        """At least one device's ladder prewarmed successfully
+        (sanitizer enforcement armed for that device)."""
+        with self._lock:
+            return bool(self._warmed_devices)
+
+    def prewarm(self, bucket: Bucket, max_batch: int, dtype,
+                device=None, continuous: bool = False,
+                include_solve: bool = True) -> int:
+        """Compile the whole slot ladder for one bucket; returns the
+        number of entries compiled (cache misses). ``(bucket, device)``'s
+        compiles count as warmup for the duration, while concurrent
+        misses on other buckets or devices stay enforced. The device is
+        sealed only when the whole ladder compiled. ``continuous=True``
+        compiles the continuous triple for every rung;
+        ``include_solve=False`` skips the one-shot solve entries (a
+        continuous service never dispatches them)."""
+        compiled = 0
+        key = (bucket, self._device_key(device))
+        with self._lock:
+            self._warming[key] = self._warming.get(key, 0) + 1
+        try:
+            for s in slot_ladder(max_batch):
+                if include_solve:
+                    compiled += self._get(bucket, s, dtype, device)[1]
+                if continuous:
+                    compiled += self._get(bucket, s, dtype, device,
+                                          kind="continuous")[1]
+        finally:
+            with self._lock:
+                depth = self._warming[key] - 1
+                if depth:
+                    self._warming[key] = depth
+                else:
+                    del self._warming[key]
+        with self._lock:
+            self._warmed_devices.add(self._device_key(device))
+        return compiled
+
+    def __len__(self) -> int:
+        return len(self._cache)

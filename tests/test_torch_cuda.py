@@ -540,3 +540,46 @@ def test_serial_backtest_and_accounting_on_card():
                                        device=dev).to_numpy())
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=1e-7)
     np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("continuous", [False, True],
+                         ids=["micro", "continuous"])
+@pytest.mark.parametrize("kind", ["dense", "factored"])
+def test_service_on_card_matches_cpu(kind, continuous):
+    """64 tracking requests (60 assets, window 120; bucket 64 x 8)
+    through SolveService on the card and on the CPU, in each batching
+    mode: equal status and iterations per request, every result
+    labelled cuda:0, and the card's run went through the cluster form
+    of its kernel and never the streaming one."""
+    import dataclasses
+
+    from porqua_tpu_torch.serve import SolveService
+    from porqua_tpu_torch.serve.loadgen import (SERVE_PARAMS,
+                                                build_tracking_requests)
+
+    need_card()
+    factor = kind == "factored"
+    reqs = build_tracking_requests(64, n_assets=60, window=120, seed=3,
+                                   factor=factor)
+    opts = FORMS["factored_refine0" if factor else "triangular"]
+    params = dataclasses.replace(SERVE_PARAMS, backend="pallas", **opts)
+    wrapper = tk.admm_segment_factored if factor else tk.admm_segment
+    results, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        before = counts_of(wrapper)
+        with SolveService(params, max_batch=16, max_wait_ms=2.0,
+                          continuous=continuous, warm_start=False,
+                          device=dev) as svc:
+            svc.prewarm(reqs[0])
+            tickets = [svc.submit(q) for q in reqs]
+            results[dev] = [svc.result(t, timeout=300) for t in tickets]
+        counts[dev] = [a - b for a, b in zip(counts_of(wrapper), before)]
+    assert counts["cuda"][1] > 0 and counts["cuda"][2] == 0
+    assert {r.device for r in results["cuda"]} == {"cuda:0"}
+    for k in ("status", "iters"):
+        assert ([getattr(r, k) for r in results["cuda"]]
+                == [getattr(r, k) for r in results["cpu"]]), k
+    x_card = np.stack([r.x for r in results["cuda"]])
+    x_cpu = np.stack([r.x for r in results["cpu"]])
+    np.testing.assert_allclose(x_card, x_cpu, atol=1e-4, rtol=0)

@@ -209,8 +209,9 @@ def test_unported_options_raise(over, exc):
 
 def test_port_imports_no_jax():
     """The port imports every module, solves, runs a batched backtest,
-    a chained scan and a crashed and resumed checkpointed scan with JAX
-    made unimportable, and pulls in no module of the JAX package."""
+    a chained scan, a crashed and resumed checkpointed scan and a solve
+    service round trip in both batching modes with JAX made
+    unimportable, and pulls in no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -255,6 +256,18 @@ def test_port_imports_no_jax():
         "c, info = pt.solve_scan_l1_checkpointed(qp, 8, [1 / 8] * 8, 0.01, "
         "d, prm, segment_size=2, universes=pt.FIXED_UNIVERSE, device='cpu')\n"
         "assert info['resumed_segments'] == 1 and bool((c.x == s.x).all())\n"
+        "from porqua_tpu_torch.serve import SolveService\n"
+        "from porqua_tpu_torch.serve.loadgen import (SERVE_PARAMS, "
+        "build_tracking_requests)\n"
+        "reqs = build_tracking_requests(4, n_assets=8, window=20)\n"
+        "for cont in (False, True):\n"
+        "    with SolveService(SERVE_PARAMS, max_batch=4, device='cpu', "
+        "continuous=cont) as svc:\n"
+        "        assert svc.prewarm(reqs[0]) == 3\n"
+        "        rs = [svc.result(t, timeout=60) for t in "
+        "[svc.submit(q) for q in reqs]]\n"
+        "    assert [r.status for r in rs] == [1] * 4, rs\n"
+        "    assert svc.snapshot()['completed'] == 4\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
         "assert not bad, bad\n"
