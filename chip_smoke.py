@@ -65,7 +65,17 @@ printed):
    (``porqua_tpu_torch/testdata/serve_golden.npz``; checks listed at
    ``serve_phase``), with one profiled burst; each micro-batcher run's
    kernel is held against its plain twin on its first full batch.
-8. One JSON line per kernel, then the card line, then the result line.
+8. The secondary configurations of bench.py, against the JAX golden
+   (``porqua_tpu_torch/testdata/secondary_golden.npz``; checks listed at
+   ``secondary_phase``): segment compaction (``CompactingDriver``, the
+   width walking down the slot ladder) on the headline batch at eps
+   1e-5 for the factored kernel, the triangular-inverse kernel and
+   NAPG, each against the fused solve; the PDHG and NAPG backends
+   beside ADMM; the 5,000-asset north star through the count-sketch on
+   all three backends, with the golden's draws and with the port's own;
+   the sketch's passthrough at 2,048 assets; one profiled compacted
+   solve. Each kernel is held against its plain twin at a narrow rung.
+9. One JSON line per kernel, then the card line, then the result line.
 """
 
 import dataclasses
@@ -154,6 +164,41 @@ USA_CONTROL_DATES = 6
 # to 512 x 8) against the JAX golden: status and iterations equal,
 # |dx| <= W_ATOL over the 500 real entries, budget and box to eps_abs.
 SERVE_PATH = os.path.join("porqua_tpu_torch", "testdata", "serve_golden.npz")
+# Phase 8 holds bench.py's secondary configurations against the JAX
+# golden (XLA-CPU; tests/test_torch_compaction.py --write-golden). Each
+# tracking window (252 days) is shorter than its universe (500 assets),
+# so the optimum is a face: the in-sample TE (the objective) is unique,
+# the weights are not, and at eps 1e-5 an f32 run can stop anywhere
+# within eps of the face (XLA-CPU's own NAPG dates sit up to 3.2e-3 from
+# its f64 run's). So per date the TE band: |TE - TE_f64| at most
+# KERNEL_VS_PLAIN times the largest such distance of any of XLA-CPU's
+# f32 dates (the config's f32 floor at this eps), plus ULPS_PER_ITER f32
+# ulps of the TE per iteration; a control with the dates out of order
+# must fail it. Where every golden date lies within W_ATOL of the f64
+# answer (compact_trinv), also |dw| <= W_ATOL on the dates that stop at
+# the golden's check; elsewhere |dw| is printed. Median TE within
+# TE_RTOL of the golden's, or, where the golden's own median sits
+# farther from the f64 run's, within KERNEL_VS_PLAIN times that. The
+# compacted solve (ON) against the fused one (OFF): the dates stepped
+# only at widths of 128 or more, the first-boundary ones among them,
+# bit for bit (on the card a batched product below 128 problems may
+# take another summation order, ROADMAP section C); every date by the
+# TE band; median TE within TE_DRIFT (the reference's acceptance).
+SECONDARY_PATH = os.path.join("porqua_tpu_torch", "testdata",
+                              "secondary_golden.npz")
+ON_OFF_WIDTH = 128
+TE_DRIFT = 1e-6
+# The backends' A/B: each alternate backend's median TE within
+# BACKEND_BAND of the ADMM arm's (bench_gate's config_pdhg/config_napg
+# band). PDHG stops at max_iter on every date (as on XLA-CPU), so its
+# iterate is held by its median TE against the golden's within
+# PDHG_TE_RTOL: the port on the CPU lands 1.1e-4 from it over 12 dates
+# (its f32 iterate after 8,000 steps; per date up to 6.3e-4; the H100
+# over all 252: 1.3e-6), the bound sits at 5x the CPU's, and the ADMM
+# arm's median TE, a different iterate of the same problems, lies
+# 9.9e-3 away (the control).
+BACKEND_BAND = 0.02
+PDHG_TE_RTOL = 5e-4
 FAILURES = []
 
 
@@ -1428,6 +1473,403 @@ def serve_phase(rows, reset_counts, device="cuda"):
     return added
 
 
+def te_band(x, iters, g_te, te64, Xs, ys):
+    """Per date, the in-sample TE of ``x`` within the band of the f64
+    run's (the rule at SECONDARY_PATH); returns (passed, per-date
+    distance, band)."""
+    import numpy as np
+
+    d_card = np.abs(in_sample_te(Xs, ys, x) - te64)
+    floor = ULPS_PER_ITER * int(iters.max()) * F32_EPS * float(te64.max())
+    band = KERNEL_VS_PLAIN * float(np.abs(g_te - te64).max()) + floor
+    return bool(np.isfinite(x).all() and (d_card <= band).all()), d_card, band
+
+
+def secondary_phase(rows, reset_counts, device="cuda"):
+    """Phase 8: bench.py's secondary configurations on the card against
+    the JAX golden (``porqua_tpu_torch/testdata/secondary_golden.npz``);
+    returns the kernel rows it adds to ``rows``.
+
+    8a. Compaction on the headline batch (252 dates x 500 assets, f32,
+    eps 1e-5): ``compact_woodbury`` (the factored kernel at refine 0),
+    ``compact_trinv`` (the triangular-inverse kernel) and
+    ``compact_napg`` (NAPG, the plain path), each the fused
+    ``solve_qp_batch`` (OFF) and ``CompactingDriver`` (prewarm, one
+    warm-up solve, the measured solve: ON). Checks, by the rules at
+    SECONDARY_PATH: every date's TE within the band of the f64 run's
+    (dates out of order must fail it), |dw| where it is held, every date
+    SOLVED or MAX_ITER and SOLVED wherever the golden solved every date,
+    the median TE; ON against OFF; no compile inside the measured solve;
+    the kernel configs launch their cluster form once per segment at
+    two widths or more and never the streaming form, NAPG no kernel; the
+    compaction accounting equal to the golden's where every iteration
+    count is. Each kernel is held against its plain twin at a narrow
+    rung.
+    8b. The backends' A/B on the same batch: PDHG (8,000 iterations)
+    beside 8a's NAPG and ADMM (trinv) fused runs: status equal to the
+    golden on every date, each alternate backend's median TE within
+    BACKEND_BAND of the ADMM arm's, PDHG's within PDHG_TE_RTOL of the
+    golden's.
+    8c. The 5,000-asset north star (one 504 x 5,000 window): the dense
+    arm and the sketch-fed arms (sketch_dim 256) on admm, pdhg and napg
+    fed the golden's JAX draws: status equal; iterations equal to the
+    golden's f32 run (then TE within TE_RTOL) or to its f64 run (then
+    weights and TE by the twin rule against the f64 run; another arm's
+    weights must fail it); gram_rel_err with the golden's probes within
+    TE_RTOL relative. Then the port's own seeded draws: solved, the same
+    bits on a second call. At 2,048 x 504: sketch_dim=0 and the sketch
+    path's passthrough bit-exact against the plain tracking_step.
+    8d. One profiled compacted ``compact_woodbury`` solve."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.compaction import CompactingDriver
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp.admm import segment_kernel_call
+    from porqua_tpu_torch.qp.canonical import SketchDraws
+    from porqua_tpu_torch.qp.sketch import (SketchParams,
+                                            sketched_tracking_qp,
+                                            tracking_step_sketched)
+    from porqua_tpu_torch.qp.solve import prepare_batch
+    from porqua_tpu_torch.synthetic import large_universe_np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SECONDARY_PATH))
+    meta = json.loads(str(golden["meta"]))
+    dev = torch.device(device)
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    kernel_of = {"compact_woodbury": K1, "compact_trinv": K2}
+
+    def params(name):
+        p = json.loads(str(golden[f"{name}/params"]))
+        if name in kernel_of:
+            p["backend"] = "pallas"
+        return pt.SolverParams(**p)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def counts():
+        return {name: {"cluster": f.cluster_launches,
+                       "stream": f.stream_launches,
+                       "widths": dict(sorted(f.widths.items()))}
+                for name, f in (("K1", K1), ("K2", K2))}
+
+    def host(sol):
+        return {k: getattr(sol, k).cpu().numpy()
+                for k in ("x", "status", "iters")}
+
+    Xs_np, ys_np = pt.synthetic_universe_np(
+        meta["seed"], meta["n_dates"], meta["window"], meta["n_assets"])
+    pt.qp.canonical.HP.apply()
+    qps = pt.build_tracking_qp(torch.as_tensor(Xs_np, device=dev),
+                               torch.as_tensor(ys_np, device=dev))
+    B, n = qps.q.shape
+    m, k = qps.l.shape[-1], qps.Pf.shape[-2]
+    te_of = lambda x: in_sample_te(Xs_np, ys_np, x)
+    med = lambda v: float(np.median(v))
+
+    # -- 8a. compaction ---------------------------------------------------
+    added, fused, driver_wb = [], {}, None
+    for name in ("compact_woodbury", "compact_trinv", "compact_napg"):
+        prm = params(name)
+        ci = prm.check_interval
+        g = {key: golden[f"{name}/{key}"] for key in
+             ("x", "status", "iters", "tracking_error", "x_f64")}
+        off = None
+        for _ in range(2):        # the first run includes the warm-up
+            reset_counts()
+            off, off_ms = synced(lambda: pt.solve_qp_batch(qps, prm))
+            off_counts = counts()
+        off_np = host(off)
+        fused[name] = off_np
+
+        driver = CompactingDriver(prm)
+        t0 = time.perf_counter()
+        n_warm = driver.prewarm(B, n, m, dtype=qps.q.dtype, factor_rows=k)
+        prewarm_s = time.perf_counter() - t0
+        driver.solve(qps)
+        reset_counts()
+        (on, rep), on_ms = synced(lambda: driver.solve(qps))
+        on_counts = counts()
+        on_np = host(on)
+        if name == "compact_woodbury":
+            driver_wb = driver
+
+        # ON against OFF.
+        segs = np.maximum(off_np["iters"] // ci, 1)
+        widest = np.array([min(rep.dispatch_sizes[:j]) for j in segs])
+        first = segs == 1
+        wide = widest >= ON_OFF_WIDTH
+        bits = np.all(on_np["x"] == off_np["x"], axis=1) & (
+            on_np["iters"] == off_np["iters"])
+        same_it = on_np["iters"] == off_np["iters"]
+        dx_same = (float(np.abs(on_np["x"] - off_np["x"])[same_it].max())
+                   if same_it.any() else 0.0)
+        te_on, te_off = te_of(on_np["x"]), te_of(off_np["x"])
+        # Against the golden.
+        te64 = te_of(g["x_f64"])
+        ok_band, d_te, band = te_band(on_np["x"], on_np["iters"],
+                                      g["tracking_error"], te64, Xs_np,
+                                      ys_np)
+        ok_ctl = te_band(np.roll(on_np["x"], 1, axis=0), on_np["iters"],
+                         g["tracking_error"], te64, Xs_np, ys_np)[0]
+        at_check = ((on_np["status"] == g["status"])
+                    & (on_np["iters"] == g["iters"]) & (g["status"] == 1))
+        dw = np.abs(on_np["x"] - g["x"]).max(axis=1)
+        dw_at = float(dw[at_check].max()) if at_check.any() else 0.0
+        hold_dw = float(np.abs(g["x"] - g["x_f64"]).max()) <= W_ATOL
+        te_rel = abs(med(te_on) - med(g["tracking_error"])) / med(
+            g["tracking_error"])
+        te_lim = max(TE_RTOL * med(g["tracking_error"]), KERNEL_VS_PLAIN
+                     * abs(med(g["tracking_error"]) - med(te64)))
+        g_rep = {key: int(golden[f"{name}/report/{key}"]) for key in
+                 ("segments", "lane_segments", "dense_lane_segments",
+                  "useful_lane_segments", "max_iter_lanes")}
+        g_sizes = tuple(golden[f"{name}/report/dispatch_sizes"].tolist())
+        rep_d = {key: getattr(rep, key) for key in g_rep}
+        st_counts = lambda s: {label: int((s == code).sum()) for code, label
+                               in ((1, "solved"), (2, "max_iter"))}
+        print(f"compaction [{name}]: B={B} n={n} m={m} k={k}; OFF "
+              f"{off_ms:.1f} ms (launches {off_counts}); ON {on_ms:.1f} ms "
+              f"(prewarm {n_warm} entries in {prewarm_s:.2f} s; launches "
+              f"{on_counts}); lane-segments OFF {rep.dense_lane_segments} "
+              f"-> ON {rep.lane_segments} (reduction "
+              f"{rep.savings_vs_dense:.4f}; golden {g_rep['dense_lane_segments']}"
+              f" -> {g_rep['lane_segments']}); segments {rep.segments} "
+              f"(golden {g_rep['segments']}); dispatch sizes "
+              f"{rep.dispatch_sizes} (golden {g_sizes}); compiles in the "
+              f"measured solve {rep.compiles}; stage seconds "
+              f"{rep.profile['stage_seconds']}", flush=True)
+        print(f"compaction [{name}]: status ON {st_counts(on_np['status'])}"
+              f", golden {st_counts(g['status'])}; iterations equal to the "
+              f"golden on {int((on_np['iters'] == g['iters']).sum())}/{B} "
+              f"dates (ON), {int((off_np['iters'] == g['iters']).sum())}/{B}"
+              f" (OFF); ON vs OFF: {int(bits.sum())}/{B} dates bit-identical"
+              f" ({int(first.sum())} retire at the first boundary, "
+              f"{int(wide.sum())} are stepped only at widths >= "
+              f"{ON_OFF_WIDTH}), status equal on "
+              f"{int((on_np['status'] == off_np['status']).sum())}/{B}, "
+              f"iterations on {int(same_it.sum())}/{B}, max|dx| where the "
+              f"iterations are equal {dx_same:.3e}; median TE ON "
+              f"{med(te_on):.9e} OFF {med(te_off):.9e} golden "
+              f"{med(g['tracking_error']):.9e} f64 {med(te64):.9e}",
+              flush=True)
+        print(f"compaction [{name}]: against the golden: TE to the f64 run "
+              f"max {float(d_te.max()):.3e} <= band {band:.3e}; {int(at_check.sum())}"
+              f" dates SOLVED at the golden's check, max|dw| {dw_at:.3e} "
+              f"({'held' if hold_dw else 'printed'}; all dates "
+              f"{float(dw.max()):.3e}; golden to its f64 run "
+              f"{float(np.abs(g['x'] - g['x_f64']).max()):.3e}); median TE "
+              f"rel {te_rel:.3e}", flush=True)
+        check(ok_band, f"[{name}] every date's TE within the band of the "
+              f"f64 run's ({float(d_te.max()):.3e} <= {band:.3e})")
+        check(not ok_ctl, f"[{name}] control: the dates out of order fail "
+              f"the TE band")
+        if hold_dw:
+            check(dw_at <= W_ATOL, f"[{name}] max|dw| {dw_at:.3e} <= "
+                  f"{W_ATOL:g} on the dates at the golden's check")
+        all_solved = bool((g["status"] == 1).all())
+        check(bool(np.isin(on_np["status"], (1, 2)).all()) and (
+            not all_solved or bool((on_np["status"] == 1).all())),
+            f"[{name}] every date SOLVED or MAX_ITER"
+            + (", SOLVED on every date as in the golden" if all_solved
+               else ""))
+        check(abs(med(te_on) - med(g["tracking_error"])) <= te_lim,
+              f"[{name}] median TE within {te_lim / med(g['tracking_error']):.3g}"
+              f" relative of the golden's ({te_rel:.3e})")
+        check(bool(bits[wide].all()),
+              f"[{name}] ON vs OFF: the {int(wide.sum())} dates stepped only"
+              f" at widths >= {ON_OFF_WIDTH} bit-identical (the "
+              f"{int(first.sum())} first-boundary ones among them)")
+        check(abs(med(te_on) - med(te_off)) <= TE_DRIFT,
+              f"[{name}] median TE drift ON vs OFF "
+              f"{abs(med(te_on) - med(te_off)):.3e} <= {TE_DRIFT:g}")
+        check(rep.compiles == 0, f"[{name}] no compile inside the measured "
+              f"solve")
+        if np.array_equal(on_np["iters"], g["iters"]):
+            check(rep_d == g_rep and tuple(rep.dispatch_sizes) == g_sizes,
+                  f"[{name}] compaction accounting equals the golden's")
+        wrapper = kernel_of.get(name)
+        if wrapper is None:
+            check(all(c["cluster"] == c["stream"] == 0 for c in
+                      (off_counts["K1"], off_counts["K2"], on_counts["K1"],
+                       on_counts["K2"])),
+                  f"[{name}] the plain path launched no kernel")
+            continue
+        tag = "K1" if wrapper is K1 else "K2"
+        c_on, c_off = on_counts[tag], off_counts[tag]
+        check(c_off["cluster"] > 0 and c_off["stream"] == 0
+              and list(c_off["widths"]) == [B],
+              f"[{name}] OFF launched the cluster form at width {B} only")
+        check(c_on["cluster"] == rep.segments and c_on["stream"] == 0
+              and len(c_on["widths"]) >= 2,
+              f"[{name}] ON launched the cluster form once per segment at "
+              f"{len(c_on['widths'])} widths, never the streaming form")
+        # The kernel against its plain twin at a narrow rung.
+        w = min([s for s in rep.dispatch_sizes if s < B] + [128])
+        sub = type(qps)(*(None if f is None else f[:w] for f in qps))
+        scaled, _, carry, _, _ = prepare_batch(sub, prm)
+        fn, args, kw = segment_kernel_call(carry, scaled, prm)
+        key = f"compact_{tag.lower()}"
+        base = (("woodbury", "cluster") if tag == "K1"
+                else ("trinv", "cluster"))
+        rname = (f"admm_segment_factored_cluster[refine=0], compact w={w}"
+                 if tag == "K1" else
+                 f"admm_segment[triangular]_cluster, compact w={w}")
+        kernel_row(rows, key, rname, base, fn, args, kw, c_on["cluster"])
+        added.append(key)
+
+    # -- 8b. the backends' A/B ---------------------------------------------
+    prm = params("pdhg")
+    pdhg, pdhg_ms = synced(lambda: pt.solve_qp_batch(qps, prm))
+    pd = host(pdhg)
+    te = {"admm": med(te_of(fused["compact_trinv"]["x"])),
+          "napg": med(te_of(fused["compact_napg"]["x"])),
+          "pdhg": med(te_of(pd["x"]))}
+    drift = {b: abs(te[b] - te["admm"]) / te["admm"] for b in ("pdhg",
+                                                               "napg")}
+    g_te = med(golden["pdhg/tracking_error"])
+    pd_rel = abs(te["pdhg"] - g_te) / g_te
+    for b, res in (("admm", fused["compact_trinv"]),
+                   ("napg", fused["compact_napg"]), ("pdhg", pd)):
+        it = res["iters"]
+        print(f"backends [{b}]: iters p50 {np.percentile(it, 50):.0f} p95 "
+              f"{np.percentile(it, 95):.0f} max {int(it.max())}; status "
+              f"{ {int(s): int((res['status'] == s).sum()) for s in np.unique(res['status'])} }"
+              f"; median TE {te[b]:.9e}", flush=True)
+    print(f"backends: PDHG {pdhg_ms:.1f} ms for {prm.max_iter} iterations; "
+          f"pdhg_te_rel_drift {drift['pdhg']:.4e} (golden "
+          f"{abs(g_te - med(golden['compact_trinv/tracking_error'])) / med(golden['compact_trinv/tracking_error']):.4e})"
+          f", napg_te_rel_drift {drift['napg']:.4e}; PDHG median TE "
+          f"against the golden's {pd_rel:.3e}; the ADMM arm's against it "
+          f"{abs(te['admm'] - g_te) / g_te:.3e}", flush=True)
+    check(np.array_equal(pd["status"], golden["pdhg/status"])
+          and np.array_equal(pd["iters"], golden["pdhg/iters"]),
+          f"[pdhg] status and iterations equal the golden on every date "
+          f"({int((pd['status'] == 1).sum())}/{B} solved)")
+    check(drift["pdhg"] <= BACKEND_BAND and drift["napg"] <= BACKEND_BAND,
+          f"[backends] pdhg/napg median TE within {BACKEND_BAND:g} of the "
+          f"ADMM arm's")
+    check(pd_rel <= PDHG_TE_RTOL, f"[pdhg] median TE within "
+          f"{PDHG_TE_RTOL:g} relative of the golden's ({pd_rel:.3e})")
+    check(abs(te["admm"] - g_te) / g_te > PDHG_TE_RTOL,
+          "[pdhg] control: the ADMM arm's median TE fails that limit")
+
+    # -- 8c. the 5,000-asset north star ------------------------------------
+    X5, y5 = large_universe_np(meta["sk_seed"], meta["sk_window"],
+                               meta["sk_assets"])
+    draws = SketchDraws(*(torch.as_tensor(golden[f"northstar/{key}"])
+                          for key in ("bucket", "sign", "probes")))
+    arms, te5 = {}, {}
+    for arm in ("dense", "admm", "pdhg", "napg"):
+        prm = pt.SolverParams(**json.loads(str(
+            golden[f"northstar/{arm}/params"])))
+        for _ in range(2):
+            res, ms = synced(lambda: pt.tracking_step(X5, y5, prm,
+                                                      draws=draws))
+        arms[arm] = res
+        gk = lambda key: golden[f"northstar/{arm}/{key}"]
+        st, it = int(res.status[0]), int(res.iters[0])
+        w = res.weights.cpu().numpy()
+        te5[arm] = float(res.tracking_error[0])
+        at_f32 = it == int(gk("iters")[0])
+        d_card = float(np.abs(w - gk("weights_f64")).max())
+        d_gold = float(np.abs(gk("weights") - gk("weights_f64")).max())
+        t_card = abs(te5[arm] - float(gk("tracking_error_f64")[0]))
+        t_gold = abs(float(gk("tracking_error")[0])
+                     - float(gk("tracking_error_f64")[0]))
+        floor = ULPS_PER_ITER * it * F32_EPS * float(np.abs(w).max())
+        te_rel = abs(te5[arm] / float(gk("tracking_error")[0]) - 1)
+        print(f"northstar [{arm}]: {ms:.1f} ms; status {st} (golden "
+              f"{int(gk('status')[0])}), iters {it} (golden "
+              f"{int(gk('iters')[0])}, its f64 run {int(gk('iters_f64')[0])}"
+              f"); TE {te5[arm]:.9e} (golden "
+              f"{float(gk('tracking_error')[0]):.9e}, rel {te_rel:.3e}; f64 "
+              f"{float(gk('tracking_error_f64')[0]):.9e}); weights to the f64"
+              f" run {d_card:.3e} (golden's {d_gold:.3e})", flush=True)
+        check(st == int(gk("status")[0]) == 1,
+              f"[northstar {arm}] SOLVED as in the golden")
+        if at_f32:
+            check(te_rel <= TE_RTOL, f"[northstar {arm}] iterations equal "
+                  f"the golden's; TE within {TE_RTOL:g} relative")
+        else:
+            dense_w = arms["dense"].weights.cpu().numpy()
+            ctl = float(np.abs(dense_w - gk("weights_f64")).max())
+            check(it == int(gk("iters_f64")[0])
+                  and d_card <= KERNEL_VS_PLAIN * d_gold + floor
+                  and t_card <= KERNEL_VS_PLAIN * t_gold,
+                  f"[northstar {arm}] crosses eps at the f64 run's check "
+                  f"({it}); weights {d_card:.3e} <= {KERNEL_VS_PLAIN:g} x "
+                  f"{d_gold:.3e} + {floor:.2g} and TE {t_card:.3e} <= "
+                  f"{KERNEL_VS_PLAIN:g} x {t_gold:.3e} from the f64 run")
+            check(ctl > KERNEL_VS_PLAIN * d_gold + floor,
+                  f"[northstar {arm}] control: the dense arm's weights fail "
+                  f"that rule ({ctl:.3e})")
+    drift5 = {a: abs(te5[a] - te5["dense"]) / te5["dense"]
+              for a in ("admm", "pdhg", "napg")}
+    g_dense = float(golden["northstar/dense/tracking_error"][0])
+    g_drift = max(abs(float(golden[f"northstar/{a}/tracking_error"][0])
+                      - g_dense) / g_dense for a in ("admm", "pdhg", "napg"))
+    X5d, y5d = (torch.as_tensor(X5, device=dev),
+                torch.as_tensor(y5, device=dev))
+    _, info = sketched_tracking_qp(X5d, y5d, SketchParams(
+        meta["sk_dim"], meta["sketch_seed"], meta["probes"]), draws=draws)
+    gre, g_gre = float(info.gram_rel_err[0]), float(
+        golden["northstar/gram_rel_err"])
+    print(f"northstar: te_rel_drift {drift5} (max {max(drift5.values()):.4f};"
+          f" golden's {g_drift:.4f}); gram_rel_err {gre:.6f} (golden "
+          f"{g_gre:.6f})", flush=True)
+    check(abs(gre - g_gre) <= TE_RTOL * g_gre,
+          f"[northstar] gram_rel_err within {TE_RTOL:g} relative of the "
+          f"golden's")
+    own = dataclasses.replace(
+        pt.SolverParams(**json.loads(str(golden["northstar/dense/params"]))),
+        sketch_dim=meta["sk_dim"], sketch_seed=meta["sketch_seed"])
+    r1, own_ms = synced(lambda: pt.tracking_step(X5, y5, own))
+    r2 = pt.tracking_step(X5, y5, own)
+    _, own_info = sketched_tracking_qp(X5d, y5d, SketchParams(
+        meta["sk_dim"], meta["sketch_seed"], meta["probes"]))
+    print(f"northstar [own draws, seed {meta['sketch_seed']}]: {own_ms:.1f} "
+          f"ms; status {int(r1.status[0])}, iters {int(r1.iters[0])}, TE "
+          f"{float(r1.tracking_error[0]):.9e} (drift "
+          f"{abs(float(r1.tracking_error[0]) - te5['dense']) / te5['dense']:.4f}"
+          f"); gram_rel_err {float(own_info.gram_rel_err[0]):.6f}",
+          flush=True)
+    check(int(r1.status[0]) == 1 and all(torch.equal(a, b) for a, b in
+                                         zip(r1, r2)),
+          "[northstar own draws] SOLVED, the same bits on a second call")
+    X2, y2 = large_universe_np(meta["sk_seed"], meta["sk_window"], 2048)
+    p2 = pt.SolverParams(max_iter=500, eps_abs=1e-3, eps_rel=1e-3,
+                         polish=False)
+    plain = pt.tracking_step(X2, y2, p2)
+    off0 = pt.tracking_step(X2, y2, dataclasses.replace(p2, sketch_dim=0))
+    off1, _ = tracking_step_sketched(X2, y2, p2, SketchParams())
+    on2, info2 = tracking_step_sketched(X2, y2, p2, SketchParams(
+        meta["sk_dim"], meta["sketch_seed"]))
+    te_off = float(plain.tracking_error[0])
+    print(f"sketch at 2048 x {meta['sk_window']}: TE off {te_off:.9e}, on "
+          f"{float(on2.tracking_error[0]):.9e} (rel drift "
+          f"{abs(float(on2.tracking_error[0]) - te_off) / te_off:.4f}), "
+          f"gram_rel_err {float(info2.gram_rel_err[0]):.6f}, solved "
+          f"{int(plain.status[0]) == 1}/{int(on2.status[0]) == 1}",
+          flush=True)
+    check(all(torch.equal(a, b) for r in (off0, off1)
+              for a, b in zip(r, plain)),
+          "[sketch 2048] sketch_dim=0 and SketchParams() bit-exact against "
+          "the plain tracking_step")
+
+    # -- 8d. where the time goes -------------------------------------------
+    profile_run(lambda: driver_wb.solve(qps),
+                "profile [compact_woodbury, compacted]")
+    return added
+
+
 def profile_run(run, label, top=10):
     """One run under torch.profiler: wall time, the device's busy time
     (the sum of its kernels' and copies' own times) and idle share, and
@@ -1442,8 +1884,10 @@ def profile_run(run, label, top=10):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # The porqua/<stage> ranges are annotations, not device work.
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("porqua/")]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"{label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
@@ -1630,6 +2074,7 @@ def main():
     def reset_counts():
         for f in wrappers:
             f.launches = f.cluster_launches = f.stream_launches = 0
+            f.widths = {}
 
     def timed(prm):
         torch.cuda.synchronize()
@@ -1699,7 +2144,10 @@ def main():
     # -- 7. serving ------------------------------------------------------
     kernel_rows += serve_phase(rows, reset_counts)
 
-    # -- 8. report -------------------------------------------------------
+    # -- 8. secondary configurations ---------------------------------------
+    kernel_rows += secondary_phase(rows, reset_counts)
+
+    # -- 9. report -------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

@@ -41,8 +41,10 @@ from porqua_tpu_torch.batch import (
     run_batch,
     solve_scan_l1,
     solve_scan_l1_grid,
+    solve_batch_compacted,
     solve_scan_turnover,
 )
+from porqua_tpu_torch.compaction import CompactingDriver, CompactionReport
 from porqua_tpu_torch.checkpoint import (
     run_batch_checkpointed,
     solve_scan_l1_checkpointed,
@@ -67,6 +69,7 @@ __all__ = [
     "Backtest", "BacktestData", "BacktestService",
     "FIXED_UNIVERSE", "as_requests", "build_problems", "run_batch",
     "solve_scan_l1", "solve_scan_l1_grid", "solve_scan_turnover",
+    "solve_batch_compacted", "CompactingDriver", "CompactionReport",
     "run_batch_checkpointed", "solve_scan_l1_checkpointed",
     "synthetic_usa_np",
     "TrackingResult", "build_tracking_qp", "synthetic_universe_np",

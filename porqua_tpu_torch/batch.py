@@ -22,10 +22,15 @@ solve (the port of ``porqua_tpu/batch.py``, in part).
 The result converts back into the ``Strategy``/``Portfolio`` objects
 the serial engine produces, so accounting and reporting are shared.
 
+* **Pass 2, compacted** — ``solve_batch_compacted`` runs the segment
+  loop on the host (``compaction.py``): converged dates retire at the
+  boundary they converge, and the dispatch width walks down the slot
+  ladder.
+
 Not ported yet, and raising ``NotImplementedError`` where reached: the
 device-mesh sharding of ``solve_scan_l1_grid`` (``mesh=``), the
-compacted solve (``solve_batch_compacted``), the telemetry ``harvest=``
-sink, and the JAX package's ``PORQUA_SANITIZE=1`` transfer guard.
+telemetry ``harvest=`` sink, and the JAX package's ``PORQUA_SANITIZE=1``
+transfer guard.
 """
 
 from __future__ import annotations
@@ -163,9 +168,24 @@ def solve_batch_compacted(problems: BatchProblems,
                           segment_budget: Optional[int] = None,
                           compact: bool = True,
                           driver=None,
-                          harvest=None):
-    """Pass 2 with segment-level batch compaction (``compaction.py``)."""
-    raise _not_ported("solve_batch_compacted (batch compaction)", "item 15")
+                          harvest=None,
+                          device=None):
+    """Pass 2 with segment-level batch compaction: wall clock tracks the
+    useful work instead of the slowest lane (:mod:`porqua_tpu_torch.compaction`).
+    Converged dates match :func:`solve_batch`'s (bit for bit where the
+    segment's arithmetic does not depend on the width, README's port
+    section); a date past ``segment_budget`` segments retires as
+    MAX_ITER with the polish fallback. Returns ``(QPSolution,
+    CompactionReport)``. A shared ``driver`` reuses its warmed entries
+    and must carry these ``params``; otherwise a new one runs on
+    ``device`` (default: the card). ``harvest=`` and
+    ``PORQUA_SANITIZE=1`` raise, as in :func:`solve_batch`."""
+    from porqua_tpu_torch.compaction import solve_batch_compacted as _solve
+
+    return _solve(problems.qp, params, segment_budget=segment_budget,
+                  l1_weight=problems.l1_weight,
+                  l1_center=problems.l1_center, compact=compact,
+                  driver=driver, harvest=harvest, device=device)
 
 
 # Sentinel for scan-coupled entry points: the caller attests that every

@@ -37,7 +37,8 @@ Each is built by :mod:`porqua_tpu_torch.ops._build` on first use. The
 wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
 in a plain int attribute, ``launches``, and each form's own
-(``cluster_launches``, ``stream_launches``).
+(``cluster_launches``, ``stream_launches``), and keeps them by batch
+width in a dict, ``widths`` (width -> launches).
 """
 
 from __future__ import annotations
@@ -224,8 +225,9 @@ def _choose_form(kind, need_cluster, active_clusters, need_stream, n, m, k):
                                    limit, n, m, k))
 
 
-def _count(wrapper, form):
+def _count(wrapper, form, width):
     wrapper.launches += 1
+    wrapper.widths[width] = wrapper.widths.get(width, 0) + 1
     if form == "cluster":
         wrapper.cluster_launches += 1
     else:
@@ -275,7 +277,7 @@ def _dense_on_card(form, inputs, *, sigma, alpha, n_iters, triangular):
         lib_name, fn_name = _DENSE_LAUNCHER[form]
         _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, n_iters), sigma, alpha, int(triangular))
-    _count(admm_segment, form)
+    _count(admm_segment, form, B)
     return tuple(outs)
 
 
@@ -297,6 +299,7 @@ def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
 
 
 admm_segment.launches = 0          # both forms
+admm_segment.widths = {}           # batch width -> launches
 admm_segment.cluster_launches = 0
 admm_segment.stream_launches = 0
 
@@ -360,7 +363,7 @@ def _factored_on_card(form, inputs, *, sigma, alpha, n_iters, refine_steps):
         lib_name, fn_name = _FACTORED_LAUNCHER[form]
         _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, k, n_iters), sigma, alpha, int(refine_steps))
-    _count(admm_segment_factored, form)
+    _count(admm_segment_factored, form, B)
     return tuple(outs)
 
 
@@ -385,6 +388,7 @@ def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
 
 
 admm_segment_factored.launches = 0          # both forms
+admm_segment_factored.widths = {}           # batch width -> launches
 admm_segment_factored.cluster_launches = 0
 admm_segment_factored.stream_launches = 0
 

@@ -124,8 +124,10 @@ class ADMMState(NamedTuple):
     status: torch.Tensor    # (B,) int32 Status code
     prim_res: torch.Tensor  # (B,)
     dual_res: torch.Tensor  # (B,)
-    # Convergence rings of the reference; not ported (ring_size > 0
-    # raises), so always None here.
+    # Convergence rings (params.ring_size = K > 0 only, else None):
+    # (B, K) circular buffers written at every residual check on the
+    # device; slot j % K holds segment j. Decode with
+    # porqua_tpu_torch.obs.rings.ring_history.
     ring_prim: Optional[torch.Tensor] = None
     ring_dual: Optional[torch.Tensor] = None
     ring_rho: Optional[torch.Tensor] = None
@@ -391,15 +393,39 @@ def blocked_triangular_inverse(L, threshold: int = 192):
     return out
 
 
+def init_rings(lane, ring_size: int):
+    """Empty rings for lanes shaped like ``lane`` (B,): residuals at
+    inf, the third ring at 0; ``(None, None, None)`` without rings."""
+    if not ring_size:
+        return None, None, None
+    shape = lane.shape + (ring_size,)
+    inf = torch.full(shape, math.inf, dtype=lane.dtype, device=lane.device)
+    return inf, inf.clone(), torch.zeros_like(inf)
+
+
+def write_rings(state, check_interval: int, prim, dual, third):
+    """The rings of ``state`` with this check's samples written at slot
+    ``(iters // check_interval) % K`` of every lane: a per-lane select
+    on the device, no host read."""
+    if state.ring_prim is None:
+        return None, None, None
+    K = state.ring_prim.shape[-1]
+    slot = torch.remainder(
+        torch.div(state.iters, check_interval, rounding_mode="floor"), K)
+    hit = torch.arange(K, device=slot.device) == slot[..., None]
+    return tuple(
+        torch.where(hit, v[..., None].to(r.dtype), r)
+        for r, v in ((state.ring_prim, prim), (state.ring_dual, dual),
+                     (state.ring_rho, third)))
+
+
 def admm_init(qp: CanonicalQP,
               params: SolverParams,
               x0=None,
               y0=None) -> ADMMCarry:
     """Build the segment-loop carry for a batch of *scaled* problems;
-    ``x0``/``y0`` warm starts are in the scaled frame."""
-    if params.ring_size:
-        raise NotImplementedError(
-            "convergence rings (ring_size > 0) are not ported yet")
+    ``x0``/``y0`` warm starts are in the scaled frame; rings are set up
+    iff ``params.ring_size``."""
     x_init = torch.zeros_like(qp.q) if x0 is None else x0
     y_init = torch.zeros_like(qp.l) if y0 is None else y0
     lane = torch.zeros_like(qp.q[..., 0])
@@ -414,6 +440,9 @@ def admm_init(qp: CanonicalQP,
         prim_res=torch.full_like(lane, math.inf),
         dual_res=torch.full_like(lane, math.inf),
     )
+    init = init._replace(**dict(zip(
+        ("ring_prim", "ring_dual", "ring_rho"),
+        init_rings(lane, params.ring_size))))
     return ADMMCarry(
         state=init,
         anchor=(init.x, init.z, init.w, init.y, init.mu),
@@ -674,6 +703,8 @@ def _make_segment(qp: CanonicalQP,
         else:
             rho_new = state.rho_bar
 
+        ring_prim, ring_dual, ring_rho = write_rings(
+            state, ci, r_prim, r_dual, state.rho_bar)
         new_state = ADMMState(
             x=x, z=z, w=w, y=y, mu=mu,
             rho_bar=rho_new,
@@ -681,6 +712,9 @@ def _make_segment(qp: CanonicalQP,
             status=status,
             prim_res=r_prim,
             dual_res=r_dual,
+            ring_prim=ring_prim,
+            ring_dual=ring_dual,
+            ring_rho=ring_rho,
         )
         if params.halpern:
             # Re-anchor on sufficient decrease of the scaled residual,
@@ -717,30 +751,17 @@ def admm_segment_step(carry: ADMMCarry,
     return new, new.state.status
 
 
-def admm_solve(qp: CanonicalQP,
-               scaling: Scaling,
-               params: SolverParams,
-               x0=None,
-               y0=None,
-               l1_weight=None,
-               l1_center=None) -> ADMMState:
-    """Run the ADMM loop on a batch of *scaled* problems; returns the
-    final state.
-
-    A host loop over segments. Each boundary reads one scalar (is any
-    lane still active?); a lane is active while its status is RUNNING
-    and its iterations are under ``max_iter``. Every leaf of the carry
-    is then selected per lane (``select_lanes``), so a finished lane is
-    frozen exactly where the reference's vmapped while_loop leaves it.
-    """
+def run_segments(carry, segment, params: SolverParams) -> ADMMState:
+    """The host segment loop every backend's solve runs: each boundary
+    reads one scalar (is any lane still active?); a lane is active
+    while its status is RUNNING and its iterations are under
+    ``max_iter``. Every leaf of the carry is selected per lane
+    (``select_lanes``), so a finished lane is frozen exactly where the
+    reference's vmapped while_loop leaves it. Returns the final state
+    with RUNNING retired to MAX_ITER."""
     # Local import: qp/solve.py imports this module.
     from porqua_tpu_torch.qp.solve import select_lanes
 
-    l1w, l1c = _l1_terms(qp, l1_weight, l1_center)
-    plan = _segment_plan(qp, params, warn=True)
-    segment = _make_segment(qp, scaling, params, l1w, l1c, plan,
-                            track_l1=l1_weight is not None)
-    carry = admm_init(qp, params, x0, y0)
     while True:
         state = carry.state
         active = (state.status == Status.RUNNING) & (state.iters < params.max_iter)
@@ -751,3 +772,19 @@ def admm_solve(qp: CanonicalQP,
     return final._replace(
         status=torch.where(final.status == Status.RUNNING, Status.MAX_ITER,
                            final.status).to(torch.int32))
+
+
+def admm_solve(qp: CanonicalQP,
+               scaling: Scaling,
+               params: SolverParams,
+               x0=None,
+               y0=None,
+               l1_weight=None,
+               l1_center=None) -> ADMMState:
+    """Run the ADMM loop on a batch of *scaled* problems; returns the
+    final state (:func:`run_segments` over this backend's segment)."""
+    l1w, l1c = _l1_terms(qp, l1_weight, l1_center)
+    plan = _segment_plan(qp, params, warn=True)
+    segment = _make_segment(qp, scaling, params, l1w, l1c, plan,
+                            track_l1=l1_weight is not None)
+    return run_segments(admm_init(qp, params, x0, y0), segment, params)

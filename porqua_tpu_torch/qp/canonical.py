@@ -277,3 +277,58 @@ def pad_qp(qp: CanonicalQP, n_max: int, m_max: int) -> CanonicalQP:
         constant=qp.constant,
         Pf=Pf_pad, Pdiag=Pd_pad,
     )
+
+
+class SketchDraws(NamedTuple):
+    """The random draws of one count-sketch: each of the T rows goes to
+    bucket ``bucket[t]`` with sign ``sign[t]``; ``probes`` (p, N) are
+    the Gaussian vectors of the measured Gram error (``None`` where
+    unused). The JAX package draws them with ``jax.random``, whose
+    streams torch cannot reproduce, so the port takes them as inputs:
+    :func:`sketch_draws` makes its own from a seed, and a caller can
+    hand over the JAX package's arrays instead."""
+
+    bucket: torch.Tensor                   # (T,) int64 in [0, sketch_dim)
+    sign: torch.Tensor                     # (T,) +-1
+    probes: Optional[torch.Tensor] = None  # (p, N)
+
+    def to(self, device, dtype) -> "SketchDraws":
+        return SketchDraws(
+            torch.as_tensor(self.bucket, device=device).long(),
+            torch.as_tensor(self.sign, device=device, dtype=dtype),
+            None if self.probes is None else torch.as_tensor(
+                self.probes, device=device, dtype=dtype))
+
+
+def sketch_draws(rows: int, sketch_dim: int, seed: int,
+                 n: int = 0, probes: int = 0,
+                 dtype=torch.float32) -> SketchDraws:
+    """The port's own seeded draws: buckets, signs, then ``probes``
+    Gaussian vectors of length ``n``, all from one ``torch.Generator``
+    seeded with ``seed`` on the CPU (move them with
+    :meth:`SketchDraws.to`), so one seed gives the same draws on the
+    CPU and on the card."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    bucket = torch.randint(0, int(sketch_dim), (int(rows),), generator=gen)
+    sign = (2 * torch.randint(0, 2, (int(rows),), generator=gen) - 1).to(dtype)
+    V = (torch.randn((int(probes), int(n)), generator=gen, dtype=dtype)
+         if probes else None)
+    return SketchDraws(bucket, sign, V)
+
+
+def sketch_rows(M: torch.Tensor, sketch_dim: int, bucket: torch.Tensor,
+                sign: torch.Tensor) -> torch.Tensor:
+    """Clarkson-Woodruff count-sketch of the row axis: ``(..., T, k) ->
+    (..., sketch_dim, k)``, row t added with sign ``sign[t]`` into
+    bucket ``bucket[t]`` (the JAX package's signed ``segment_sum``).
+
+    Computed as the signed selection matrix ``S`` (sketch_dim, T) times
+    ``M`` in full float32 (TF32 off): a dense product sums in a fixed
+    order, so the same draws give the same bits on every run, where an
+    atomic scatter-add on the card would not. Each bucket's sum agrees
+    with the segment sum to float32 summation order."""
+    T = M.shape[-2]
+    S = torch.zeros((int(sketch_dim), T), dtype=M.dtype, device=M.device)
+    S[bucket.to(M.device), torch.arange(T, device=M.device)] = \
+        sign.to(device=M.device, dtype=M.dtype)
+    return torch.matmul(S, M)

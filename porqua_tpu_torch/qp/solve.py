@@ -23,21 +23,26 @@ from porqua_tpu_torch.qp.admm import (
     _support,
 )
 from porqua_tpu_torch.qp.canonical import HP, CanonicalQP
+from porqua_tpu_torch.qp.napg import napg_init, napg_segment_step, napg_solve
+from porqua_tpu_torch.qp.pdhg import pdhg_init, pdhg_segment_step, pdhg_solve
 from porqua_tpu_torch.qp.polish import polish_iterate as _polish_iterate
 from porqua_tpu_torch.qp.ruiz import Scaling, equilibrate, equilibrate_factored
 
 
 def _backend(params: SolverParams):
     """Resolve ``params.method`` to the ``(init, segment_step, solve)``
-    triple of the selected first-order backend. Only ADMM is ported; a
-    typo'd or not-yet-ported method fails loudly instead of silently
-    running another solver."""
+    triple of the selected first-order backend. Every backend carries
+    its iterate as an ``ADMMState`` and shares :func:`_prepare_impl` /
+    :func:`_finalize_impl`, so this is the one dispatch point of every
+    driver above it (fused solve, compaction, continuous serving). A
+    typo'd method fails loudly instead of silently running another
+    solver."""
     if params.method == "admm":
         return admm_init, admm_segment_step, admm_solve
-    if params.method in ("pdhg", "napg"):
-        raise NotImplementedError(
-            f"method {params.method!r} is not ported to PyTorch yet; "
-            "use method='admm'")
+    if params.method == "pdhg":
+        return pdhg_init, pdhg_segment_step, pdhg_solve
+    if params.method == "napg":
+        return napg_init, napg_segment_step, napg_solve
     raise ValueError(
         f"unknown method {params.method!r}; expected 'admm', 'pdhg' "
         "or 'napg'")
@@ -56,6 +61,10 @@ class QPSolution(NamedTuple):
     dual_res: torch.Tensor   # (B,) unscaled dual residual (inf-norm)
     obj_val: torch.Tensor    # (B,) 0.5 x'Px + q'x + constant
     duality_gap: torch.Tensor  # (B,) |primal - dual objective|
+    # Convergence rings (params.ring_size = K > 0 only, else None):
+    # (B, K), slot j % K holds segment j's residual check of the
+    # iterate (before the polish); decode with
+    # porqua_tpu_torch.obs.rings.ring_history.
     ring_prim: Optional[torch.Tensor] = None
     ring_dual: Optional[torch.Tensor] = None
     ring_rho: Optional[torch.Tensor] = None
@@ -160,6 +169,9 @@ def _finalize_impl(qp: CanonicalQP,
         dual_res=r_dual,
         obj_val=obj,
         duality_gap=gap,
+        ring_prim=state.ring_prim,
+        ring_dual=state.ring_dual,
+        ring_rho=state.ring_rho,
     )
 
 

@@ -45,3 +45,21 @@ def usa_rebdates(index: pd.DatetimeIndex):
     month, from the 14th month to the second-to-last."""
     me = pd.Series(index=index, data=1).resample("ME").last().index
     return [str(index[index <= d][-1].date()) for d in me][13:-1]
+
+
+def large_universe_np(seed: int = 7, window: int = 504,
+                      n_assets: int = 5000):
+    """One large-universe tracking window, float32 ``(X (1, T, N),
+    y (1, T))``: 8 factor returns plus idiosyncratic noise, the index an
+    equal-weight slice of the first ``max(N // 40, 8)`` names plus an
+    irreducible tracking floor, so the tracking error is a real number.
+    ``bench.py``'s recipe for the sketch A/B (2,048 assets) and the
+    5,000-asset north star."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((window, 8))
+    L = rng.standard_normal((8, n_assets))
+    X = ((F @ L + 0.5 * rng.standard_normal((window, n_assets)))
+         * 0.01).astype(np.float32)
+    y = (X[:, : max(n_assets // 40, 8)].mean(axis=1)
+         + 0.001 * rng.standard_normal(window)).astype(np.float32)
+    return X[None], y[None]

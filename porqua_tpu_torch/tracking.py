@@ -7,26 +7,60 @@ evaluation, all on one device for a whole batch of date windows.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from porqua_tpu_torch.qp.canonical import HP, CanonicalQP
+from porqua_tpu_torch.qp.canonical import (HP, CanonicalQP, SketchDraws,
+                                           sketch_draws, sketch_rows)
 from porqua_tpu_torch.qp.solve import SolverParams, _solve_impl, resolve_device
+
+
+def _sketch_window(X: torch.Tensor,
+                   y: torch.Tensor,
+                   sketch_dim: int,
+                   draws: SketchDraws):
+    """Embed (..., T, N) windows and (..., T) benchmarks through one
+    count-sketch, applied to the stacked ``[X | y]`` so the sketched
+    problem is exactly ``min ||S(Xw - y)||^2`` over the same polytope;
+    returns ``(Xs, ys)`` with ``sketch_dim`` rows. The one place the
+    embedding is applied: :func:`build_tracking_qp` (the solve path)
+    and ``qp.sketch.sketched_tracking_qp`` (the certificate path) both
+    call it, so the two sketch bit-identically."""
+    stacked = torch.cat([X, y[..., None]], dim=-1)
+    sk = sketch_rows(stacked, sketch_dim, draws.bucket, draws.sign)
+    return sk[..., :-1], sk[..., -1]
 
 
 def build_tracking_qp(X: torch.Tensor,
                       y: torch.Tensor,
                       ridge: float = 0.0,
                       lb: float = 0.0,
-                      ub: float = 1.0) -> CanonicalQP:
+                      ub: float = 1.0,
+                      sketch_dim: int = 0,
+                      sketch_seed: int = 0,
+                      draws: Optional[SketchDraws] = None) -> CanonicalQP:
     """Lower (B, T, N) windows and (B, T) benchmarks to the tracking QPs.
 
     P = 2 XᵀX (+ 2·ridge·I), q = −2 Xᵀy, budget row Σw = 1, box
     [lb, ub], and the factor ``Pf = X`` (P = 2 Pf'Pf + diag(2 ridge))
     that the Woodbury solve and factored scaling use.
+
+    ``0 < sketch_dim < T`` first embeds each window through the
+    count-sketch (one embedding for every lane, as the JAX package's
+    vmap over one seed gives): ``Pf`` then carries ``sketch_dim`` rows.
+    ``draws`` are the embedding's buckets and signs, by default
+    :func:`~porqua_tpu_torch.qp.canonical.sketch_draws` of
+    ``sketch_seed``. ``sketch_dim = 0``, or one that would not
+    compress, runs the unsketched build untouched.
     """
+    T = X.shape[-2]
+    if 0 < sketch_dim < T:
+        if draws is None:
+            draws = sketch_draws(T, sketch_dim, sketch_seed)
+        X, y = _sketch_window(X, y, sketch_dim,
+                              draws.to(X.device, X.dtype))
     dtype, device = X.dtype, X.device
     n = X.shape[-1]
     lead = X.shape[:-2]
@@ -62,22 +96,27 @@ def tracking_step(Xs,
                   ys,
                   params: SolverParams = SolverParams(),
                   ridge: float = 0.0,
-                  device=None) -> TrackingResult:
+                  device=None,
+                  draws: Optional[SketchDraws] = None) -> TrackingResult:
     """One full backtest step over a batch of date windows.
 
     ``Xs``: (B, T, N) asset-return windows; ``ys``: (B, T) benchmark
     windows, as tensors or numpy arrays (their dtype is kept). Runs on
     the card unless ``device`` names another; with no card and no
     ``device`` it raises. Applies the precision policy (no TF32).
+
+    ``params.sketch_dim > 0`` feeds the Gram build through the seeded
+    count-sketch (``params.sketch_seed``, or the given ``draws``): the
+    solve sees the embedded problem, while the tracking error is always
+    evaluated against the true window.
     """
     dev = resolve_device(device)
-    if params.sketch_dim > 0:
-        raise NotImplementedError(
-            "sketch-fed assembly (sketch_dim > 0) is not ported yet")
     HP.apply()
     Xs = torch.as_tensor(Xs, device=dev)
     ys = torch.as_tensor(ys, device=dev)
-    qp = build_tracking_qp(Xs, ys, ridge=ridge)
+    qp = build_tracking_qp(Xs, ys, ridge=ridge,
+                           sketch_dim=params.sketch_dim,
+                           sketch_seed=params.sketch_seed, draws=draws)
     sol = _solve_impl(qp, params)
     resid = torch.matmul(Xs, sol.x.unsqueeze(-1)).squeeze(-1) - ys
     te = torch.sqrt(torch.mean(resid * resid, dim=-1))

@@ -427,7 +427,8 @@ def test_unported_options_raise(call, rng, monkeypatch):
         fn = lambda: res.RetryPolicy
         item = "item 17"
     elif call == "solve_batch_compacted":
-        fn = lambda: tbatch.solve_batch_compacted(_small_problems(rng))
+        fn = lambda: tbatch.solve_batch_compacted(_small_problems(rng),
+                                                  harvest=[], device="cpu")
     elif call == "harvest":
         fn = lambda: tbatch.solve_batch(_small_problems(rng), harvest=[],
                                         device="cpu")

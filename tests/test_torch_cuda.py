@@ -583,3 +583,69 @@ def test_service_on_card_matches_cpu(kind, continuous):
     x_card = np.stack([r.x for r in results["cuda"]])
     x_cpu = np.stack([r.x for r in results["cpu"]])
     np.testing.assert_allclose(x_card, x_cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["factored_refine0", "triangular"])
+def test_compacted_solve_on_card_walks_the_ladder(form):
+    """A compacted tracking batch (24 dates of 60 assets, eps 1e-4,
+    a check every 5 iterations, so the dates retire at 20 to 30
+    iterations, the same checks in f32 and f64 on the CPU) on the card:
+    the cluster form of the config's kernel launches at two widths or
+    more and never the streaming form, no compile after prewarm, and
+    status and iterations equal the same compacted solve on the CPU (x
+    within 1e-4)."""
+    from porqua_tpu_torch.compaction import CompactingDriver
+
+    need_card()
+    params = pt.SolverParams(max_iter=2000, eps_abs=1e-4, eps_rel=1e-4,
+                             polish=False, scaling_iters=2,
+                             backend="pallas",
+                             **dict(FORMS[form], check_interval=5))
+    Xs, ys = pt.synthetic_universe_np(5, 24, 120, 60)
+    qp = pt.build_tracking_qp(torch.as_tensor(Xs), torch.as_tensor(ys))
+    wrapper = (tk.admm_segment_factored if form.startswith("factored")
+               else tk.admm_segment)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        driver = CompactingDriver(params, device=dev)
+        driver.prewarm(24, 60, 1, factor_rows=120)
+        before = counts_of(wrapper)
+        wrapper.widths = {}
+        sol, rep = driver.solve(qp)
+        out[dev] = (sol, rep, [a - b for a, b in zip(counts_of(wrapper),
+                                                     before)],
+                    dict(wrapper.widths))
+    sol, rep, counts, widths = out["cuda"]
+    cpu_sol = out["cpu"][0]
+    assert rep.compiles == 0
+    assert counts[1] == rep.segments and counts[2] == 0
+    assert len(widths) >= 2, widths
+    assert torch.equal(sol.status.cpu(), cpu_sol.status)
+    assert torch.equal(sol.iters.cpu(), cpu_sol.iters)
+    np.testing.assert_allclose(sol.x.cpu().numpy(), cpu_sol.x.numpy(),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_sketch_on_card_is_deterministic_and_matches_cpu():
+    """The count-sketch of a 504 x 2,048 window on the card: the same
+    bits on every call (a dense product, no atomics), equal to the CPU's
+    within f32 summation order, and the seeded draws identical on both
+    devices."""
+    from porqua_tpu_torch.qp.canonical import sketch_draws, sketch_rows
+    from porqua_tpu_torch.synthetic import large_universe_np
+
+    need_card()
+    pt.qp.canonical.HP.apply()
+    X, _ = large_universe_np(7, 504, 2048)
+    draws = sketch_draws(504, 256, 3)
+    on = draws.to("cuda", torch.float32)
+    Xc = torch.as_tensor(X, device="cuda")
+    a = sketch_rows(Xc, 256, on.bucket, on.sign)
+    for _ in range(3):
+        assert torch.equal(sketch_rows(Xc, 256, on.bucket, on.sign), a)
+    cpu = sketch_rows(torch.as_tensor(X), 256, draws.bucket, draws.sign)
+    np.testing.assert_allclose(a.cpu().numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-6 * float(cpu.abs().max()))
+    assert torch.equal(sketch_draws(504, 256, 3).bucket, draws.bucket)

@@ -194,10 +194,10 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("over, exc", [
-    (dict(method="pdhg"), NotImplementedError),
-    (dict(method="napg"), NotImplementedError),
+    (dict(backend="pallas", halpern=True), NotImplementedError),
+    (dict(scaling_mode="jacobi"), ValueError),
     (dict(method="lbfgs"), ValueError),
-    (dict(sketch_dim=8), NotImplementedError),
+    (dict(method="PDHG"), ValueError),
     (dict(backend="tpu"), ValueError),
 ])
 def test_unported_options_raise(over, exc):
@@ -209,9 +209,10 @@ def test_unported_options_raise(over, exc):
 
 def test_port_imports_no_jax():
     """The port imports every module, solves, runs a batched backtest,
-    a chained scan, a crashed and resumed checkpointed scan and a solve
-    service round trip in both batching modes with JAX made
-    unimportable, and pulls in no module of the JAX package."""
+    a chained scan, a crashed and resumed checkpointed scan, a solve
+    service round trip in both batching modes, a compacted solve, PDHG
+    and NAPG solves with rings and a sketch-fed tracking_step with JAX
+    made unimportable, and pulls in no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -268,6 +269,20 @@ def test_port_imports_no_jax():
         "[svc.submit(q) for q in reqs]]\n"
         "    assert [r.status for r in rs] == [1] * 4, rs\n"
         "    assert svc.snapshot()['completed'] == 4\n"
+        "from porqua_tpu_torch.compaction import CompactingDriver\n"
+        "p5 = pt.SolverParams(polish=False, eps_abs=1e-5, eps_rel=1e-5, "
+        "backend='pallas')\n"
+        "fused = pt.solve_qp_batch(qp, p5, device='cpu')\n"
+        "sol, rep = CompactingDriver(p5, device='cpu').solve(qp)\n"
+        "assert rep.compiles > 0 and bool((sol.x == fused.x).all())\n"
+        "for meth in ('pdhg', 'napg'):\n"
+        "    r = pt.solve_qp_batch(qp, pt.SolverParams(method=meth, "
+        "polish=False, ring_size=4), device='cpu')\n"
+        "    assert r.status.tolist() == [1] * 3 and r.ring_prim.shape == "
+        "(3, 4), r.status\n"
+        "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
+        "sketch_dim=8, sketch_seed=3), device='cpu')\n"
+        "assert r.status.tolist() == [1, 1], r.status\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
         "assert not bad, bad\n"
