@@ -75,7 +75,19 @@ printed):
    all three backends, with the golden's draws and with the port's own;
    the sketch's passthrough at 2,048 assets; one profiled compacted
    solve. Each kernel is held against its plain twin at a narrow rung.
-9. One JSON line per kernel, then the card line, then the result line.
+9. The differentiable solve, against the JAX golden
+   (``porqua_tpu_torch/testdata/diff_golden.npz``; rules at
+   ``DIFF_PATH``, checks listed at ``diff_phase``): gradients of
+   examples/differentiable_tuning.py's out-of-sample TE w.r.t. the ridge
+   and the benchmark through ``solve_qp_batch_diff`` on the headline
+   batch (the triangular-inverse kernel, the factored kernel at refine
+   1, and the dense adjoint), examples/net_sharpe_tuning.py's chain of
+   ``solve_qp_l1_diff`` solves (the factored kernel at B = 1) through
+   ``accounting.simulate``, the box-bound cotangents with two faulty
+   backwards as controls, and ``compare_solvers`` (device rows on the
+   card, the f64 IPM, the native C++ core built here, SLSQP) with the
+   f32 row through the triangular-inverse kernel.
+10. One JSON line per kernel, then the card line, then the result line.
 """
 
 import dataclasses
@@ -199,6 +211,52 @@ TE_DRIFT = 1e-6
 # 9.9e-3 away (the control).
 BACKEND_BAND = 0.02
 PDHG_TE_RTOL = 5e-4
+# Phase 9 holds the differentiable solve against the JAX golden
+# (XLA-CPU; tests/test_torch_diff.py --write-golden), each run in f32
+# and in f64. Forward: status and iterations equal on every date. The
+# active sets (aC, aB and the two side indicators, qp.diff.active_sets)
+# equal the golden's on at least as many dates as XLA-CPU's own f32
+# sets equal its f64 ones (a coordinate within eps of its bound may
+# classify either way in f32). Gradients by the twin rule, per date on
+# the dates whose sets and status equal the golden's and for the
+# aggregate: the card's distance to the f64 run at most KERNEL_VS_PLAIN
+# times XLA-CPU f32's, plus GRAD_ULPS f32 ulps of the value; a date that
+# is not SOLVED has zero gradient on both sides. A date's dL/dtheta is
+# one number, and XLA-CPU's f32 distance to f64 there spans five decades
+# over the dates (3e-13 to 3.8e-8 in diff_trinv): the port's own f32 run
+# on the CPU, a second healthy implementation, lands up to 22.7 times
+# past that date's band on 11 of 247 dates. So per date dL/dtheta is
+# held to the configuration's f32 floor (XLA-CPU's largest distance over
+# the held dates, as phase 8's TE band), dL/dy_fit (252 numbers a date)
+# to each date's own. A configuration at its f32 floor (diff_woodbury:
+# f32 Woodbury at eps 1e-5, where XLA-CPU stops at its f64 run's check
+# on 24/252 dates) holds its status as SOLVED or MAX_ITER, and its
+# gradients, dL/dy_fit too, to the floor band on the dates that stopped
+# at the golden's check. Where XLA-CPU's f32 gradient is not finite
+# (diff_dense: its f32 dense adjoint is NaN on every date, ROADMAP
+# section C) there is no twin, and the dense run is held by its forward,
+# its sets and finite gradients only. The box problem's field gradients
+# (one problem; the budget row's l cotangent is one number) are held to
+# the problem's f32 floor: KERNEL_VS_PLAIN times XLA-CPU's largest
+# relative distance over the fields, times each field's scale (the H100
+# landed 1.6x past l's own band, 0.19 of the floor's). The chain (each
+# date's solution the next date's L1 center): per date from the golden's
+# carry with the golden's incoming cotangent, by the same rule on the
+# dates whose vjp classification (qp.diff.l1_active_sets) equals the
+# golden's, at least as many as XLA-CPU's f32-to-f64; its whole
+# dS/dlog(lambda) is printed beside the golden's, not held (an f32 chain
+# of faces drifts, ROADMAP section C). The cross-solver table: every
+# expected row present with no error, found where the golden's is; each
+# found row's objective within COMPARE_OBJ of ipm-f64's and the ipm,
+# native and SLSQP rows' objective and residual columns within
+# COMPARE_HOST of the golden's, both relative to max(1, |value|) (the
+# JAX package's own MSCI comparison, tests/test_compare.py: the
+# tracking objective, a sum of squared residuals, is ~1e-4, and an
+# eps-1e-8 ADMM row sits ~1e-10 from the IPM optimum).
+DIFF_PATH = os.path.join("porqua_tpu_torch", "testdata", "diff_golden.npz")
+GRAD_ULPS = 2
+COMPARE_OBJ = 1e-6
+COMPARE_HOST = 1e-9
 FAILURES = []
 
 
@@ -1870,6 +1928,576 @@ def secondary_phase(rows, reset_counts, device="cuda"):
     return added
 
 
+def twin_rule(card, g32, g64, pooled=None):
+    """Per row (a date) the twin rule of DIFF_PATH over the last axis:
+    returns (passed per row, the card's distance to f64, the band).
+    ``pooled`` (a row mask) takes XLA-CPU's f32 distance as its largest
+    over those rows, the configuration's f32 floor, for every row."""
+    import numpy as np
+
+    card, g32, g64 = (np.asarray(a, np.float64).reshape(len(a), -1)
+                      for a in (card, g32, g64))
+    d_card = np.abs(card - g64).max(axis=1)
+    d_twin = np.abs(g32 - g64).max(axis=1)
+    if pooled is not None:
+        d_twin = np.full_like(d_twin, d_twin[pooled].max(initial=0.0))
+    band = (KERNEL_VS_PLAIN * d_twin
+            + GRAD_ULPS * F32_EPS * np.abs(g64).max(axis=1))
+    return np.isfinite(card).all(axis=1) & (d_card <= band), d_card, band
+
+
+def chain_market(Xo):
+    """The chain's held-period series: the dates' evaluation windows end
+    to end, (dates * oos, n), rebalanced at 0, oos, 2 oos, ..."""
+    import numpy as np
+
+    d, oos, n = Xo.shape
+    return Xo.reshape(d * oos, n), np.arange(d) * oos
+
+
+def net_sharpe(ret, valid):
+    """Annualized net Sharpe of the valid daily returns."""
+    nv = valid.sum()
+    mean = ret.sum() / nv
+    var = (((ret - mean) ** 2) * valid).sum() / (nv - 1.0)
+    return mean / var ** 0.5 * 252.0 ** 0.5
+
+
+def stopwatch(dev):
+    """``mark()`` records a point; ``ms()`` the milliseconds between
+    consecutive points: CUDA events on the card, the host clock
+    elsewhere."""
+    import torch
+
+    points = []
+    if dev.type == "cuda":
+        def mark():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            points.append(e)
+
+        def ms():
+            points[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(points, points[1:])]
+    else:
+        def mark():
+            points.append(time.perf_counter())
+
+        def ms():
+            return [(b - a) * 1e3 for a, b in zip(points, points[1:])]
+    return mark, ms
+
+
+def diff_phase(rows, reset_counts, device="cuda"):
+    """Phase 9: the differentiable solve on the card against the JAX
+    golden (``porqua_tpu_torch/testdata/diff_golden.npz``); returns the
+    kernel rows it adds to ``rows``. Rules at DIFF_PATH.
+
+    9a. examples/differentiable_tuning.py's objective at the main
+    path's width: per date the tracking QP of a 252-day fit window
+    (ridge 10**theta, theta one leaf per date) through
+    ``solve_qp_batch_diff``, the loss the mean out-of-sample TE over
+    the next 21 days; dL/dtheta per date and summed, dL/dy_fit per
+    date. ``diff_trinv`` (the triangular-inverse kernel), ``diff_woodbury``
+    (the factored kernel at refine 1), both with the factored adjoint
+    (k + m = 253 < 500), and ``diff_dense`` (Pf/Pdiag dropped: the dense
+    adjoint, the triangular-inverse kernel).
+    9b. examples/net_sharpe_tuning.py's chain over the first dates: each
+    date ``solve_qp_l1_diff`` at B = 1 (the factored kernel at refine 0
+    with the L1 prox) from the last date's solution, the weights through
+    ``accounting.simulate`` into net Sharpe, dS/dlog(lambda); then each
+    date alone from the golden's carry, its vjp on the golden's incoming
+    cotangent.
+    9c. The box problem (date 0's first 100 assets, ridge 1e-4, box
+    capped at 0.02, so both sides of the box bind; 253 > 100 runs the
+    dense adjoint): the TE's gradient w.r.t. q, C, l, u, lb, ub through
+    ``solve_qp_diff`` (the triangular-inverse kernel at B = 1); two
+    faulty backwards (every box cotangent to lb; the C cotangent
+    dropped) must fail its rule.
+    9d. ``compare_solvers`` on date 0 as examples/compare_solver.py poses
+    it (500 assets, no ridge, box capped at 0.1; default params), the
+    f32 row again through the triangular-inverse kernel, SLSQP and the
+    IPM on its first 100 assets."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.accounting import simulate
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp import diff
+    from porqua_tpu_torch.qp.admm import admm_init, segment_kernel_call
+    from porqua_tpu_torch.qp.canonical import CanonicalQP
+    from porqua_tpu_torch.qp.solve import _prepare_impl
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, DIFF_PATH))
+    meta = json.loads(str(golden["meta"]))
+    dev = torch.device(device)
+    f32 = torch.float32
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    kernel_of = {"diff_trinv": K2, "diff_woodbury": K1, "diff_dense": K2}
+
+    def params(key):
+        p = json.loads(str(golden[f"{key}/params"]))
+        p["backend"] = "pallas"
+        return pt.SolverParams(**p)
+
+    def counts():
+        return {name: {"cluster": f.cluster_launches,
+                       "stream": f.stream_launches}
+                for name, f in (("K1", K1), ("K2", K2))}
+
+    def on(a, **kw):
+        return torch.as_tensor(np.asarray(a), device=dev, **kw)
+
+    def unpack(bits, width):
+        return np.unpackbits(bits, axis=-1, count=width).astype(bool)
+
+    Xs, ys = pt.synthetic_universe_np(meta["seed"], meta["n_dates"],
+                                      meta["fit"] + meta["oos"],
+                                      meta["n_assets"])
+    fit = meta["fit"]
+    Xf_np, yf_np, Xo_np, yo_np = (Xs[:, :fit], ys[:, :fit], Xs[:, fit:],
+                                  ys[:, fit:])
+    Xf, yf, Xo, yo = (on(a) for a in (Xf_np, yf_np, Xo_np, yo_np))
+    B, n = Xf.shape[0], Xf.shape[-1]
+    pt.qp.canonical.HP.apply()
+    added = []
+
+    # -- 9a. ridge tuning over the tracking batch ---------------------------
+    def tuning(prm, dense):
+        theta = torch.full((B,), float(np.log10(meta["ridge"])), dtype=f32,
+                           device=dev, requires_grad=True)
+        y = yf.clone().requires_grad_(True)
+        qp = pt.build_tracking_qp(Xf, y, ridge=10.0 ** theta)
+        if dense:
+            qp = qp._replace(Pf=None, Pdiag=None)
+        mark, ms = stopwatch(dev)
+        mark()
+        w = diff.solve_qp_batch_diff(qp, prm, device=dev)
+        r = torch.einsum("btn,bn->bt", Xo, w) - yo
+        loss = torch.sqrt(torch.mean(r * r, dim=-1)).mean()
+        mark()
+        loss.backward()
+        mark()
+        return loss.detach(), theta.grad, y.grad, ms()
+
+    for name in ("diff_trinv", "diff_woodbury", "diff_dense"):
+        prm = params(name)
+        dense = name == "diff_dense"
+        tuning(prm, dense)                   # warm-up: builds, first calls
+        reset_counts()
+        loss, dth, dy, (fwd_ms, bwd_ms) = tuning(prm, dense)
+        c = counts()["K1" if kernel_of[name] is K1 else "K2"]
+        qp = pt.build_tracking_qp(Xf, yf, ridge=meta["ridge"])
+        if dense:
+            qp = qp._replace(Pf=None, Pdiag=None)
+        sol = pt.solve_qp_batch(qp, prm, device=dev)
+        aC, _, aB, _, upC, upB = diff.active_sets(qp, sol)
+        status, iters = sol.status.cpu().numpy(), sol.iters.cpu().numpy()
+        dth, dy = dth.cpu().numpy(), dy.cpu().numpy()
+        g = {k: golden[f"{name}/{k}"] for k in (
+            "status", "iters", "iters_f64", "dtheta", "dy", "dtheta_f64",
+            "dy_f64")}
+        m = aC.shape[-1]
+        same = np.ones(B, bool)
+        same64 = np.ones(B, bool)
+        for key, mask, width in (("aC", aC, m), ("aB", aB, n),
+                                 ("upC", upC, m), ("upB", upB, n)):
+            card = mask.bool().cpu().numpy()
+            g32 = unpack(golden[f"{name}/{key}"], width)
+            g64 = unpack(golden[f"{name}/{key}_f64"], width)
+            same &= (card == g32).all(axis=1)
+            same64 &= (g32 == g64).all(axis=1)
+        # A configuration off its f32 floor: XLA-CPU's f32 run stops at
+        # its f64 run's check on every date. At the floor (f32 Woodbury
+        # at eps 1e-5) a date's stopping check is a draw of the rounding
+        # (ROADMAP section C), and a date is held only where it stopped
+        # at the golden's check.
+        off_floor = bool((g["iters"] == g["iters_f64"]).all())
+        g_finite = (np.isfinite(g["dtheta"])
+                    & np.isfinite(g["dy"]).all(axis=1))
+        held = (same & (status == g["status"]) & (iters == g["iters"])
+                & g_finite)
+        ok_th, d_th, band_th = twin_rule(dth[:, None], g["dtheta"][:, None],
+                                         g["dtheta_f64"][:, None],
+                                         pooled=held)
+        ok_y, d_y, band_y = twin_rule(dy, g["dy"], g["dy_f64"],
+                                      pooled=None if off_floor else held)
+        on_dates = (status == g["status"]) & g_finite
+        agg = twin_rule(
+            [[dth[on_dates].sum()]],
+            [[g["dtheta"][on_dates].astype(np.float64).sum()]],
+            [[g["dtheta_f64"][on_dates].astype(np.float64).sum()]])
+        def ratio(d, b):
+            r = np.where(held, d / np.where(b > 0, b, 1.0), 0.0)
+            i = int(np.argmax(r)) if r.size else 0
+            return f"{float(r.max(initial=0.0)):.3f} (date {i}: {d[i]:.3e}" \
+                   f" / {b[i]:.3e})"
+
+        unsolved = status != 1
+        zero_card = bool((dth[unsolved] == 0).all()
+                         and (dy[unsolved] == 0).all())
+        g_unsolved = g["status"] != 1
+        zero_gold = bool((g["dtheta"][g_unsolved] == 0).all()
+                         and (g["dy"][g_unsolved] == 0).all())
+        d64 = np.abs(dth.astype(np.float64) - g["dtheta_f64"])
+        print(f"diff [{name}]: B={B} n={n}; forward {fwd_ms:.1f} ms, "
+              f"backward {bwd_ms:.1f} ms (CUDA events; {card_line()}); "
+              f"launches {c}; solved {int((status == 1).sum())}/{B} (golden "
+              f"{int((g['status'] == 1).sum())}), iters "
+              f"{sorted(set(iters.tolist()))}; XLA-CPU's f32 run at its f64 "
+              f"run's check on {int((g['iters'] == g['iters_f64']).sum())}/"
+              f"{B} dates, the card's iterations equal to the golden's on "
+              f"{int((iters == g['iters']).sum())}/{B}; loss "
+              f"{loss.item():.9e} (golden "
+              f"{float(golden[f'{name}/loss']):.9e}, f64 "
+              f"{float(golden[f'{name}/loss_f64']):.9e}); active sets equal "
+              f"to the golden's on {int(same.sum())}/{B} dates (XLA-CPU f32 "
+              f"to its f64 run: {int(same64.sum())}/{B}); XLA-CPU's f32 "
+              f"gradient finite on {int(g_finite.sum())}/{B} dates; dL/dtheta "
+              f"{float(dth.sum()):.6e} (golden "
+              f"{float(np.nansum(g['dtheta'])):.6e}, f64 "
+              f"{float(g['dtheta_f64'].sum()):.6e}; over the "
+              f"{int(on_dates.sum())} dates of equal status and a finite "
+              f"golden: distance {float(agg[1][0]):.3e}, band "
+              f"{float(agg[2][0]):.3e}); per date on the {int(held.sum())} "
+              f"held dates: dtheta max distance/band {ratio(d_th, band_th)}"
+              f", dy {ratio(d_y, band_y)}; dates past the band: dtheta "
+              f"{np.flatnonzero(~ok_th & held).tolist()}, dy "
+              f"{np.flatnonzero(~ok_y & held).tolist()}; the card's dtheta "
+              f"to the f64 run: median {float(np.median(d64)):.3e}, max "
+              f"{float(d64.max()):.3e}", flush=True)
+        if off_floor:
+            check(np.array_equal(status, g["status"])
+                  and np.array_equal(iters, g["iters"]),
+                  f"[{name}] status and iterations equal the golden on "
+                  f"every date")
+        else:
+            check(bool(np.isin(status, (1, 2)).all()),
+                  f"[{name}] at its f32 floor: every date SOLVED or "
+                  f"MAX_ITER (status and iterations printed)")
+        check(int(same.sum()) >= int(same64.sum()),
+              f"[{name}] active sets equal to the golden's on "
+              f"{int(same.sum())} dates >= XLA-CPU f32 to f64's "
+              f"{int(same64.sum())}")
+        check(bool(ok_th[held].all()) and bool(ok_y[held].all()),
+              f"[{name}] per-date dL/dtheta and dL/dy_fit within the twin "
+              f"band on the {int(held.sum())} dates of equal sets, "
+              f"status and iterations with a finite golden")
+        check(not on_dates.any() or bool(agg[0][0]),
+              f"[{name}] dL/dtheta within the twin band")
+        check(bool(np.isfinite(dth).all() and np.isfinite(dy).all()),
+              f"[{name}] every gradient finite (a failed adjoint "
+              f"factorization ends as zero, never NaN)")
+        check(zero_card and zero_gold, f"[{name}] the "
+              f"{int(unsolved.sum())} unsolved dates have zero gradient "
+              f"(golden: {int(g_unsolved.sum())})")
+        check(c["cluster"] > 0 and c["stream"] == 0,
+              f"[{name}] launched the cluster form, never the streaming one")
+        if not dense:
+            scaled = _prepare_impl(qp, prm)[0]
+            fn, args, kw = segment_kernel_call(admm_init(scaled, prm),
+                                               scaled, prm)
+            rname = ("admm_segment[triangular]_cluster, diff"
+                     if fn is K2 else
+                     "admm_segment_factored_cluster[refine=1], diff")
+            base = ("trinv", "cluster") if fn is K2 else (
+                "woodbury_refine1", "cluster")
+            kernel_row(rows, name, rname, base, fn, args, kw, c["cluster"])
+            added.append(name)
+        del qp, sol
+
+    # -- 9b. the turnover chain on net Sharpe ---------------------------------
+    D, lam = meta["chain_dates"], meta["lam"]
+    prm = params("chain")
+    R_np, reb = chain_market(Xo_np[:D])
+    R = on(R_np)
+    w0 = torch.full((n,), 1.0 / n, dtype=f32, device=dev)
+    qps = [pt.build_tracking_qp(Xf[t], yf[t]) for t in range(D)]
+
+    def chain():
+        log_lam = torch.tensor(float(np.log(lam)), dtype=f32, device=dev,
+                               requires_grad=True)
+        wvec = torch.exp(log_lam) * torch.ones(n, dtype=f32, device=dev)
+        c, ws = w0, []
+        mark, ms = stopwatch(dev)
+        mark()
+        for t in range(D):
+            c = pt.solve_qp_l1_diff(qps[t], wvec, c, prm, device=dev)
+            ws.append(c)
+        sim = simulate(torch.stack(ws), R, reb, vc=meta["vc"])
+        s = net_sharpe(sim.returns, sim.valid.to(f32))
+        mark()
+        s.backward()
+        mark()
+        return s.detach(), log_lam.grad, ms()
+
+    chain()
+    reset_counts()
+    s_card, dlog, (fwd_ms, bwd_ms) = chain()
+    c = counts()["K1"]
+    carry = np.concatenate([np.full((1, n), 1.0 / n, np.float32),
+                            golden["chain/x"][:-1]])
+    w_bar, c_bar, status, iters, same = [], [], [], [], []
+    names = ("kink", "pos", "neg", "aC", "box", "upC", "upB")
+    for t in range(D):
+        w = torch.full((n,), lam, dtype=f32, device=dev, requires_grad=True)
+        cv = on(carry[t]).requires_grad_(True)
+        x = pt.solve_qp_l1_diff(qps[t], w, cv, prm, device=dev)
+        x.backward(on(golden["chain/g"][t]))
+        one = CanonicalQP(*(None if f is None else f.unsqueeze(0)
+                            for f in qps[t]))
+        w1, c1 = w.detach().unsqueeze(0), cv.detach().unsqueeze(0)
+        sol = pt.solve_qp_batch(one, prm, l1_weight=w1, l1_center=c1,
+                                device=dev)
+        kink, sign, aC, box, upC, upB = diff.l1_active_sets(one, sol, w1, c1)
+        sets = dict(kink=kink, pos=sign > 0, neg=sign < 0, aC=aC, box=box,
+                    upC=upC, upB=upB)
+        same.append(all(np.array_equal(
+            sets[k].cpu().numpy()[0],
+            unpack(golden[f"chain/sets/{k}"][t], sets[k].shape[-1]))
+            for k in names))
+        w_bar.append(w.grad.cpu().numpy())
+        c_bar.append(cv.grad.cpu().numpy())
+        status.append(int(sol.status[0]))
+        iters.append(int(sol.iters[0]))
+    status, iters, same = np.asarray(status), np.asarray(iters), np.asarray(
+        same)
+    same64 = np.ones(D, bool)
+    for k in names:
+        width = n if k not in ("aC", "upC") else 1
+        same64 &= (unpack(golden[f"chain/sets/{k}"], width)
+                   == unpack(golden[f"chain/sets/{k}_f64"], width)).all(
+            axis=1)
+    held = same & (status == golden["chain/status"])
+    ok_w, d_w, band_w = twin_rule(np.stack(w_bar), golden["chain/w_bar"],
+                                  golden["chain/w_bar_f64"])
+    ok_c, d_c, band_c = twin_rule(np.stack(c_bar), golden["chain/c_bar"],
+                                  golden["chain/c_bar_f64"])
+    ratio = lambda d, b: float(np.max(np.where(held, d / np.where(
+        b > 0, b, 1.0), 0.0), initial=0.0))
+    print(f"diff [diff_chain]: {D} dates x {n} assets at B = 1; forward "
+          f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms (CUDA events); "
+          f"launches {c}; net Sharpe {float(s_card):.6f} (golden "
+          f"{float(golden['chain/sharpe']):.6f}); dS/dlog(lambda) "
+          f"{float(dlog):.6e} (golden f32 {float(golden['chain/dlog_lam']):.6e}"
+          f", f64 chain {float(golden['chain/dlog_lam_f64']):.6e}; printed, "
+          f"not held); per date from the golden's carry: solved "
+          f"{int((status == 1).sum())}/{D}, iterations equal to the golden "
+          f"on {int((iters == golden['chain/iters']).sum())}/{D}, the vjp's "
+          f"classification equal to the golden's on {int(same.sum())}/{D} "
+          f"dates (XLA-CPU f32 to its f64 run: {int(same64.sum())}/{D}); "
+          f"on the {int(held.sum())} held dates w_bar max distance/band "
+          f"{ratio(d_w, band_w):.3f}, c_bar {ratio(d_c, band_c):.3f}; dates "
+          f"past the band: w_bar {np.flatnonzero(~ok_w & held).tolist()}, "
+          f"c_bar {np.flatnonzero(~ok_c & held).tolist()}", flush=True)
+    check(np.array_equal(status, golden["chain/status"])
+          and np.array_equal(iters, golden["chain/iters"]),
+          "[diff_chain] per date from the golden's carry: status and "
+          "iterations equal the golden's")
+    check(int(same.sum()) >= int(same64.sum()),
+          f"[diff_chain] the vjp's classification equal to the golden's on "
+          f"{int(same.sum())} dates >= XLA-CPU f32 to f64's "
+          f"{int(same64.sum())}")
+    check(bool(ok_w[held].all()) and bool(ok_c[held].all()),
+          f"[diff_chain] per-date w_bar and c_bar within the twin band on "
+          f"the {int(held.sum())} dates of equal classification")
+    check(bool(np.isfinite(float(dlog))), "[diff_chain] dS/dlog(lambda) "
+          "finite")
+    check(c["cluster"] > 0 and c["stream"] == 0,
+          "[diff_chain] launched the factored kernel's cluster form, never "
+          "the streaming one")
+    scaled, _, x0_s, y0_s, l1w_s, l1c_s = _prepare_impl(
+        CanonicalQP(*(None if f is None else f.unsqueeze(0)
+                      for f in qps[2])), prm,
+        l1_weight=torch.full((1, n), lam, dtype=f32, device=dev),
+        l1_center=on(carry[2:3]))
+    fn, args, kw = segment_kernel_call(admm_init(scaled, prm, x0_s, y0_s),
+                                       scaled, prm, l1w_s, l1c_s)
+    kernel_row(rows, "diff_chain", "admm_segment_factored_cluster[refine=0]"
+               ", diff chain", ("woodbury", "cluster"), fn, args, kw,
+               c["cluster"])
+    added.append("diff_chain")
+    del qps
+
+    # -- 9c. the box problem's field gradients, and the controls -------------
+    y0 = yf_np[0].astype(np.float64)
+
+    def date0(k, ub, ridge):
+        X0 = Xf_np[0][:, :k].astype(np.float64)
+        return dict(P=2.0 * X0.T @ X0 + 2.0 * ridge * np.eye(k),
+                    q=-2.0 * X0.T @ y0, C=np.ones((1, k)), l=np.ones(1),
+                    u=np.ones(1), lb=np.zeros(k), ub=np.full(k, ub),
+                    constant=float(y0 @ y0))
+
+    kb = meta["box_assets"]
+    parts = date0(kb, meta["box_ub"], meta["ridge"])
+    box_fields = ("q", "C", "l", "u", "lb", "ub")
+    prm = params("diff_trinv")
+
+    def box_grads():
+        qp = CanonicalQP(
+            **{k: on(parts[k], dtype=f32).requires_grad_(k in box_fields)
+               for k in ("P",) + box_fields},
+            var_mask=torch.ones(kb, dtype=f32, device=dev),
+            row_mask=torch.ones(1, dtype=f32, device=dev),
+            constant=on(parts["constant"], dtype=f32))
+        r = Xo[0][:, :kb] @ pt.solve_qp_diff(qp, prm, device=dev) - yo[0]
+        torch.sqrt(torch.mean(r * r)).backward()
+        return qp, {k: getattr(qp, k).grad.cpu().numpy().reshape(1, -1)
+                    for k in box_fields}
+
+    # The problem's f32 floor: XLA-CPU's largest distance to f64 over the
+    # fields, relative to each field's scale (the budget row's l
+    # cotangent is one number, as a date's dL/dtheta is).
+    g32 = {k: golden[f"box/{k}"].astype(np.float64) for k in box_fields}
+    g64 = {k: golden[f"box/{k}_f64"].astype(np.float64) for k in box_fields}
+    scale = {k: float(np.abs(g64[k]).max()) for k in box_fields}
+    floor = max(float(np.abs(g32[k] - g64[k]).max()) / scale[k]
+                for k in box_fields if scale[k] > 0)
+
+    def box_rule(grads):
+        res = {}
+        for k in box_fields:
+            d = float(np.abs(grads[k].astype(np.float64) - g64[k]).max())
+            band = (KERNEL_VS_PLAIN * floor + GRAD_ULPS * F32_EPS) * scale[k]
+            res[k] = (bool(np.isfinite(grads[k]).all()) and d <= band, d,
+                      band)
+        return all(r[0] for r in res.values()), res
+
+    qp_box, grads = box_grads()
+    one = CanonicalQP(*(None if f is None else f.detach().unsqueeze(0)
+                        for f in qp_box))
+    sol = pt.solve_qp_batch(one, prm, device=dev)
+    sets = diff.active_sets(one, sol)
+    same_box = all(np.array_equal(
+        sets[i].bool().cpu().numpy(),
+        unpack(golden[f"box/{key}"].reshape(1, -1), sets[i].shape[-1]))
+        for i, key in ((0, "aC"), (2, "aB"), (4, "upC"), (5, "upB")))
+    x_box = sol.x[0]
+    ok_box, res = box_rule(grads)
+    real = diff._qp_cotangents
+
+    def side_blind(*a):
+        P_, q_, C_, l_, u_, lb_, ub_ = real(*a)
+        return P_, q_, C_, l_, u_, lb_ + ub_, torch.zeros_like(ub_)
+
+    def no_C(*a):
+        P_, q_, C_, l_, u_, lb_, ub_ = real(*a)
+        return P_, q_, torch.zeros_like(C_), l_, u_, lb_, ub_
+
+    controls = {}
+    for tag, fake in (("every box cotangent to lb", side_blind),
+                      ("the C cotangent dropped", no_C)):
+        diff._qp_cotangents = fake
+        try:
+            controls[tag] = box_rule(box_grads()[1])[0]
+        finally:
+            diff._qp_cotangents = real
+    print(f"diff [box]: date 0, {kb} assets, ub {meta['box_ub']}, the dense "
+          f"adjoint: status "
+          f"{int(sol.status[0])} iters {int(sol.iters[0])} (golden "
+          f"{int(golden['box/status'])}/{int(golden['box/iters'])}); at lb "
+          f"{int((x_box < 1e-6).sum())}, at ub "
+          f"{int((x_box > meta['box_ub'] - 1e-6).sum())}; active sets equal "
+          f"to the golden's: {same_box}; per field distance/band "
+          + ", ".join(f"{k} {r[1]:.3e}/{r[2]:.3e}" for k, r in res.items())
+          + f" (f32 floor {floor:.3e} relative)"
+          + f"; controls pass the rule: {controls}", flush=True)
+    check(int(sol.status[0]) == int(golden["box/status"])
+          and int(sol.iters[0]) == int(golden["box/iters"]),
+          "[box] status and iterations equal the golden's")
+    check(same_box and ok_box, "[box] active sets equal the golden's and "
+          "every field's gradient within the twin band")
+    for tag, passed in controls.items():
+        check(not passed, f"[box] control: a backward with {tag} fails "
+              f"the rule")
+
+    # -- 9d. the cross-solver table --------------------------------------------
+    from porqua_tpu_torch.compare import compare_solvers
+
+    tables = json.loads(str(golden["compare"]))
+    parts = date0(n, meta["compare_ub"], 0.0)
+    k = meta["slsqp_assets"]
+    sliced = dict(parts, P=parts["P"][:k, :k], q=parts["q"][:k],
+                  C=parts["C"][:, :k], lb=parts["lb"][:k], ub=parts["ub"][:k])
+
+    def build(p):
+        return CanonicalQP.build(p["P"], p["q"], p["C"], p["l"], p["u"],
+                                 p["lb"], p["ub"], constant=p["constant"],
+                                 dtype=torch.float64, device=dev)
+
+    full_rows = list(tables["full"])
+    df = compare_solvers(build(parts), solvers=full_rows, device=dev)
+    reset_counts()
+    k2_prm = pt.SolverParams(eps_abs=1e-8, eps_rel=1e-8, max_iter=20000,
+                             backend="pallas", linsolve="trinv")
+    df_k2 = compare_solvers(build(parts), params=k2_prm,
+                            solvers=["device-admm-f32"], device=dev)
+    c = counts()["K2"]
+    df_s = compare_solvers(build(sliced), solvers=list(tables["slice"]),
+                           device=dev)
+    metrics = ("objective_value", "primal_residual", "dual_residual",
+               "duality_gap", "max_residual_Ab", "max_residual_Gh")
+
+    def within(a, b, tol):
+        return (np.isnan(a) and np.isnan(b)) or abs(a - b) <= tol * max(
+            1.0, abs(a), abs(b))
+
+    ok_rows, ok_obj, ok_host = True, True, True
+    for tag, table, ref in (("full", df, tables["full"]),
+                            ("slice", df_s, tables["slice"]),
+                            ("full, K2", df_k2, None)):
+        print(f"compare [{tag}] ({card_line()}):\n{table.to_string()}",
+              flush=True)
+        ipm = (df if tag.startswith("full") else df_s).loc[
+            "ipm-f64", "objective_value"]
+        for row in table.index:
+            r = table.loc[row]
+            if "error" in table.columns and isinstance(r["error"], str):
+                ok_rows = False
+            g = (ref or tables["full"])[row]
+            if bool(g["solution_found"]) and not bool(r["solution_found"]):
+                ok_rows = False
+            if row == "device-admm-f32" and not g["solution_found"]:
+                print(f"compare: the golden's device-admm-f32 row is not "
+                      f"found at the default eps; the card's found: "
+                      f"{bool(r['solution_found'])}", flush=True)
+                ok_rows &= not bool(r["solution_found"]) or tag == "full, K2"
+            if bool(r["solution_found"]):
+                ok_obj &= within(r["objective_value"], ipm, COMPARE_OBJ)
+            if ref is not None and row in ("ipm-f64", "native-cpp-admm",
+                                           "scipy-slsqp"):
+                ok_host &= all(within(float(r[mc]), g[mc], COMPARE_HOST)
+                               for mc in metrics)
+        if ref is not None:
+            ok_rows &= list(table.index) == list(ref)
+    check(ok_rows, "[compare] every expected row present, no error, found "
+          "wherever the golden's row is found")
+    check(ok_obj, f"[compare] every found row's objective within "
+          f"{COMPARE_OBJ:g} of ipm-f64's")
+    check(ok_host, f"[compare] ipm-f64, native-cpp-admm and scipy-slsqp "
+          f"match the golden's objective and residuals to {COMPARE_HOST:g}")
+    check(c["cluster"] > 0 and c["stream"] == 0,
+          f"[compare] the device-admm-f32 row with backend='pallas' "
+          f"launched the triangular-inverse kernel's cluster form ({c})")
+    qp32 = CanonicalQP.build(parts["P"], parts["q"], parts["C"], parts["l"],
+                             parts["u"], parts["lb"], parts["ub"],
+                             constant=parts["constant"], dtype=f32,
+                             device=dev)
+    k2_run = dataclasses.replace(k2_prm, eps_abs=3e-6, eps_rel=3e-6)
+    batch1 = CanonicalQP(*(None if f is None else f.unsqueeze(0)
+                           for f in qp32))
+    scaled = _prepare_impl(batch1, k2_run)[0]
+    fn, args, kw = segment_kernel_call(admm_init(scaled, k2_run), scaled,
+                                       k2_run)
+    kernel_row(rows, "diff_compare", "admm_segment[triangular]_cluster, "
+               "compare", ("trinv", "cluster"), fn, args, kw, c["cluster"])
+    added.append("diff_compare")
+    return added
+
+
 def profile_run(run, label, top=10):
     """One run under torch.profiler: wall time, the device's busy time
     (the sum of its kernels' and copies' own times) and idle share, and
@@ -2147,7 +2775,10 @@ def main():
     # -- 8. secondary configurations ---------------------------------------
     kernel_rows += secondary_phase(rows, reset_counts)
 
-    # -- 9. report -------------------------------------------------------
+    # -- 9. the differentiable solve -----------------------------------------
+    kernel_rows += diff_phase(rows, reset_counts)
+
+    # -- 10. report ------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

@@ -14,6 +14,8 @@ from porqua_tpu_torch.qp import (
     Status,
     solve_qp,
     solve_qp_batch,
+    solve_qp_diff,
+    solve_qp_l1_diff,
 )
 from porqua_tpu_torch.estimators.covariance import Covariance, CovarianceSpecification
 from porqua_tpu_torch.estimators.mean import MeanEstimator
@@ -45,6 +47,7 @@ from porqua_tpu_torch.batch import (
     solve_scan_turnover,
 )
 from porqua_tpu_torch.compaction import CompactingDriver, CompactionReport
+from porqua_tpu_torch.compare import available_backends, compare_solvers
 from porqua_tpu_torch.checkpoint import (
     run_batch_checkpointed,
     solve_scan_l1_checkpointed,
@@ -59,7 +62,7 @@ from porqua_tpu_torch.tracking import (
 
 __all__ = [
     "Constraints", "CanonicalQP", "QPSolution", "SolverParams", "Status",
-    "solve_qp", "solve_qp_batch",
+    "solve_qp", "solve_qp_batch", "solve_qp_diff", "solve_qp_l1_diff",
     "Covariance", "CovarianceSpecification", "MeanEstimator",
     "OptimizationData", "Optimization", "OptimizationParameter",
     "Objective", "EmptyOptimization", "MeanVariance", "QEQW",
@@ -71,6 +74,7 @@ __all__ = [
     "solve_scan_l1", "solve_scan_l1_grid", "solve_scan_turnover",
     "solve_batch_compacted", "CompactingDriver", "CompactionReport",
     "run_batch_checkpointed", "solve_scan_l1_checkpointed",
+    "compare_solvers", "available_backends",
     "synthetic_usa_np",
     "TrackingResult", "build_tracking_qp", "synthetic_universe_np",
     "tracking_step",

@@ -122,7 +122,7 @@ class Optimization(ABC):
     def solve_torch(self, device=None) -> None:
         name = self.params.get("solver_name", DEFAULT_SOLVER)
         if name not in _DEFAULT_NAMES:
-            self._solve_via_backend(name)
+            self._solve_via_backend(name, device)
             return
         dev = resolve_device(device)
         qp = self.model_canonical(device=dev)
@@ -161,14 +161,73 @@ class Optimization(ABC):
         )
         self.results = {"weights": weights.to_dict(), "status": status}
 
-    def _solve_via_backend(self, name: str) -> None:
-        """Solve through a named backend of the comparison harness (f64
-        IPM, the native C++ ADMM core, scipy, qpsolvers). The harness
-        (``porqua_tpu/compare.py``) is not ported yet."""
-        raise NotImplementedError(
-            f"solver_name={name!r}: named solver backends go through the "
-            "comparison harness, which is not ported to PyTorch yet "
-            "(ROADMAP queue A, item 14); use the default solver")
+    # Reference solver-name spellings -> compare-harness backend keys.
+    # The reference's set (cvxopt/osqp/quadprog/daqp/highs/qpalm,
+    # ``qp_problems.py:19-30``) maps onto qpsolvers-* rows, which exist
+    # only where the qpsolvers package is installed.
+    _SOLVER_ALIASES = {
+        "ipm": "ipm-f64",
+        "interior-point": "ipm-f64",
+        "native": "native-cpp-admm",
+        "cpp": "native-cpp-admm",
+        "scipy": "scipy-slsqp",
+        "slsqp": "scipy-slsqp",
+        "admm-f32": "device-admm-f32",
+        "admm-f64": "device-admm-f64",
+        **{s: f"qpsolvers-{s}" for s in
+           ("cvxopt", "osqp", "quadprog", "daqp", "highs", "qpalm",
+            "clarabel", "ecos", "scs", "piqp", "proxqp")},
+    }
+
+    def _solve_via_backend(self, name: str, device=None) -> None:
+        """Solve through a named compare-harness backend (f64 IPM, the
+        native C++ ADMM core, scipy, the device rows on ``device``,
+        qpsolvers-* when installed).
+
+        These backends consume the *unpadded* canonical parts and return
+        (x, y, mu, found); they do not implement the native L1 prox or
+        warm starts — cost terms must use the lifted formulation (the
+        reference's own, ``qp_problems.py:120-157``), which
+        ``canonical_parts`` emits whenever ``l1_native`` is unset.
+        """
+        from types import SimpleNamespace
+
+        from porqua_tpu_torch.compare import available_backends
+
+        parts = self.canonical_parts()
+        if "l1_weight" in parts:
+            raise ValueError(
+                f"solver_name={name!r} cannot solve the native-L1 prox "
+                "form; drop l1_native (the lifted formulation is "
+                "backend-agnostic) or use the default torch_admm solver")
+        key = self._SOLVER_ALIASES.get(name, name)
+        backends = available_backends(device)
+        if key not in backends:
+            raise ValueError(
+                f"solver {name!r} (backend key {key!r}) is not available "
+                f"in this environment; have {sorted(backends)}")
+        x, y, mu, found = backends[key](parts, self.solver_params())
+
+        if not found and self.params.get("allow_suboptimal"):
+            # The backend contract reports only found/not-found; unlike
+            # the device solver's status codes it cannot distinguish
+            # "hit max_iter near the optimum" from "infeasible", so the
+            # MAX_ITER acceptance cannot be applied safely here.
+            warnings.warn(
+                f"solver {name!r} reported failure; allow_suboptimal "
+                "cannot be honored through named backends (no MAX_ITER/"
+                "infeasible distinction) — use the default torch_admm "
+                "solver for suboptimal acceptance", stacklevel=3)
+        self.solution = SimpleNamespace(
+            x=x, y=y, mu=mu, found=bool(found),
+            status=Status.SOLVED if found else Status.MAX_ITER,
+            iters=-1, prim_res=np.nan, dual_res=np.nan,
+        )
+        self._publish_results(
+            np.asarray(x),
+            Status.SOLVED if found else Status.MAX_ITER,
+            suboptimal_acceptable=False,
+        )
 
     def canonical_parts(self) -> dict:
         """Assemble objective + constraints into *unpadded* canonical parts

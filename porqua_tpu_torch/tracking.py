@@ -45,7 +45,10 @@ def build_tracking_qp(X: torch.Tensor,
 
     P = 2 XᵀX (+ 2·ridge·I), q = −2 Xᵀy, budget row Σw = 1, box
     [lb, ub], and the factor ``Pf = X`` (P = 2 Pf'Pf + diag(2 ridge))
-    that the Woodbury solve and factored scaling use.
+    that the Woodbury solve and factored scaling use. ``ridge`` is a
+    float, a 0-dim tensor or one value per window (B,); a tensor that
+    carries a gradient reaches ``P`` (and the ``Pdiag`` alias) through
+    autograd, as the differentiable solve (``qp/diff.py``) needs.
 
     ``0 < sketch_dim < T`` first embeds each window through the
     count-sketch (one embedding for every lane, as the JAX package's
@@ -67,8 +70,14 @@ def build_tracking_qp(X: torch.Tensor,
     full = lambda shape, v: torch.full(lead + shape, v, dtype=dtype,
                                        device=device)
     eye = torch.eye(n, dtype=dtype, device=device)
+    # A float, a 0-dim tensor or one per lane (lead shape), kept in the
+    # graph when it carries a gradient; doubling is exact, so a float
+    # ridge gives the bits it always gave.
+    ridge2 = 2.0 * torch.as_tensor(ridge, dtype=dtype,
+                                   device=device).unsqueeze(-1)
     return CanonicalQP(
-        P=2.0 * torch.matmul(X.transpose(-1, -2), X) + (2.0 * ridge) * eye,
+        P=(2.0 * torch.matmul(X.transpose(-1, -2), X)
+           + ridge2.unsqueeze(-1) * eye),
         q=-2.0 * torch.einsum("...t,...tn->...n", y, X),
         C=full((1, n), 1.0),
         l=full((1,), 1.0),
@@ -79,7 +88,7 @@ def build_tracking_qp(X: torch.Tensor,
         row_mask=full((1,), 1.0),
         constant=torch.sum(y * y, dim=-1),
         Pf=X,
-        Pdiag=full((n,), 2.0 * ridge),
+        Pdiag=ridge2 * torch.ones(lead + (n,), dtype=dtype, device=device),
     )
 
 

@@ -436,10 +436,19 @@ def test_unported_options_raise(call, rng, monkeypatch):
         monkeypatch.setenv("PORQUA_SANITIZE", "1")
         fn = lambda: tbatch.solve_batch(_small_problems(rng), device="cpu")
     elif call == "named_backend":
+        # Ported since the cross-solver harness (compare.py): a named
+        # solver no longer raises; the serial backtest solves each date
+        # through the f64 IPM and publishes budget-feasible weights.
         data = make_market(rng)
         bs = service(pt, tb, data, rebdates_of(data, k=1),
                      pt.LeastSquares(solver_name="ipm"), 120)
-        fn = lambda: pt.Backtest().run(bs, device="cpu")
+        bt = pt.Backtest()
+        bt.run(bs, device="cpu")
+        assert bs.optimization.results["status"] is True
+        w = np.array(list(bt.strategy.portfolios[-1].weights.values()),
+                     float)
+        assert np.isfinite(w).all() and abs(w.sum() - 1.0) < 1e-9
+        return
     else:
         data = make_market(rng)
         fn = lambda: tb.bibfn_selection_ltr(None, "2020-06-01")

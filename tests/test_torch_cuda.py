@@ -649,3 +649,88 @@ def test_sketch_on_card_is_deterministic_and_matches_cpu():
     np.testing.assert_allclose(a.cpu().numpy(), cpu.numpy(), rtol=1e-5,
                                atol=1e-6 * float(cpu.abs().max()))
     assert torch.equal(sketch_draws(504, 256, 3).bucket, draws.bucket)
+
+
+def diff_grads(form, backend, dtype, device="cuda"):
+    """examples/differentiable_tuning.py's loss on a small tracking batch
+    (3 dates, 24-day fit windows under 37 assets, so the factored
+    adjoint runs; 6 days out of sample) through
+    ``solve_qp_batch_diff``: (dL/dtheta per date, dL/dy_fit, status,
+    iterations, launches of the form's kernel as (cluster, stream))."""
+    from porqua_tpu_torch.qp.diff import solve_qp_batch_diff
+
+    pt.qp.canonical.HP.apply()
+    eps = 1e-5 if dtype == torch.float32 else 1e-10
+    params = pt.SolverParams(eps_abs=eps, eps_rel=eps, polish=False,
+                             scaling_iters=2, max_iter=4000,
+                             backend=backend, **FORMS[form])
+    Xs, ys = pt.synthetic_universe_np(11, 3, 30, 37)
+    on = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    Xf, yf, Xo, yo = on(Xs[:, :24]), on(ys[:, :24]), on(Xs[:, 24:]), on(
+        ys[:, 24:])
+    theta = torch.full((3,), -3.0, dtype=dtype, device=device,
+                       requires_grad=True)
+    y = yf.clone().requires_grad_(True)
+    qp = pt.build_tracking_qp(Xf, y, ridge=10.0 ** theta)
+    wrapper = (tk.admm_segment if form == "triangular"
+               else tk.admm_segment_factored)
+    before = counts_of(wrapper)[1:]
+    w = solve_qp_batch_diff(qp, params, device=device)
+    r = torch.einsum("btn,bn->bt", Xo, w) - yo
+    torch.sqrt(torch.mean(r * r, dim=-1)).mean().backward()
+    sol = pt.solve_qp_batch(qp, params, device=device)
+    after = counts_of(wrapper)[1:]
+    return (theta.grad.double().cpu().numpy(), y.grad.double().cpu().numpy(),
+            sol.status.cpu().numpy(), sol.iters.cpu().numpy(),
+            tuple(a - b for a, b in zip(after, before)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["triangular", "factored_refine1"])
+def test_diff_through_cluster_kernel_matches_plain_twin(form):
+    """solve_qp_batch_diff with backend="pallas" launches the form's
+    cluster kernel in its forward; its gradients (per-date dL/dtheta and
+    dL/dy) are held against the plain path's on the card by the twin
+    rule: their distance to the f64 gradient at most KERNEL_VS_PLAIN
+    times the plain f32 path's, plus two f32 ulps per iteration of the
+    gradient's scale."""
+    need_card()
+    th_k, y_k, st_k, it_k, launches = diff_grads(form, "pallas", torch.float32)
+    th_p, y_p, st_p, it_p, plain_launches = diff_grads(form, "xla",
+                                                       torch.float32)
+    th_64, y_64, st_64, _, _ = diff_grads(form, "xla", torch.float64)
+    assert launches[0] > 0 and launches[1] == 0, launches
+    assert plain_launches == (0, 0)
+    assert (st_k == 1).all() and (st_p == 1).all() and (st_64 == 1).all()
+    for got, plain, ref in ((th_k, th_p, th_64), (y_k, y_p, y_64)):
+        floor = 2 * int(max(it_k.max(), it_p.max())) * 2.0 ** -23
+        d_k, d_p = np.abs(got - ref).max(), np.abs(plain - ref).max()
+        assert np.isfinite(got).all()
+        assert d_k <= chip_smoke.KERNEL_VS_PLAIN * d_p + floor * np.abs(
+            ref).max(), (d_k, d_p)
+
+
+@pytest.mark.gpu
+def test_native_core_builds_and_solves_on_the_cards_machine():
+    """The native C++ core built with this machine's g++ from the port's
+    source into build/porqua_tpu_torch/, solving a tracking QP to the
+    f64 IPM oracle's objective."""
+    from porqua_tpu_torch import native
+    from porqua_tpu_torch.compare import solution_metrics
+    from porqua_tpu_torch.qp.ipm import solve_ipm
+
+    need_card()
+    path = native.build_library()
+    assert "build/porqua_tpu_torch/libporqua_qp-" in path
+    Xs, ys = pt.synthetic_universe_np(3, 1, 60, 20)
+    X, y = Xs[0].astype(np.float64), ys[0].astype(np.float64)
+    parts = dict(P=2.0 * X.T @ X, q=-2.0 * X.T @ y, C=np.ones((1, 20)),
+                 l=np.ones(1), u=np.ones(1), lb=np.zeros(20),
+                 ub=np.full(20, 0.2), constant=float(y @ y))
+    sol = native.solve_qp_native(*(parts[k] for k in ("P", "q", "C", "l",
+                                                      "u", "lb", "ub")))
+    ipm = solve_ipm(parts)
+    assert sol.status == 1 and ipm.found
+    f = solution_metrics(parts, sol.x)["objective_value"]
+    f_ipm = solution_metrics(parts, ipm.x)["objective_value"]
+    assert abs(f - f_ipm) <= 1e-6 * max(1.0, abs(f_ipm))

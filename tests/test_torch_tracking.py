@@ -207,12 +207,56 @@ def test_unported_options_raise(over, exc):
         pt.tracking_step(Xs, ys, params, device="cpu")
 
 
+def test_ridge_and_window_gradients_through_the_build_match_jax():
+    """``build_tracking_qp`` takes a 0-dim tensor ridge that carries a
+    gradient. The out-of-sample tracking error's gradient w.r.t. the
+    ridge, the benchmark y and the window X, through the port's build
+    and ``solve_qp_diff`` (f64, eps 1e-10; 16 days under 24 assets, so
+    the factored adjoint runs), equals ``jax.grad`` through the JAX
+    package's build to 1e-6 relative. ``Pf = X`` and ``Pdiag`` are
+    aliases of P with zero cotangent in both packages: the gradient
+    reaches ridge, y and X through P and q only."""
+    from porqua_tpu.qp.diff import solve_qp_diff as jax_solve_qp_diff
+
+    Xs, ys = jax_universe(5, 1, 21, 24)
+    X, y = Xs[0, :16].astype(np.float64), ys[0, :16].astype(np.float64)
+    Xo, yo = Xs[0, 16:].astype(np.float64), ys[0, 16:].astype(np.float64)
+    opts = dict(max_iter=20000, eps_abs=1e-10, eps_rel=1e-10)
+
+    def te(w, lib):
+        r = lib.matmul(lib.asarray(Xo) if lib is jnp else torch.as_tensor(Xo),
+                       w) - (jnp.asarray(yo) if lib is jnp
+                             else torch.as_tensor(yo))
+        return lib.sqrt(lib.mean(r * r))
+
+    g_jax = jax.grad(lambda r, yv, Xv: te(jax_solve_qp_diff(
+        jax_build_tracking_qp(Xv, yv, ridge=r), JaxParams(**opts)), jnp),
+        argnums=(0, 1, 2))(jnp.asarray(1e-3), jnp.asarray(y), jnp.asarray(X))
+    ridge = torch.tensor(1e-3, dtype=torch.float64, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=True)
+    Xt = torch.tensor(X, requires_grad=True)
+    qp = pt.build_tracking_qp(Xt, yt, ridge=ridge)
+    assert qp.Pdiag.shape == (24,)
+    w = pt.qp.diff.solve_qp_diff(qp, pt.SolverParams(**opts), device="cpu")
+    te(w, torch).backward()
+    for got, want in zip((ridge.grad, yt.grad, Xt.grad), g_jax):
+        want = np.asarray(want)
+        assert float(np.abs(want).max()) > 0.0
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-6 * float(np.abs(want).max()))
+
+
 def test_port_imports_no_jax():
     """The port imports every module, solves, runs a batched backtest,
     a chained scan, a crashed and resumed checkpointed scan, a solve
     service round trip in both batching modes, a compacted solve, PDHG
-    and NAPG solves with rings and a sketch-fed tracking_step with JAX
-    made unimportable, and pulls in no module of the JAX package."""
+    and NAPG solves with rings, a sketch-fed tracking_step, a backward
+    through solve_qp_diff and solve_qp_l1_diff, compare_solvers' ipm-f64
+    and native-cpp-admm rows and an Optimization with
+    solver_name="ipm" with JAX made unimportable, and pulls in no
+    module of the JAX package; the native core's build and load (every
+    file opened, library loaded and process started after the solves
+    begin) never touch a path under porqua_tpu/."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
@@ -283,6 +327,43 @@ def test_port_imports_no_jax():
         "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
         "sketch_dim=8, sketch_seed=3), device='cpu')\n"
         "assert r.status.tolist() == [1, 1], r.status\n"
+        "import os\n"
+        "jax_pkg = os.path.join(os.getcwd(), 'porqua_tpu') + os.sep\n"
+        "touched = []\n"
+        "def audit(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen', 'subprocess.Popen'):\n"
+        "        touched.append(repr(args))\n"
+        "sys.addaudithook(audit)\n"
+        "X1, y1 = (torch.as_tensor(a[0], dtype=torch.float64) for a in "
+        "pt.synthetic_universe_np(4, 1, 20, 8))\n"
+        "tilt = torch.arange(8.0, dtype=torch.float64)\n"
+        "r = torch.tensor(1e-3, dtype=torch.float64, requires_grad=True)\n"
+        "x = pt.solve_qp_diff(pt.build_tracking_qp(X1, y1, ridge=r), "
+        "pt.SolverParams(), device='cpu')\n"
+        "(x * tilt).sum().backward()\n"
+        "assert bool(torch.isfinite(r.grad)), r.grad\n"
+        "lam = torch.full((8,), 1e-3, dtype=torch.float64, "
+        "requires_grad=True)\n"
+        "x = pt.solve_qp_l1_diff(pt.build_tracking_qp(X1, y1), lam, "
+        "torch.full((8,), 1 / 8, dtype=torch.float64), pt.SolverParams(), "
+        "device='cpu')\n"
+        "(x * tilt).sum().backward()\n"
+        "assert bool(torch.isfinite(lam.grad).all()), lam.grad\n"
+        "df = pt.compare_solvers(pt.build_tracking_qp(X1, y1), solvers=["
+        "'ipm-f64', 'native-cpp-admm'], device='cpu')\n"
+        "assert df['solution_found'].all() and 'error' not in df, df\n"
+        "import pandas as pd\n"
+        "cols = [f'a{i}' for i in range(8)]\n"
+        "opt = pt.LeastSquares(solver_name='ipm')\n"
+        "opt.constraints = pt.Constraints(selection=cols)\n"
+        "opt.constraints.add_budget()\n"
+        "opt.constraints.add_box('LongOnly')\n"
+        "opt.set_objective(pt.OptimizationData(align=False, return_series="
+        "pd.DataFrame(X1.numpy(), columns=cols), bm_series=pd.Series("
+        "y1.numpy())))\n"
+        "assert opt.solve() is True\n"
+        "assert any('libporqua_qp' in t for t in touched), touched\n"
+        "assert not [t for t in touched if jax_pkg in t], touched\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
         "assert not bad, bad\n"
