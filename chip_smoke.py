@@ -198,6 +198,28 @@ SERVE_PATH = os.path.join("porqua_tpu_torch", "testdata", "serve_golden.npz")
 # TE band; median TE within TE_DRIFT (the reference's acceptance).
 SECONDARY_PATH = os.path.join("porqua_tpu_torch", "testdata",
                               "secondary_golden.npz")
+# Phase 10 holds the routed, retried and observed service against
+# serve_golden.npz by phase 7's rule and against the route golden
+# (XLA-CPU; tests/test_torch_routing.py --write-golden): the north-star
+# stream's answers on PDHG and NAPG, the aggregate that seeds the route
+# table, and the blend's pools on their routed backends. SHADOW_BUDGET:
+# shadow re-solves per classic run (each re-solves one dispatched batch
+# on a losing backend). A shadow lane's status must equal the golden's
+# on its loser and its iterations too, or differ by one check interval
+# on at most SHADOW_OFF_SHARE of the lanes (a residual check on the
+# other side of eps in f32; SHADOW rule, chip_smoke.shadow_rule); each
+# lane held against the other loser's golden answer must fail it. The
+# blend: status equal, iterations within one check interval and |dx| <=
+# W_ATOL (phase 7's rule) against the golden's answer to the same pool
+# problem; the next pool problem's answer must fail it. CHAOS_ATOL is
+# the chaos suite's wrong-answer bar (scripts/chaos_suite.py).
+ROUTE_PATH = os.path.join("porqua_tpu_torch", "testdata", "route_golden.npz")
+SHADOW_BUDGET = 1
+SHADOW_OFF_SHARE = 0.1
+STREAM_MAX_BATCH = 256
+BLEND_MAX_BATCH = 16
+CHAOS_ATOL = 5e-4
+POISON_SHADOW_RATE = 0.125
 ON_OFF_WIDTH = 128
 TE_DRIFT = 1e-6
 # The backends' A/B: each alternate backend's median TE within
@@ -1352,7 +1374,9 @@ def serve_kernel_call(reqs, params, device):
 
 def serve_phase(rows, reset_counts, device="cuda"):
     """The online solve service on ``device`` (the card); returns the
-    kernel rows it adds to ``rows``. Three runs of the reference
+    kernel rows it adds to ``rows`` and each run's burst numbers
+    (solves/s, p50 and p99 ms; phase 10 prints them beside its hooked
+    bursts). Three runs of the reference
     loadgen's north-star stream (512 tracking requests, 500 assets,
     window 252, seed 5; bucket 512 x 8) through ``SolveService``
     (max_batch 256, max_wait 2 ms, warm starts off, the whole slot
@@ -1399,7 +1423,7 @@ def serve_phase(rows, reset_counts, device="cuda"):
     requests = {factor: build_tracking_requests(
         meta["n_requests"], n, meta["window"], meta["seed"], factor)
         for factor in (False, True)}
-    launches, calls = {}, {}
+    launches, calls, bursts = {}, {}, {}
 
     def burst(svc, reqs):
         tickets = [svc.submit(q) for q in reqs]
@@ -1480,6 +1504,10 @@ def serve_phase(rows, reset_counts, device="cuda"):
               f"answer {float(golden[f'{config}/x_f64_gap'].max()):.3e}); "
               f"max|sum x - 1| {budget:.3e}, box violation {box:.3e}",
               flush=True)
+        bursts[tag] = {
+            "solves_per_s": round(len(res) / burst_s, 1),
+            "p50_ms": round(snap["latency_p50_ms"], 1),
+            "p99_ms": round(snap["latency_p99_ms"], 1)}
         check(np.array_equal(status, g_status),
               f"[{tag}] status equals the JAX golden on every request "
               f"({int((status == 1).sum())}/{len(status)} solved)")
@@ -1528,7 +1556,7 @@ def serve_phase(rows, reset_counts, device="cuda"):
         added.append(key)
     print(f"serve_continuous launched {launches['serve_continuous']} "
           f"(one per segment of the cohort)", flush=True)
-    return added
+    return added, bursts
 
 
 def te_band(x, iters, g_te, te64, Xs, ys):
@@ -2498,6 +2526,858 @@ def diff_phase(rows, reset_counts, device="cuda"):
     return added
 
 
+def _tiny_requests(n, params):
+    """``n`` small well-conditioned QPs (one 8 x 4 bucket: six
+    variables, a budget row and one general row) and their reference
+    answers (the port's plain path on the CPU): the oracle of the
+    calibration and chaos cells, as ``scripts/chaos_suite.py`` builds
+    it."""
+    import numpy as np
+
+    import porqua_tpu_torch as pt
+
+    qps, refs = [], []
+    for seed in range(n):
+        rng = np.random.default_rng(seed)
+        nv, m = 6, 2
+        A = rng.standard_normal((2 * nv, nv))
+        P = A.T @ A / (2 * nv) + np.eye(nv)
+        q = rng.standard_normal(nv)
+        C = np.concatenate([np.ones((1, nv)),
+                            rng.standard_normal((m - 1, nv))])
+        qp = pt.CanonicalQP.build(P, q, C=C, l=np.full(m, -1.0),
+                                  u=np.ones(m), lb=np.zeros(nv),
+                                  ub=np.ones(nv), device="cpu")
+        qps.append(qp)
+        refs.append(pt.solve_qp(qp, dataclasses.replace(
+            params, backend="xla"), device="cpu").x.numpy())
+    return qps, refs
+
+
+def _oracle_round(svc, qps, refs, poison=None, before=None):
+    """Submit one round of ``qps`` and resolve it: returns ``(results,
+    wrong, failures, poisoned_ok, resolutions)``. A result is wrong when
+    it is not finite or lies more than CHAOS_ATOL from its reference;
+    ``poison(i, qp)`` may corrupt a request (it then must fail);
+    ``before(i)`` runs before request ``i`` is submitted; ``resolutions``
+    counts each ticket's done callbacks (one each)."""
+    import numpy as np
+
+    tickets, poisoned, calls = [], set(), []
+    for i, qp in enumerate(qps):
+        if before is not None:
+            before(i)
+        if poison is not None:
+            bad = poison(i, qp)
+            if bad is not qp:
+                poisoned.add(i)
+                qp = bad
+        t = svc.submit(qp)
+        calls.append(0)
+        t.future.add_done_callback(
+            lambda _f, i=i: calls.__setitem__(i, calls[i] + 1))
+        tickets.append(t)
+    results, wrong, failures, poisoned_ok = [], [], [], []
+    for i, t in enumerate(tickets):
+        try:
+            res = svc.result(t, timeout=120)
+        except Exception as exc:  # noqa: BLE001 - a failure is an outcome
+            failures.append(f"req{i}: {type(exc).__name__}")
+            results.append(None)
+            continue
+        results.append(res)
+        if i in poisoned:
+            poisoned_ok.append(i)
+            continue
+        if not np.all(np.isfinite(res.x)) or float(
+                np.abs(res.x - refs[i]).max()) > CHAOS_ATOL:
+            wrong.append(i)
+    return results, wrong, failures, poisoned_ok, calls
+
+
+def _calibration_evidence(cal, bucket, eps, n=6):
+    """The calibration smoke's schema-correct evidence for one cell
+    (``scripts/calibration_smoke.py::_synthetic_evidence``): PDHG
+    strictly faster than the ADMM stream, NAPG matured but slower."""
+    for _ in range(n):
+        cal.observe({"source": "serve", "bucket": bucket, "eps_abs": eps,
+                     "solver": "admm", "status": 1, "iters": 40,
+                     "solve_s": 4e-3, "obj": 0.1})
+        cal.observe({"source": "serve.shadow", "shadow_of": "admm",
+                     "bucket": bucket, "eps_abs": eps, "solver": "pdhg",
+                     "status": 1, "iters": 12, "solve_s": 1e-5,
+                     "obj": 0.1, "delta_iters": -28,
+                     "delta_solve_s": -4e-3, "agree": True})
+        cal.observe({"source": "serve.shadow", "shadow_of": "admm",
+                     "bucket": bucket, "eps_abs": eps, "solver": "napg",
+                     "status": 1, "iters": 80, "solve_s": 8e-3,
+                     "obj": 0.1, "delta_iters": 40,
+                     "delta_solve_s": 4e-3, "agree": True})
+
+
+def calibration_cells(device, label):
+    """``calibration_promote``, ``calibration_poison`` and
+    ``calibration_rollback`` as ``scripts/calibration_smoke.py`` defines
+    them and at its sizes (eight 6-variable requests, bucket 8 x 4,
+    max_batch 8, eps 1e-5, a Calibrator on a stepped FaultClock), on
+    ``device`` through ``backend="pallas"`` (the ADMM arm launches K2).
+    Holds: the promotion routes PDHG live with zero recompiles and the
+    audit chain replays to the live table and version; poisoned records
+    never promote and no poisoned request gets an answer; a rollback
+    bumps the version and exactly one flight bundle lands, triggered by
+    ``route_rollback``; every answer on ``label``, none wrong. One
+    change from the smoke: the poison drill shadows a dispatch with probability
+    POISON_SHADOW_RATE, not 1 (a NaN batch runs every backend to
+    max_iter, and NAPG's row-by-row bisection makes each such shadow
+    cost seconds on the card, launch-bound; the calibrator ticks at
+    every dispatch there, so a per-tick budget would not bound it)."""
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.serve import BucketLadder, SolveService
+    from porqua_tpu_torch.serve.routing import SolverRouter
+
+    params = pt.SolverParams(max_iter=500, eps_abs=1e-5, eps_rel=1e-5,
+                             polish=False, check_interval=25,
+                             backend="pallas")
+    qps, refs = _tiny_requests(8, params)
+    eps = params.eps_abs
+
+    def service(clk, shadow_rate, **kw):
+        sink = obs.HarvestSink(None)
+        router = SolverRouter(params, shadow_rate=shadow_rate,
+                              shadow_seed=0)
+        cal = obs.Calibrator(min_interval_s=0.0, min_samples=4,
+                             win_rate=0.6, canary_dwell_s=5.0,
+                             guard_window_s=30.0, clock=clk)
+        svc = SolveService(
+            params, ladder=BucketLadder(n_rungs=(8,), m_rungs=(4,)),
+            max_batch=8, max_wait_ms=2.0, queue_capacity=256,
+            router=router, harvest=sink, calibrator=cal, device=device,
+            **kw)
+        return svc, router, cal, sink
+
+    def answered(results):
+        return all(r is None or r.device == label for r in results)
+
+    _calibration_promote(service, qps, refs, eps, answered, label)
+    _calibration_poison(service, qps, refs)
+    _calibration_rollback(service, qps, refs, eps, params, answered, label)
+
+
+def _calibration_promote(service, qps, refs, eps, answered, label):
+    """The promote drill of :func:`calibration_cells`."""
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.resilience import faults
+
+    t0 = time.perf_counter()
+    clk = faults.FaultClock()
+    svc, router, cal, sink = service(clk, 0.0)
+    with svc:
+        svc.prewarm(qps[0])
+        r0, w0, f0, _, _ = _oracle_round(svc, qps, refs)
+        svc.metrics.reset_window()
+        bucket = sink.buffered()[0]["bucket"]
+        cell = f"{bucket}@{eps:.0e}"
+        _calibration_evidence(cal, bucket, eps)
+        cal.tick()
+        state = cal.status()["state"]
+        clk.advance(6.0)
+        cal.tick()
+        table, version = dict(router.snapshot()["table"]), router.table_version
+        r1, w1, f1, _, _ = _oracle_round(svc, qps, refs)
+        snap = svc.snapshot()
+        clk.advance(31.0)
+        cal.tick()
+        counters = cal.counters()
+        replayed, replay_v = obs.replay_audit(sink.buffered())
+        live = router.snapshot()["table"]
+    print(f"calibration_promote: {time.perf_counter() - t0:.2f} s; state "
+          f"after evidence {state!r}, table {table} (version {version}), "
+          f"routed {({m: snap[f'routed_{m}'] for m in ('admm', 'pdhg')})}, "
+          f"compiles {snap['compiles']}, counters "
+          f"{ {k: v for k, v in counters.items() if v} }", flush=True)
+    check(state == "canary" and counters["calibration_promotions"] == 1
+          and table.get(cell) == "pdhg" and version == 1
+          and snap["routed_pdhg"] == len(qps),
+          "[calibration_promote] candidate, canary, promoted (version 1); "
+          "the promoted route serves PDHG")
+    check(snap["compiles"] == 0,
+          "[calibration_promote] the route flip from admm (K2) to PDHG "
+          "costs zero recompiles")
+    check(replayed == live and replay_v == router.table_version,
+          "[calibration_promote] replay_audit of the warehouse gives the "
+          "live table and version")
+    check(counters["calibration_settled"] == 1
+          and counters["calibration_rollbacks"] == 0,
+          "[calibration_promote] the guard settles")
+    check(not (w0 or w1 or f0 or f1) and answered(r0 + r1),
+          f"[calibration_promote] every answer on {label} and right, "
+          f"none failed")
+
+
+
+def _calibration_poison(service, qps, refs):
+    """The poison drill of :func:`calibration_cells`."""
+    from porqua_tpu_torch.resilience import RetryPolicy, faults
+
+    t0 = time.perf_counter()
+    clk = faults.FaultClock()
+    svc, router, cal, sink = service(
+        clk, POISON_SHADOW_RATE,
+        retry=RetryPolicy(max_attempts=2, backoff_base_s=0.02, seed=0))
+    scenario = faults.Scenario("calibration-poison", (faults.FaultSpec.make(
+        "data.feed", "feed_corrupt", count=1_000_000, lanes=1),), seed=0)
+    poisoned, resolved, calls = 0, [], []
+    with svc:
+        svc.prewarm(qps[0])
+
+        def poison(i, qp):
+            act = faults.fire("data.feed", i=i)
+            if act is not None and act.kind == "feed_corrupt":
+                return faults.corrupt_feed(qp, act)
+            return qp
+
+        with faults.active(scenario, metrics=svc.metrics,
+                           events=svc.obs.events):
+            for _ in range(2):
+                _, _, fails, ok_poisoned, c = _oracle_round(
+                    svc, qps, refs, poison)
+                poisoned += len(qps)
+                resolved += ok_poisoned
+                calls += c
+                time.sleep(0.25)   # the trailing shadow solves
+                clk.advance(10.0)
+                cal.tick()
+        counters, status = cal.counters(), cal.status()
+        snap = svc.snapshot()
+    print(f"calibration_poison: {time.perf_counter() - t0:.2f} s; "
+          f"{poisoned} poisoned, {len(resolved)} resolved; calibrator "
+          f"{ {k: v for k, v in counters.items() if v} }; validation "
+          f"failures {snap['validation_failures']}, give-ups "
+          f"{snap['retry_giveups']}", flush=True)
+    check(counters["calibration_rejected"] > 0
+          and counters["calibration_promotions"] == 0
+          and counters["calibration_candidates"] == 0
+          and status["state"] == "idle" and router.table_version == 0,
+          "[calibration_poison] poisoned records are rejected and never "
+          "promote")
+    check(poisoned > 0 and not resolved and set(calls) == {1},
+          "[calibration_poison] no poisoned request gets an answer; every "
+          "ticket resolves once")
+
+
+
+def _calibration_rollback(service, qps, refs, eps, params, answered, label):
+    """The rollback drill of :func:`calibration_cells`."""
+    import shutil
+    import tempfile
+
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.resilience import faults
+
+    t0 = time.perf_counter()
+    clk = faults.FaultClock()
+    anomaly = obs.AnomalyDetector({("drift", eps): {
+        "iters_p50": 10.0, "iters_p95": 20.0, "iters_max": 30.0,
+        "wasted": 0.0, "count": 100}})
+    flight_dir = tempfile.mkdtemp(prefix="calibration-rollback-")
+    flight = obs.FlightRecorder(out_dir=flight_dir, armed=False,
+                                debounce_s=600.0)
+    svc, router, cal, sink = service(clk, 0.0, flight=flight,
+                                     anomaly=anomaly)
+    try:
+        with svc:
+            svc.prewarm(qps[0])
+            r0, w0, f0, _, _ = _oracle_round(svc, qps, refs)
+            svc.metrics.reset_window()
+            bucket = sink.buffered()[0]["bucket"]
+            cell = f"{bucket}@{eps:.0e}"
+            _calibration_evidence(cal, bucket, eps)
+            cal.tick()
+            clk.advance(6.0)
+            cal.tick()
+            v_promoted = router.table_version
+            t_promoted = dict(router.snapshot()["table"])
+            r1, w1, f1, _, _ = _oracle_round(svc, qps, refs)
+            for _ in range(8):
+                anomaly.observe("drift", eps, 10_000,
+                                check_interval=params.check_interval)
+            flight.arm()
+            clk.advance(1.0)
+            cal.tick()
+            v_rolled = router.table_version
+            t_rolled = dict(router.snapshot()["table"])
+            counters = cal.counters()
+            replayed, replay_v = obs.replay_audit(sink.buffered())
+            bundles = flight.bundles()
+            trigger = None
+            if len(bundles) == 1:
+                b = bundles[0]
+                trigger = (obs.load_bundle(b) if isinstance(b, str)
+                           else b).get("trigger", {}).get("kind")
+            r2, w2, f2, _, _ = _oracle_round(svc, qps, refs)
+            snap = svc.snapshot()
+            live = router.snapshot()["table"]
+    finally:
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    print(f"calibration_rollback: {time.perf_counter() - t0:.2f} s; "
+          f"promoted {t_promoted} (version {v_promoted}), restored "
+          f"{t_rolled} (version {v_rolled}); bundles {len(bundles)} "
+          f"(trigger {trigger!r}); compiles {snap['compiles']}", flush=True)
+    check(t_promoted.get(cell) == "pdhg" and t_rolled == {}
+          and counters["calibration_rollbacks"] == 1
+          and v_promoted == 1 and v_rolled == 2,
+          "[calibration_rollback] the rollback restores the table and "
+          "bumps the version (1 -> 2), never reusing one")
+    check(len(bundles) == 1 and trigger == "route_rollback",
+          "[calibration_rollback] exactly one flight bundle, triggered by "
+          "route_rollback")
+    check(replayed == live and replay_v == v_rolled,
+          "[calibration_rollback] replay_audit gives the live table and "
+          "version")
+    check(snap["compiles"] == 0 and not (w0 or w1 or w2 or f0 or f1 or f2)
+          and answered(r0 + r1 + r2),
+          f"[calibration_rollback] zero recompiles; every answer on "
+          f"{label} and right")
+
+
+def chaos_cells(device, label):
+    """``solver_route_flap`` (``scripts/chaos_suite.py:463``: a live
+    router force-flipped across ADMM, PDHG and NAPG mid-round) and the
+    port's builtin fault scenarios, each on the chaos suite's sixteen
+    6-variable requests (bucket 8 x 4, max_batch 8) under a
+    ``RetryPolicy`` (the default for the flap, the suite's for the
+    faults: four attempts, 20 ms backoff), on ``device``. The service
+    names no fallback, so the breaker and the retries stay on the card.
+    Holds, per cell: every answer returned is finite and within
+    CHAOS_ATOL of its oracle, no poisoned request resolves, every ticket
+    resolves once, every answer on ``label``; the flap serves every
+    backend with zero recompiles and no failure; each fault fired."""
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.resilience import RetryPolicy, faults
+    from porqua_tpu_torch.serve import BucketLadder, SolveService
+    from porqua_tpu_torch.serve.routing import SolverRouter
+
+    params = pt.SolverParams(max_iter=500, eps_abs=1e-5, eps_rel=1e-5,
+                             polish=False, check_interval=25,
+                             backend="pallas")
+    qps, refs = _tiny_requests(16, params)
+    ladder = BucketLadder(n_rungs=(8,), m_rungs=(4,))
+
+    # solver_route_flap
+    t0 = time.perf_counter()
+    router = SolverRouter(params)
+    svc = SolveService(params, ladder=ladder, max_batch=8, max_wait_ms=5.0,
+                       queue_capacity=256, router=router,
+                       retry=RetryPolicy(), obs=obs.Observability(),
+                       device=device)
+    wrong, failures, calls, results = [], [], [], []
+    with svc:
+        svc.prewarm(qps[0])
+        svc.metrics.reset_window()
+        half = len(qps) // 2
+        for start, mid in (("pdhg", "admm"), ("admm", "napg"),
+                           ("napg", "pdhg"), ("pdhg", None),
+                           ("napg", None), (None, None)):
+            router.force(start)
+            r, w, f, _, c = _oracle_round(
+                svc, qps, refs,
+                before=lambda i, mid=mid: i == half and router.force(mid))
+            results += [x for x in r if x is not None]
+            wrong += w
+            failures += f
+            calls += c
+        snap = svc.snapshot()
+    routed = {m: snap[f"routed_{m}"] for m in ("admm", "pdhg", "napg")}
+    print(f"chaos solver_route_flap: {time.perf_counter() - t0:.2f} s; "
+          f"routed {routed}, compiles {snap['compiles']}, wrong "
+          f"{len(wrong)}, failed {len(failures)}", flush=True)
+    check(not wrong and not failures and set(calls) == {1}
+          and all(r.device == label for r in results),
+          f"[solver_route_flap] every answer right and on {label}, none "
+          f"failed, every ticket resolved once")
+    check(all(routed.values()) and snap["compiles"] == 0,
+          "[solver_route_flap] every backend served, zero recompiles")
+
+    # The builtin fault scenarios the service's seams fire.
+    for name, feed in (("device_lost", False), ("nan_lanes", False),
+                       ("feed_corrupt", True), ("compile_storm", False),
+                       ("queue_stall", False), ("clock_skew", False)):
+        t0 = time.perf_counter()
+        scenario = faults.builtin_scenarios(seed=0)[name]
+        svc = SolveService(
+            params, ladder=ladder, max_batch=8, max_wait_ms=5.0,
+            queue_capacity=256, obs=obs.Observability(),
+            retry=RetryPolicy(max_attempts=4, backoff_base_s=0.02, seed=0),
+            device=device)
+
+        def poison(i, qp):
+            act = faults.fire("data.feed", i=i)
+            if act is not None and act.kind == "feed_corrupt":
+                return faults.corrupt_feed(qp, act)
+            return qp
+
+        wrong, failures, poisoned_ok, calls, results = [], [], [], [], []
+        with svc:
+            svc.prewarm(qps[0])
+            svc.metrics.reset_window()
+            with faults.active(scenario, metrics=svc.metrics,
+                               events=svc.obs.events) as injector:
+                for _ in range(2):
+                    r, w, f, p, c = _oracle_round(
+                        svc, qps, refs, poison if feed else None)
+                    results += r
+                    wrong += w
+                    failures += f
+                    poisoned_ok += p
+                    calls += c
+                fired = injector.fires()
+            r, w, f, _, c = _oracle_round(svc, qps, refs)
+            results += r
+            wrong += w
+            calls += c
+            snap = svc.snapshot()
+        print(f"chaos {name}: {time.perf_counter() - t0:.2f} s; faults "
+              f"fired {fired}; failed {len(failures)} in the window, "
+              f"{len(f)} after; retries {snap['retries']}, validation "
+              f"failures {snap['validation_failures']}, give-ups "
+              f"{snap['retry_giveups']}", flush=True)
+        check(fired > 0 and not wrong and not poisoned_ok
+              and set(calls) == {1}
+              and all(x is None or x.device == label for x in results),
+              f"[{name}] faults fired; every answer returned right and on "
+              f"{label}; no poisoned answer; every ticket resolved once")
+
+
+def _scrape(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def _replay_batches(spans, by_trace):
+    """The hooked run's dispatched batches from its ``solve`` spans:
+    lists of request indices, in the order the batcher stacked them
+    (one batch per distinct (start, end) of the span, its lanes in the
+    order their spans were recorded)."""
+    batches = {}
+    for s in spans:
+        if s.name == "solve" and s.trace_id in by_trace:
+            batches.setdefault((s.t_start, s.t_end, s.args.get("slots")),
+                               []).append(by_trace[s.trace_id])
+    return [(key[2], lanes) for key, lanes in sorted(batches.items())]
+
+
+def routed_serve_phase(rows, reset_counts, device="cuda",
+                       bare_bursts=None):
+    """Phase 10: the routed, retried and observed service on ``device``
+    (the card); returns the kernel rows it adds to ``rows``.
+    ``bare_bursts``: phase 7's burst numbers, printed beside the hooked
+    ones.
+
+    (a) Phase 7's north-star stream (512 requests x 500 assets, bucket
+    512 x 8, max_batch 256, one burst) through ``SolveService(router=
+    SolverRouter(admm, pdhg, napg), retry=RetryPolicy(), obs=, harvest=,
+    slo=, flight=, anomaly=)``: the router's table seeded from the
+    golden's aggregate (it must build the JAX package's table), then
+    512 x 8 routed to admm by a versioned ``set_table``; the anomaly
+    baseline from the golden's aggregate. Runs: ``routed_trinv``
+    (classic, K2; shadow_rate 1 with a budget of SHADOW_BUDGET),
+    ``routed_continuous`` (K2; the continuous batcher shadows nothing,
+    as in the JAX package) and ``routed_woodbury`` (classic, K1 r0;
+    budget 0: the golden holds the losers' answers under the dense
+    params only). Holds, per run: every request against
+    ``serve_golden.npz`` by phase 7's rule; every served record
+    ``cuda:0`` and ``admm``, one per request; every shadow record
+    against the route golden's answer for its request and loser
+    (SHADOW rule); the classic runs' dispatched batches (from the
+    spans) replayed through a bare compiled entry launch the same
+    kernels the same number of times with the same bits; zero compiles
+    after prewarm; a ``/metrics`` scrape equal to the snapshot.
+    (b) The three-tenant blend (tracking on admm/K2, LAD on PDHG,
+    turnover on NAPG) with ``TenantSLOSet``, every answer against the
+    golden; K2's launches, counted from zero after the prewarm, equal
+    the segments of the tracking tenant's dispatches (from the spans),
+    by batch width. (c) The calibration cells; (d) chaos with retries."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp.canonical import stack_qps
+    from porqua_tpu_torch.resilience import RetryPolicy
+    from porqua_tpu_torch.serve import SolveService, workloads
+    from porqua_tpu_torch.serve.loadgen import build_tracking_requests
+    from porqua_tpu_torch.serve.metrics import COUNTERS
+    from porqua_tpu_torch.serve.routing import SolverRouter
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SERVE_PATH))
+    route = np.load(os.path.join(here, ROUTE_PATH))
+    meta = json.loads(str(golden["meta"]))
+    rmeta = json.loads(str(route["meta"]))
+    agg = json.loads(str(route["aggregate"]))
+    n = meta["n_assets"]
+    dev = torch.device(device)
+    label = f"{dev.type}:{dev.index or 0}"
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    requests = {factor: build_tracking_requests(
+        meta["n_requests"], n, meta["window"], meta["seed"], factor)
+        for factor in (False, True)}
+    runs = (("routed_trinv", "trinv", False, K2, SHADOW_BUDGET),
+            ("routed_continuous", "trinv", True, K2, 0),
+            ("routed_woodbury", "woodbury", False, K1, 0))
+    launches, calls = {}, {}
+    bare_bursts = bare_bursts or {}
+    tmp = tempfile.mkdtemp(prefix="porqua-phase10-")
+
+    def burst(svc, reqs):
+        tickets = [svc.submit(q) for q in reqs]
+        return [svc.result(t, timeout=600) for t in tickets]
+
+    for tag, config, continuous, wrapper, budget in runs:
+        t_run = time.perf_counter()
+        p = json.loads(str(golden[f"{config}/params"]))
+        params = pt.SolverParams(**{**p, "backend": "pallas"})
+        reqs = requests[config == "woodbury"]
+        calls[tag] = (params, reqs)
+        eps = params.eps_abs
+        router = SolverRouter(params, shadow_rate=1.0 if budget else 0.0,
+                              shadow_seed=0,
+                              shadow_budget_per_tick=budget)
+        seeded = router.seed_from_aggregate(agg)
+        snap0 = router.snapshot()
+        check(snap0["table"] == rmeta["seeded"]
+              and snap0["table_version"] == rmeta["seeded_version"],
+              f"[{tag}] seed_from_aggregate builds the JAX package's table "
+              f"{rmeta['seeded']} (version {rmeta['seeded_version']})")
+        bucket = f"{pt.serve.BucketLadder().select(reqs[0]).n}x" \
+                 f"{pt.serve.BucketLadder().select(reqs[0]).m}"
+        version = router.set_table({(bucket, eps): "admm"})
+        hpath = os.path.join(tmp, f"{tag}.jsonl")
+        sink = obs.HarvestSink(hpath)
+        o = obs.Observability()
+        flight = obs.FlightRecorder(out_dir=os.path.join(tmp, tag))
+        svc = SolveService(
+            params, max_batch=STREAM_MAX_BATCH, max_wait_ms=2.0,
+            warm_start=False, continuous=continuous, router=router,
+            retry=RetryPolicy(),
+            obs=o, harvest=sink, slo=obs.SLOEngine(obs.default_slos()),
+            flight=flight,
+            anomaly=obs.AnomalyDetector.from_aggregate(agg),
+            device=device)
+        svc.start()
+        try:
+            t0 = time.perf_counter()
+            n_prewarm = svc.prewarm(reqs[0])
+            prewarm_s = time.perf_counter() - t0
+            reset_counts()
+            t0 = time.perf_counter()
+            res = burst(svc, reqs)
+            burst_s = time.perf_counter() - t0
+            time.sleep(0.2)   # the last dispatch's plane tick
+            launches[tag] = {"cluster": wrapper.cluster_launches,
+                             "stream": wrapper.stream_launches,
+                             "widths": dict(wrapper.widths)}
+            snap = svc.snapshot()
+            port = svc.start_http()
+            scraped = _scrape(port, "/metrics")
+            health = json.loads(_scrape(port, "/healthz"))
+            vitals = svc.vitals()
+            after = svc.snapshot()
+            if tag == "routed_trinv":
+                profile_run(lambda: burst(svc, reqs),
+                            f"profile [{tag} burst of {len(reqs)}, hooks "
+                            f"on]")
+            spans = o.spans.spans()
+            rsnap = router.snapshot()
+            slo_status = svc.slo.status()
+            anomaly_status = svc.anomaly.status()
+        finally:
+            svc.stop()
+            sink.close()
+        # The burst's records (the profiled burst adds its own).
+        traces = {r.trace_id for r in res}
+        records = [r for r in obs.load_harvest(hpath)
+                   if r.get("trace_id") in traces]
+        served = [r for r in records if r["source"] != "serve.shadow"]
+        shadows = [r for r in records if r["source"] == "serve.shadow"]
+        status = np.array([r.status for r in res])
+        iters = np.array([r.iters for r in res])
+        x = np.stack([r.x for r in res])
+        dx = np.abs(x - golden[f"{config}/x"]).max(axis=1)
+        print(f"{tag}: prewarm {n_prewarm} entries (3 backends) in "
+              f"{prewarm_s:.2f} s; table version {version} "
+              f"({rsnap['table']}); burst of {len(res)} in "
+              f"{burst_s * 1e3:.1f} ms ({len(res) / burst_s:.1f} solves/s; "
+              f"p50 {snap['latency_p50_ms']:.1f} ms, p99 "
+              f"{snap['latency_p99_ms']:.1f} ms; bare, phase 7: "
+              f"{bare_bursts.get(tag.replace('routed', 'serve'), {})}); "
+              f"launches {launches[tag]}; solved "
+              f"{int((status == 1).sum())}/{len(status)}, max|dx| "
+              f"{float(dx.max()):.3e}; records {len(served)} served, "
+              f"{len(shadows)} shadow (shadow solves "
+              f"{rsnap['shadow_solves']} in "
+              f"{sum({r['solve_s'] for r in shadows}):.2f} s on "
+              f"{sorted({r['solver'] for r in shadows})}, deferred "
+              f"{rsnap['shadow_deferred']}); SLO firing "
+              f"{slo_status['firing']}, compliance "
+              f"{ {k: v['compliance'] for k, v in slo_status['slos'].items()} }; "
+              f"anomalies {anomaly_status.get('fired')}; flight bundles "
+              f"{len(flight.bundles())}", flush=True)
+        check(np.array_equal(status, golden[f"{config}/status"])
+              and np.array_equal(iters, golden[f"{config}/iters"])
+              and float(dx.max()) <= W_ATOL and x.shape == (len(res), n),
+              f"[{tag}] {len(res)}/{len(res)} requests equal serve_golden "
+              f"(status, iterations, max|dx| {float(dx.max()):.3e} <= "
+              f"{W_ATOL:g})")
+        check(launches[tag]["cluster"] > 0 and launches[tag]["stream"] == 0,
+              f"[{tag}] launched the cluster form ({launches[tag]})")
+        check(len(served) == len(res)
+              and all(r["device"] == label and r["solver"] == "admm"
+                      for r in served)
+              and all(r.device == label for r in res),
+              f"[{tag}] one record per request, every one {label} and "
+              f"admm")
+        check(snap["compiles"] == n_prewarm and after["compiles"]
+              == n_prewarm, f"[{tag}] zero compiles after prewarm "
+              f"({n_prewarm} at prewarm)")
+        prom = {}
+        for line in scraped.splitlines():
+            if line.startswith("porqua_serve_") and " " in line \
+                    and "{" not in line:
+                k, v = line.split(" ", 1)
+                prom[k[len("porqua_serve_"):]] = float(v)
+        mismatch = {k: (prom.get(k), after[k]) for k in COUNTERS
+                    if k in after and prom.get(k) != float(after[k])}
+        check(not mismatch, f"[{tag}] the /metrics scrape's counters equal "
+              f"ServeMetrics.snapshot() ({len(COUNTERS)} counters; "
+              f"mismatch {mismatch})")
+        print(f"{tag}: /healthz {json.dumps({k: health[k] for k in ('ok', 'degraded', 'device', 'harvest_records')})}; "
+              f"vitals {vitals}", flush=True)
+        # Shadows: each lane against the golden's answer on its loser.
+        if budget:
+            by_trace = {r.trace_id: i for i, r in enumerate(res)}
+            lanes = [(by_trace[s["trace_id"]], s["solver"], s["status"],
+                      s["iters"]) for s in shadows]
+            g = {m: (route[f"stream/{m}/status"], route[f"stream/{m}/iters"])
+                 for m in ("pdhg", "napg")}
+            ok, report = shadow_rule(lanes, g, params.check_interval)
+            # The control: each lane held against the other loser's
+            # golden answer must fail the rule.
+            other = {"pdhg": "napg", "napg": "pdhg"}
+            control = [(i, other[m], s_, it) for i, m, s_, it in lanes]
+            bad, creport = shadow_rule(control, g, params.check_interval)
+            print(f"{tag}: shadows {report}; control (the other loser's "
+                  f"golden) "
+                  f"{creport}", flush=True)
+            check(lanes and ok, f"[{tag}] every shadow lane matches the "
+                  f"golden's answer on its loser ({len(lanes)} lanes)")
+            check(not bad, f"[{tag}] the shadow rule's control fails it")
+        # Hooks are invisible: replay the dispatched batches bare.
+        if not continuous:
+            by_trace = {r.trace_id: i for i, r in enumerate(res)}
+            batches = _replay_batches(spans, by_trace)
+            cache = pt.serve.ExecutableCache(params)
+            ladder = pt.serve.BucketLadder()
+            for slots, lanes in batches:
+                cache.get(ladder.select(reqs[0]), slots, torch.float32,
+                          dev)
+            reset_counts()
+            same = True
+            for slots, lanes in batches:
+                padded = [ladder.pad(reqs[i])[1] for i in lanes]
+                padded += [padded[j % len(lanes)]
+                           for j in range(slots - len(lanes))]
+                qp = stack_qps(padded)
+                x0 = torch.zeros((slots, qp.n), dtype=qp.q.dtype)
+                y0 = torch.zeros((slots, qp.m), dtype=qp.q.dtype)
+                sol = cache.get(ladder.select(reqs[0]), slots,
+                                torch.float32, dev)(qp, x0, y0)
+                xs = sol.x.cpu().numpy()
+                st = sol.status.cpu().numpy()
+                it = sol.iters.cpu().numpy()
+                for j, i in enumerate(lanes):
+                    same &= (np.array_equal(xs[j, :n], res[i].x)
+                             and int(st[j]) == res[i].status
+                             and int(it[j]) == res[i].iters)
+            bare = {"cluster": wrapper.cluster_launches,
+                    "stream": wrapper.stream_launches,
+                    "widths": dict(wrapper.widths)}
+            print(f"{tag}: replayed {len(batches)} batches (slots "
+                  f"{[s for s, _ in batches]}) bare: launches {bare}",
+                  flush=True)
+            check(sum(len(b) for _, b in batches) == len(res) and same
+                  and bare == launches[tag],
+                  f"[{tag}] the hooked run's batches replayed through the "
+                  f"bare entry: the same launches and the same bits")
+        print(f"{tag}: {time.perf_counter() - t_run:.1f} s", flush=True)
+
+    # (b) the blend
+    t0 = time.perf_counter()
+    bl = rmeta["blend"]
+    specs = workloads.parse_tenant_specs(bl["spec"])
+    base = json.loads(str(golden["trinv/params"]))
+    params = pt.SolverParams(**{**base, "backend": "pallas"})
+    router = SolverRouter(params)
+    table = {(rmeta["blend_buckets"][s.name], params.eps_abs):
+             bl["routes"][s.name] for s in specs}
+    router.set_table(table)
+    tenant_slos = obs.TenantSLOSet()
+    o = obs.Observability()
+    svc = SolveService(params, max_batch=BLEND_MAX_BATCH, max_wait_ms=2.0,
+                       warm_start=False, router=router, obs=o,
+                       tenant_slos=tenant_slos, device=device)
+    pools, order = {}, []
+    for spec in specs:
+        pools[spec.name] = workloads.build_problems(spec, seed=bl["seed"])
+        for j, t in enumerate(workloads.arrival_times(
+                spec, bl["duration_s"], seed=bl["seed"])):
+            order.append((float(t), spec.name, j % spec.pool))
+    order.sort(key=lambda row: (row[0], row[1]))
+    with svc:
+        # Each tenant bucket's ADMM ladder (K2 must fit every bucket)
+        # and its routed backend's; not NAPG's at the LAD bucket: NAPG
+        # projects rows one at a time, and its warm-up over a 512-row
+        # bucket would take minutes on the card (PERF.md section 4).
+        n_prewarm = 0
+        for s in specs:
+            bucket = svc.ladder.select(pools[s.name][0])
+            for m in sorted({"admm", bl["routes"][s.name]}):
+                n_prewarm += router.caches[m].prewarm(
+                    bucket, BLEND_MAX_BATCH, torch.float32, dev)
+        svc.metrics.reset_window()
+        # The prewarm ran K2 on neutral batches: count from here.
+        reset_counts()
+        t_blend = time.perf_counter()
+        tickets = []
+        for t, name, j in order:
+            delay = t_blend + t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            tickets.append(svc.submit(pools[name][j], tenant=name))
+        res = [svc.result(tk, timeout=600) for tk in tickets]
+        blend_s = time.perf_counter() - t_blend
+        k2_blend = {"cluster": K2.cluster_launches,
+                    "stream": K2.stream_launches,
+                    "widths": dict(K2.widths)}
+        snap = svc.snapshot()
+        tslo = tenant_slos.status()
+    # The tracking tenant's dispatches (the only ones routed to admm):
+    # each runs ceil(max iterations / check interval) segments, one K2
+    # launch apiece, at its slot count.
+    admm_tenants = {s.name for s in specs if bl["routes"][s.name] == "admm"}
+    by_trace = {r.trace_id: i for i, ((_, name, _), r)
+                in enumerate(zip(order, res)) if name in admm_tenants}
+    ci = params.check_interval
+    want = {}
+    admm_batches = _replay_batches(o.spans.spans(), by_trace)
+    for slots, lanes in admm_batches:
+        segs = max(-(-max(res[i].iters for i in lanes) // ci), 1)
+        want[slots] = want.get(slots, 0) + segs
+    per = {}
+    for (t, name, j), r in zip(order, res):
+        per.setdefault(name, []).append((j, r))
+    ok = True
+    for spec in specs:
+        g_st = route[f"blend/{spec.name}/status"]
+        g_it = route[f"blend/{spec.name}/iters"]
+        g_x = route[f"blend/{spec.name}/x"]
+        got = per.get(spec.name, [])
+        st = np.array([r.status for _, r in got])
+        it = np.array([r.iters for _, r in got])
+        js = np.array([j for j, _ in got])
+        dx = np.array([np.abs(r.x - g_x[j]).max() for j, r in got])
+        ok_t = (len(got) > 0 and np.array_equal(st, g_st[js])
+                and bool((np.abs(it - g_it[js]) <= ci).all())
+                and float(dx.max()) <= W_ATOL)
+        # Control: the answers held against the next pool problem's.
+        other = (js + 1) % len(g_st)
+        cdx = np.array([np.abs(r.x - g_x[o]).max()
+                        for (_, r), o in zip(got, other)])
+        ok &= ok_t and float(cdx.min()) > W_ATOL
+        print(f"blend {spec.name} ({spec.problem}, "
+              f"{rmeta['blend_buckets'][spec.name]} on "
+              f"{bl['routes'][spec.name]}): {len(got)} requests, solved "
+              f"{int((st == 1).sum())}, iterations equal on "
+              f"{int((it == g_it[js]).sum())}, max|diters| "
+              f"{int(np.abs(it - g_it[js]).max()) if len(got) else 0}, "
+              f"max|dx| {float(dx.max()) if len(got) else 0:.3e} "
+              f"(control, the next pool problem's answer: min "
+              f"{float(cdx.min()) if len(got) else 0:.3e}); tenant SLO firing "
+              f"{tslo.get(spec.name, {}).get('firing')}",
+              flush=True)
+    routed = {m: snap[f"routed_{m}"] for m in ("admm", "pdhg", "napg")}
+    print(f"blend: {len(res)} requests in {blend_s:.2f} s (prewarm "
+          f"{n_prewarm} entries), routed {routed}, K2 launches {k2_blend} "
+          f"for {len(admm_batches)} admm dispatches (segments by width "
+          f"{want}), compiles after prewarm {snap['compiles']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(ok, f"[blend] every answer equals the golden (status; "
+          f"iterations within one check interval; |dx| <= "
+          f"{W_ATOL:g}) and the control fails")
+    check(all(r.device == label for r in res)
+          and snap["compiles"] == 0 and snap["failed"] == 0,
+          f"[blend] every answer on {label}; zero compiles after prewarm")
+    check(admm_batches and k2_blend["cluster"] > 0
+          and k2_blend["stream"] == 0
+          and k2_blend["widths"] == want
+          and sum(len(b) for _, b in admm_batches) == len(by_trace),
+          f"[blend] the tracking tenant launched K2 once per segment of "
+          f"its {len(admm_batches)} dispatches, in the cluster form "
+          f"({k2_blend})")
+
+    # (c) calibration, (d) chaos
+    t0 = time.perf_counter()
+    calibration_cells(device, label)
+    print(f"calibration cells: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    chaos_cells(device, label)
+    print(f"chaos cells: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    added = []
+    for key, rname, base_row, tag in (
+            ("routed_k2", "admm_segment[triangular]_cluster, routed serve",
+             ("trinv", "cluster"), "routed_trinv"),
+            ("routed_k1",
+             "admm_segment_factored_cluster[refine=0], routed serve",
+             ("woodbury", "cluster"), "routed_woodbury")):
+        params, reqs = calls[tag]
+        fn, args, kw = serve_kernel_call(reqs[:256], params, dev)
+        kernel_row(rows, key, rname, base_row, fn, args, kw,
+                   launches[tag]["cluster"])
+        added.append(key)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return added
+
+
+def shadow_rule(lanes, golden, check_interval):
+    """SHADOW rule over ``lanes`` = ``(request, loser, status, iters)``:
+    every lane's status equals the golden's answer on that loser; its
+    iterations equal the golden's, or (the f32 floor: a residual check
+    landing on the other side of eps) differ by one check interval, on
+    at most SHADOW_OFF_SHARE of the lanes. Returns ``(ok, report)``."""
+    import numpy as np
+
+    if not lanes:
+        return False, "no shadow lanes"
+    st_eq = [int(golden[m][0][i]) == s for i, m, s, _ in lanes]
+    d = np.array([abs(int(golden[m][1][i]) - it) for i, m, _, it in lanes])
+    off = int((d > 0).sum())
+    ok = (all(st_eq) and bool((d <= check_interval).all())
+          and off <= SHADOW_OFF_SHARE * len(lanes))
+    return ok, (f"{len(lanes)} lanes: status equal on {sum(st_eq)}, "
+                f"iterations equal on {len(lanes) - off}, max|diters| "
+                f"{int(d.max())}")
+
+
 def profile_run(run, label, top=10):
     """One run under torch.profiler: wall time, the device's busy time
     (the sum of its kernels' and copies' own times) and idle share, and
@@ -2770,7 +3650,8 @@ def main():
     turnover_phase(reset_counts)
 
     # -- 7. serving ------------------------------------------------------
-    kernel_rows += serve_phase(rows, reset_counts)
+    added, bare_bursts = serve_phase(rows, reset_counts)
+    kernel_rows += added
 
     # -- 8. secondary configurations ---------------------------------------
     kernel_rows += secondary_phase(rows, reset_counts)
@@ -2778,7 +3659,11 @@ def main():
     # -- 9. the differentiable solve -----------------------------------------
     kernel_rows += diff_phase(rows, reset_counts)
 
-    # -- 10. report ------------------------------------------------------
+    # -- 10. the routed, retried and observed service ----------------------
+    kernel_rows += routed_serve_phase(rows, reset_counts,
+                                      bare_bursts=bare_bursts)
+
+    # -- report ----------------------------------------------------------
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

@@ -27,10 +27,11 @@ the serial engine produces, so accounting and reporting are shared.
   boundary they converge, and the dispatch width walks down the slot
   ladder.
 
-Not ported yet, and raising ``NotImplementedError`` where reached: the
-device-mesh sharding of ``solve_scan_l1_grid`` (``mesh=``), the
-telemetry ``harvest=`` sink, and the JAX package's ``PORQUA_SANITIZE=1``
-transfer guard.
+The telemetry ``harvest=`` sink of :mod:`porqua_tpu_torch.obs.harvest`
+gets one record per date. Not ported yet, and raising
+``NotImplementedError`` where reached: the device-mesh sharding of
+``solve_scan_l1_grid`` (``mesh=``) and the JAX package's
+``PORQUA_SANITIZE=1`` transfer guard.
 """
 
 from __future__ import annotations
@@ -151,16 +152,33 @@ def solve_batch(problems: BatchProblems,
                 harvest=None,
                 device=None) -> QPSolution:
     """Pass 2, independent dates: one batched solve on ``device``
-    (default: the card). The results stay on the device."""
-    if harvest is not None:
-        raise _not_ported("the telemetry harvest (harvest=)", "item 18")
+    (default: the card). The results stay on the device.
+
+    ``harvest`` (a :class:`porqua_tpu_torch.obs.HarvestSink`) appends
+    one telemetry-warehouse SolveRecord per date after the dispatch:
+    host post-processing of the returned tensors, one host copy per
+    field (the first forces completion, so the recorded wall seconds
+    are honest); ``None`` leaves the solve untouched."""
+    import time as _time
+
     if os.environ.get("PORQUA_SANITIZE") == "1":
         raise _not_ported(
             "the PORQUA_SANITIZE=1 transfer guard of the batched solve",
             "item 23")
-    return solve_qp_batch(problems.qp, params,
-                          l1_weight=problems.l1_weight,
-                          l1_center=problems.l1_center, device=device)
+    t0 = _time.perf_counter()
+    sol = solve_qp_batch(problems.qp, params,
+                         l1_weight=problems.l1_weight,
+                         l1_center=problems.l1_center, device=device)
+    if harvest is not None:
+        from porqua_tpu_torch.obs.harvest import (device_label_of,
+                                                  harvest_solution)
+
+        sol.status.cpu()  # force completion: honest wall seconds
+        wall = _time.perf_counter() - t0
+        harvest_solution(harvest, sol, params, "batch",
+                         wall_s=wall, solve_s=wall,
+                         device=device_label_of(sol))
+    return sol
 
 
 def solve_batch_compacted(problems: BatchProblems,
@@ -178,8 +196,10 @@ def solve_batch_compacted(problems: BatchProblems,
     MAX_ITER with the polish fallback. Returns ``(QPSolution,
     CompactionReport)``. A shared ``driver`` reuses its warmed entries
     and must carry these ``params``; otherwise a new one runs on
-    ``device`` (default: the card). ``harvest=`` and
-    ``PORQUA_SANITIZE=1`` raise, as in :func:`solve_batch`."""
+    ``device`` (default: the card). ``harvest`` appends one
+    SolveRecord per date with the compaction accounting and stage
+    profile attached (source ``batch.compacted``);
+    ``PORQUA_SANITIZE=1`` raises, as in :func:`solve_batch`."""
     from porqua_tpu_torch.compaction import solve_batch_compacted as _solve
 
     return _solve(problems.qp, params, segment_budget=segment_budget,
@@ -492,7 +512,8 @@ def run_batch(bs: BacktestService,
     """End-to-end batched backtest with the serial engine's output type:
     ``Backtest.run(bs)`` for date-independent strategies, every date
     solved at once on ``device`` (default: the card; with no card and
-    no ``device`` it raises)."""
+    no ``device`` it raises). ``harvest`` appends one telemetry-warehouse
+    record per rebalance date (see :func:`solve_batch`)."""
     # Build first, then default to the strategy's own resolved solver
     # configuration for the batch dtype (LAD's overlay keys on the
     # dtype actually solved).

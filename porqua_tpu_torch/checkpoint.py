@@ -23,13 +23,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from porqua_tpu_torch.batch import (_holdings, _l1_weight, _lanes,
-                                    _not_ported, _on_device, _one_lane,
+                                    _on_device, _one_lane,
                                     _require_fixed_universe, _scan_l1_core,
                                     assemble_backtest, build_problems)
 from porqua_tpu_torch.qp.canonical import CanonicalQP, as_torch_dtype
@@ -272,11 +273,12 @@ def solve_scan_l1_checkpointed(qp,
 
     Returns ``(QPSolution, info)``, ``info`` holding
     ``resumed_segments`` / ``total_segments`` / ``directory``.
-    ``universes`` is the scans' positional-carry attestation. The
-    telemetry sink (``harvest=``) is not ported.
+    ``universes`` is the scans' positional-carry attestation.
+    ``harvest`` (a :class:`porqua_tpu_torch.obs.HarvestSink`) appends
+    one SolveRecord per date of each segment this run solved (source
+    ``backtest.scan``); resumed segments were harvested by the run that
+    solved them.
     """
-    if harvest is not None:
-        raise _not_ported("the telemetry harvest (harvest=)", "item 18")
     _require_fixed_universe(universes)
     qp = _on_device(qp, device)
     dtype, dev = qp.q.dtype, qp.q.device
@@ -314,6 +316,7 @@ def solve_scan_l1_checkpointed(qp,
         lo = idx * mgr.chunk_size
         hi = min(lo + mgr.chunk_size, T)
         qp_seg = CanonicalQP(*(None if f is None else f[lo:hi] for f in qp))
+        t_seg0 = time.perf_counter()
         sol, (carry_w, carry_x, carry_y) = _scan_l1_core(
             _lanes(qp_seg), carry_w, l1w, params,
             x_init=carry_x, y_init=carry_y, return_carry=True)
@@ -321,6 +324,23 @@ def solve_scan_l1_checkpointed(qp,
         mgr.save_chunk(idx, sol)
         mgr.save_carry(idx, {"w": carry_w[0], "x": carry_x[0],
                              "y": carry_y[0]})
+        if harvest is not None:
+            from porqua_tpu_torch.obs.harvest import (device_label_of,
+                                                      harvest_solution)
+
+            # save_chunk copied the segment to the host, so the wall
+            # covers the solve and its completion. Date 0 of a fresh
+            # run solves from the cold initial carry: its record stays
+            # out of the warm population.
+            mask = None
+            if lo == 0:
+                mask = [False] + [True] * (hi - lo - 1)
+            harvest_solution(
+                harvest, sol, params, "backtest.scan",
+                wall_s=time.perf_counter() - t_seg0,
+                device=device_label_of(sol),
+                warm=True, warm_src="scan_carry", warm_mask=mask,
+                date_offset=lo)
         if _faults.enabled():
             # backtest.chunk seam: the injected crash fires after the
             # boundary was saved, the worst point a resume must cover.

@@ -443,12 +443,10 @@ def solve_batch_compacted(qp: CanonicalQP,
     warmed entries across calls; its SolverParams must match
     ``params`` (a mismatch raises rather than solving at the driver's
     tolerance). ``device`` builds a new driver there (default: the
-    card); a given driver keeps its own. ``harvest`` (the JAX package's
-    telemetry sink) is not ported yet and raises."""
-    if harvest is not None:
-        from porqua_tpu_torch.batch import _not_ported
-
-        raise _not_ported("the telemetry harvest (harvest=)", "item 18")
+    card); a given driver keeps its own. ``harvest`` (a
+    :class:`porqua_tpu_torch.obs.HarvestSink`) appends one SolveRecord
+    per lane with the report's compaction accounting and stage profile
+    attached (source ``batch.compacted``)."""
     if driver is None:
         driver = CompactingDriver(params, segment_budget=segment_budget,
                                   device=device)
@@ -457,6 +455,25 @@ def solve_batch_compacted(qp: CanonicalQP,
             "the shared driver was built for different SolverParams "
             "than this call requests; construct a CompactingDriver "
             "with these params (or omit driver)")
-    return driver.solve(qp, x0=x0, y0=y0, l1_weight=l1_weight,
-                        l1_center=l1_center, compact=compact,
-                        segment_budget=segment_budget)
+    sol, report = driver.solve(qp, x0=x0, y0=y0, l1_weight=l1_weight,
+                               l1_center=l1_center, compact=compact,
+                               segment_budget=segment_budget)
+    if harvest is not None:
+        from porqua_tpu_torch.obs.harvest import (device_label_of,
+                                                  harvest_solution)
+
+        harvest_solution(
+            harvest, sol, params, "batch.compacted",
+            warm=x0 is not None,
+            warm_src=None if x0 is None else "caller",
+            solve_s=(report.profile or {}).get("seconds"),
+            device=device_label_of(sol),
+            compaction={
+                "lane_segments": report.lane_segments,
+                "dense_lane_segments": report.dense_lane_segments,
+                "useful_lane_segments": report.useful_lane_segments,
+                "segments": report.segments,
+                "compiles": report.compiles,
+            },
+            profile=report.profile)
+    return sol, report

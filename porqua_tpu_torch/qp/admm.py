@@ -326,7 +326,7 @@ def factored_solve_pieces(Dv, V):
     Vd = V * inv_d[..., None, :]
     S = torch.eye(k, dtype=V.dtype, device=V.device) + torch.matmul(
         Vd, V.transpose(-1, -2))
-    Linv = blocked_triangular_inverse(torch.linalg.cholesky(S))
+    Linv = blocked_triangular_inverse(cholesky_lanes(S))
     W = torch.matmul(Linv, Vd)
     return inv_d, W
 
@@ -349,6 +349,35 @@ def factored_solve_from_pieces(Dv, V, inv_d, W, refine_steps: int = 1):
         return x
 
     return solve
+
+
+def _nan_where_failed(info, t):
+    """``t`` with the lanes whose factorization failed (``info != 0``)
+    set to NaN: a failed lane carries NaN, as XLA's factorizations hand
+    back, instead of raising for the whole batch."""
+    mask = (info != 0).reshape(info.shape + (1,) * (t.dim() - info.dim()))
+    return torch.where(mask, math.nan, t)
+
+
+def cholesky_lanes(M):
+    """Batched Cholesky factor; a lane whose matrix is not positive
+    definite (a request with NaN data, say) comes back NaN while the
+    other lanes of the batch solve."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return _nan_where_failed(info, L)
+
+
+def inverse_lanes(G):
+    """Batched explicit inverse, NaN on a singular lane."""
+    inv, info = torch.linalg.inv_ex(G)
+    return _nan_where_failed(info, inv)
+
+
+def solve_lanes(G, b):
+    """Batched ``G^-1 b`` (``b`` with a trailing column axis), NaN on a
+    singular lane."""
+    out, info = torch.linalg.solve_ex(G, b)
+    return _nan_where_failed(info, out)
 
 
 def blocked_triangular_inverse(L, threshold: int = 192):
@@ -530,13 +559,13 @@ def _refined_inverse(K):
     """Explicit K^-1 with one Newton step: Kinv <- Kinv (2I - K Kinv)."""
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     Kinv = torch.cholesky_solve(eye.expand(K.shape),
-                                torch.linalg.cholesky(K))
+                                cholesky_lanes(K))
     return torch.matmul(Kinv, 2.0 * eye - torch.matmul(K, Kinv))
 
 
 def _triangular_inverse(K):
     """L^-1 for K = L L^T: K^-1 = L^-T L^-1 as two dense matvecs."""
-    return blocked_triangular_inverse(torch.linalg.cholesky(K))
+    return blocked_triangular_inverse(cholesky_lanes(K))
 
 
 def _woodbury_operator(qp: CanonicalQP, rho, rho_b, sigma, refine: int):
@@ -591,7 +620,7 @@ def segment_kernel_call(carry: ADMMCarry,
         Dv, V, inv_d, W, _, Y0, G = _woodbury_operator(
             qp, rho, rho_b, sigma, params.woodbury_refine)
         fn, op = admm_kernel.admm_segment_factored, (
-            W, inv_d, Y0, torch.linalg.inv(G), V, Dv)
+            W, inv_d, Y0, inverse_lanes(G), V, Dv)
         kw["refine_steps"] = params.woodbury_refine
     else:
         K = _kkt_matrix(qp, rho, rho_b, sigma)
@@ -627,7 +656,7 @@ def _make_segment(qp: CanonicalQP,
 
             def solve(rhs):
                 x0 = psolve0(rhs)
-                t = torch.linalg.solve(G, _mv(qp.C, x0).unsqueeze(-1))
+                t = solve_lanes(G, _mv(qp.C, x0).unsqueeze(-1))
                 return x0 - _mv(Y0, t.squeeze(-1))
             return solve
         K = _kkt_matrix(qp, rho, rho_b, sigma)
@@ -640,7 +669,7 @@ def _make_segment(qp: CanonicalQP,
             # does: the one-sided Newton refinement leaves that side
             # the more accurate one in f32.
             return lambda rhs: _vm(rhs, Kinv)
-        chol = torch.linalg.cholesky(K)
+        chol = cholesky_lanes(K)
         return lambda rhs: torch.cholesky_solve(
             rhs.unsqueeze(-1), chol).squeeze(-1)
 

@@ -36,8 +36,10 @@ from porqua_tpu_torch.qp.admm import (
     _mv,
     _residuals,
     _vm,
+    cholesky_lanes,
     factored_solve_from_pieces,
     factored_solve_pieces,
+    solve_lanes,
 )
 from porqua_tpu_torch.qp.canonical import CanonicalQP
 from porqua_tpu_torch.qp.ruiz import Scaling
@@ -55,20 +57,6 @@ def polish_capacitance_dim(qp: CanonicalQP):
 def _lane(mask, t):
     """Broadcast a (B,) lane mask against ``t`` (B, ...)."""
     return mask.reshape(mask.shape + (1,) * (t.dim() - 1))
-
-
-def _cholesky(M):
-    """Batched Cholesky that marks a lane whose matrix is not positive
-    definite with NaN instead of raising for the whole batch."""
-    L, info = torch.linalg.cholesky_ex(M)
-    return torch.where(_lane(info != 0, L), math.nan, L)
-
-
-def _solve(G, g):
-    """Batched ``G^-1 g`` (LU), NaN on a lane whose ``G`` is singular."""
-    out, info = torch.linalg.solve_ex(G, g.unsqueeze(-1))
-    out = out.squeeze(-1)
-    return torch.where(_lane(info != 0, out), math.nan, out)
 
 
 def _kkt_solve_factored(qp: CanonicalQP, params: SolverParams,
@@ -121,7 +109,7 @@ def _kkt_solve_factored(qp: CanonicalQP, params: SolverParams,
     def schur_step(rhs_z, r2):
         b0 = psolve(rhs_z)
         g = aC_eff * _mv(qp.C, b0) - r2
-        dnu = _solve(G, g)
+        dnu = solve_lanes(G, g.unsqueeze(-1)).squeeze(-1)
         return b0 - _mv(Y, dnu), dnu
 
     x, nu = x_a, torch.zeros_like(qp.l)
@@ -200,7 +188,7 @@ def _kkt_solve_dense(qp: CanonicalQP, params: SolverParams,
     M = (qp.P + delta * eye
          + inv_d * (torch.matmul(qp.C.transpose(-1, -2) * aC.unsqueeze(-2),
                                  qp.C) + torch.diag_embed(aB)))
-    chol = _cholesky(M)
+    chol = cholesky_lanes(M)
 
     def msolve(v):
         return torch.cholesky_solve(v.unsqueeze(-1), chol).squeeze(-1)

@@ -1,12 +1,13 @@
-"""Resilience: deterministic fault injection (the port of
-``porqua_tpu/resilience``, in part).
+"""Resilience: deterministic fault injection and request-level
+recovery (the port of ``porqua_tpu/resilience``).
 
 :mod:`porqua_tpu_torch.resilience.faults` is a host copy of the JAX
 package's seeded :class:`FaultInjector` and its scenario DSL; the
-checkpointed backtests of :mod:`porqua_tpu_torch.checkpoint` fire its
-``backtest.chunk`` seam. The recovery side (``retry.py``:
-``RetryPolicy``, ``RetryManager``, ``validate_result``) needs the serve
-stack and is not ported yet: those names raise ``NotImplementedError``.
+checkpointed backtests fire its ``backtest.chunk`` seam and the service
+its ``serve.*`` seams. :mod:`porqua_tpu_torch.resilience.retry` is the
+recovery layer over the service (``RetryPolicy``, ``RetryManager``,
+``validate_result``): retries resubmit through the service's breaker,
+which moves work to a CPU only when the caller named it as fallback.
 """
 
 from porqua_tpu_torch.resilience.faults import (
@@ -19,15 +20,18 @@ from porqua_tpu_torch.resilience.faults import (
     Scenario,
     builtin_scenarios,
 )
-
 _RETRY_NAMES = ("RetryManager", "RetryPolicy", "validate_result")
 
 
 def __getattr__(name):
+    # retry.py imports the serve stack, and the serve stack imports
+    # `faults` for its seams: loading retry lazily keeps this package
+    # importable from inside a serve module's own import (no cycle).
     if name in _RETRY_NAMES:
-        raise NotImplementedError(
-            f"porqua_tpu_torch.resilience.{name} (resilience/retry.py) is "
-            "not ported to PyTorch yet (ROADMAP queue A, item 17)")
+        import importlib
+
+        mod = importlib.import_module("porqua_tpu_torch.resilience.retry")
+        return getattr(mod, name)
     raise AttributeError(name)
 
 
@@ -38,6 +42,9 @@ __all__ = [
     "FaultSpec",
     "InjectedCrash",
     "InjectedFault",
+    "RetryManager",
+    "RetryPolicy",
     "Scenario",
     "builtin_scenarios",
+    "validate_result",
 ]

@@ -6,13 +6,13 @@ A process-global :class:`FaultInjector` holds a :class:`Scenario` (a list
 of :class:`FaultSpec` rules) and is consulted at **named seams**. The
 scenario DSL, the seam and kind names and the seeded draw streams are
 the JAX package's, so the same scenario, seed and sequence of seam hits
-fire the same faults in both packages. In this package the seam that is
-compiled in is ``backtest.chunk`` (the checkpointed backtest loops of
-:mod:`porqua_tpu_torch.checkpoint`, after each chunk save); the serve
-seams (``serve.admission``, ``serve.dispatch``, ``serve.result``,
-``serve.continuous``, ``health.probe``, ``cache.get``, ``data.feed``)
-and ``loadgen.worker`` keep their names for the serve stack, which is
-not ported yet.
+fire the same faults in both packages. The seams are the JAX
+package's: ``backtest.chunk`` (the checkpointed backtest loops of
+:mod:`porqua_tpu_torch.checkpoint`, after each chunk save), the serve
+stack's ``serve.admission``, ``serve.dispatch``, ``serve.result``,
+``serve.continuous``, ``health.probe``, ``cache.get`` and the load
+generator's ``data.feed``; ``loadgen.worker`` keeps its name for the
+fleet driver, which is not ported yet.
 
 Every seam follows one pattern::
 

@@ -16,9 +16,13 @@ through entries compiled once per (bucket, slot count, device).
 
 The service runs on the card unless ``device=`` names another; its
 breaker falls back only to a device the caller names
-(``SolveService(fallback="cpu")``). Solver routing (``routing.py``),
-the workload library (``workloads.py``), the retry layer and the
-observability planes are not ported yet (ROADMAP queue A).
+(``SolveService(fallback="cpu")``). Per-bucket solver routing with
+shadow compares and its calibration loop (``SolverRouter``,
+``SolveService(router=..., calibrator=...)``), the retry layer
+(``retry=``), the observability planes (``obs=``, ``harvest=``,
+``slo=``, ``flight=``, ``anomaly=``, ``tenant_slos=``,
+``start_http()``, ``vitals()``) and the multi-tenant workload library
+(:mod:`porqua_tpu_torch.serve.workloads`) are the JAX package's.
 """
 
 from porqua_tpu_torch.serve.batcher import (
@@ -39,6 +43,7 @@ from porqua_tpu_torch.serve.bucketing import (
 )
 from porqua_tpu_torch.serve.continuous import ContinuousBatcher
 from porqua_tpu_torch.serve.metrics import ServeMetrics, TenantMetricsView
+from porqua_tpu_torch.serve.routing import METHODS, SolverRouter
 from porqua_tpu_torch.serve.service import (
     DeviceHealth,
     QueueFull,
@@ -59,6 +64,7 @@ __all__ = [
     "DEFAULT_TENANT",
     "DeadlineExpired",
     "DeviceHealth",
+    "METHODS",
     "ExecutableCache",
     "FairPendingQueue",
     "MicroBatcher",
@@ -67,6 +73,7 @@ __all__ = [
     "SolveError",
     "SolveResult",
     "SolveService",
+    "SolverRouter",
     "TenantAdmission",
     "TenantMetricsView",
     "Ticket",

@@ -16,10 +16,14 @@ the previous solution under that key seeds ``(x0, y0)`` for the next
 solve. Cold slots pass zeros, which is the solver's own cold start, so
 one entry serves both.
 
-The JAX package's observability hooks (``obs``, ``harvest``, ``slo``,
-``flight``, ``anomaly``, ``tenant_slos``: ROADMAP queue A, item 18) and
-solver routing (``router``, ``calibrator``: item 16) are not ported:
-passing one raises.
+The hooks are the JAX package's: ``obs`` (spans and events),
+``harvest`` (one SolveRecord per resolved request), the live plane
+(``slo``, ``flight``, ``anomaly``, ``tenant_slos``), solver routing
+(``router``) and its calibration loop (``calibrator``). They are host
+work around the dispatch: with every hook on, a batch launches the
+same kernels, the same number of times, with the same bits, as the
+bare service; shadow re-solves on the losing backends, after the
+primary answers resolved, are the only extra device work.
 """
 
 from __future__ import annotations
@@ -37,28 +41,14 @@ import numpy as np
 import torch
 
 from porqua_tpu_torch.analysis import sanitize, tsan
-from porqua_tpu_torch.batch import _not_ported
 from porqua_tpu_torch.obs import profile as _profile
+from porqua_tpu_torch.obs.harvest import solve_record
+from porqua_tpu_torch.obs.rings import ring_history
 from porqua_tpu_torch.qp.admm import Status
 from porqua_tpu_torch.qp.canonical import CanonicalQP, stack_qps
 from porqua_tpu_torch.resilience import faults as _faults
 from porqua_tpu_torch.serve.bucketing import Bucket, ExecutableCache, slot_count
 from porqua_tpu_torch.serve.tenancy import DEFAULT_TENANT, FairPendingQueue
-
-#: Hook keyword -> the queue-A item that ports it.
-_HOOK_ITEMS = {
-    "obs": "item 18", "harvest": "item 18", "slo": "item 18",
-    "flight": "item 18", "anomaly": "item 18", "tenant_slos": "item 18",
-    "router": "item 16", "calibrator": "item 16",
-}
-
-
-def refuse_unported(**hooks) -> None:
-    """Raise for the first hook given that the port does not have yet."""
-    for name, value in hooks.items():
-        if value is not None and value is not False:
-            raise _not_ported(f"the {name}= hook", _HOOK_ITEMS[name])
-
 
 def device_label(device) -> str:
     """``"type:index"`` of a device (``"cuda:0"``, ``"cpu:0"``), the
@@ -101,16 +91,25 @@ def _corrupt_lanes(xs: np.ndarray, n_live: int, seam: str,
     return xs
 
 
+#: The ``QPSolution`` fields the batchers read (the rings only when the
+#: solve carried them).
+_HOST_FIELDS = ("x", "y", "status", "iters", "prim_res", "dual_res",
+                "obj_val", "ring_prim", "ring_dual", "ring_rho")
+
+
 def host_solution(sol, lanes=None) -> dict:
     """The fields the batchers read of a batched ``QPSolution`` (only
     the rows ``lanes``, a list, when given), as host numpy arrays: one
-    device-to-host copy each."""
+    device-to-host copy each; a ring field is ``None`` when the solve
+    ran without rings."""
     if lanes is not None:
         lanes = torch.as_tensor(lanes, device=sol.x.device)
-    return {k: (getattr(sol, k) if lanes is None
-                else getattr(sol, k)[lanes]).cpu().numpy()
-            for k in ("x", "y", "status", "iters", "prim_res", "dual_res",
-                      "obj_val")}
+    out = {}
+    for k in _HOST_FIELDS:
+        a = getattr(sol, k, None)
+        out[k] = (None if a is None
+                  else (a if lanes is None else a[lanes]).cpu().numpy())
+    return out
 
 
 class DeadlineExpired(Exception):
@@ -133,6 +132,10 @@ class SolveRequest:
     submitted: float                 # monotonic seconds
     deadline: Optional[float] = None  # monotonic seconds, None = none
     warm_key: Optional[str] = None
+    # Where the warm key came from ("explicit" | "fingerprint") — the
+    # warm-start provenance harvest records carry; None = no key.
+    warm_src: Optional[str] = None
+    trace_id: Optional[str] = None   # obs span correlation id
     # Tenant id for quota/fair-share scheduling + attribution (None =
     # untagged, accounted under tenancy.DEFAULT_TENANT).
     tenant: Optional[str] = None
@@ -152,9 +155,10 @@ class SolveResult:
     latency_s: float
     warm_started: bool
     device: str
-    # Span tracing and convergence rings of the JAX package (not
-    # ported: always None).
     trace_id: Optional[str] = None
+    # Convergence rings (service params with ring_size > 0 only): this
+    # request's raw ring slots; decode chronologically with
+    # porqua_tpu_torch.obs.rings.ring_history(..., iters, check_interval).
     ring_prim: Optional[np.ndarray] = None
     ring_dual: Optional[np.ndarray] = None
     ring_rho: Optional[np.ndarray] = None
@@ -222,20 +226,36 @@ class MicroBatcher:
                  tenant_slos=None,
                  router=None,
                  calibrator=None) -> None:
-        refuse_unported(obs=obs, harvest=harvest, slo=slo, flight=flight,
-                        anomaly=anomaly, tenant_slos=tenant_slos,
-                        router=router, calibrator=calibrator)
         self.cache = cache
+        # Optional SolverRouter: per-(bucket, eps) backend choice at
+        # dispatch time, resolved on the host to one of the router's
+        # per-method caches. None = every dispatch runs self.cache.
+        self.router = router
         self.health = health
         self.metrics = metrics
         # Tenancy: the shared admission accountant (quota depths drop
-        # when requests leave the pending window) and the per-tenant
-        # DRR weights the per-bucket FairPendingQueues dequeue under.
+        # when requests leave the pending window), the per-tenant DRR
+        # weights the per-bucket FairPendingQueues dequeue under, and
+        # the per-tenant SLO engine set evaluated in _plane_tick.
         self.admission = admission
         self.tenant_weights = dict(tenant_weights or {})
+        self.tenant_slos = tenant_slos
+        self.obs = obs  # optional porqua_tpu_torch.obs.Observability
+        # Optional HarvestSink: one SolveRecord per resolved request.
+        self.harvest = harvest
         # Optional StageProfiler: dispatch stages bracketed with
         # torch.profiler ranges + counters.
         self.profiler = profiler
+        # The live plane (all optional, all host work): SLOEngine
+        # evaluated at retirement boundaries, FlightRecorder fed recent
+        # SolveRecords + metric snapshots, AnomalyDetector folding
+        # per-lane iteration outcomes into its per-(bucket, eps) EWMAs,
+        # and the Calibrator (fed every record, ticked on the same
+        # clock gate).
+        self.slo = slo
+        self.flight = flight
+        self.anomaly = anomaly
+        self.calibrator = calibrator
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) * 1e-3
         self.queue: "queue.Queue[Optional[SolveRequest]]" = queue.Queue(
@@ -344,23 +364,41 @@ class MicroBatcher:
 
     # -- one batch ---------------------------------------------------
 
+    def _expire(self, r: SolveRequest, now: float, where: str) -> None:
+        """Resolve one request whose deadline passed before ``where``
+        (dispatch or admission) with :class:`DeadlineExpired`."""
+        m = self.metrics
+        m.inc("expired")
+        m.inc_tenant(r.tenant or DEFAULT_TENANT, "expired")
+        if self.obs is not None and r.trace_id is not None:
+            self.obs.spans.record("queue_wait", r.submitted, now,
+                                  trace_id=r.trace_id, expired=True)
+            self.obs.events.emit(
+                "deadline_expired", "warn", trace_id=r.trace_id,
+                queued_s=round(now - r.submitted, 4),
+                late_s=round(now - r.deadline, 4),
+                tenant=r.tenant or DEFAULT_TENANT)
+        r.future.set_exception(DeadlineExpired(
+            f"deadline passed {now - r.deadline:.3f}s before "
+            f"{where} (queued {now - r.submitted:.3f}s)"))
+
     def _dispatch(self, bucket: Bucket, reqs: List[SolveRequest]) -> None:
         m = self.metrics
+        obs = self.obs
         now = time.monotonic()
         live: List[SolveRequest] = []
         for r in reqs:
             if r.deadline is not None and now > r.deadline:
-                m.inc("expired")
-                m.inc_tenant(r.tenant or DEFAULT_TENANT, "expired")
-                r.future.set_exception(DeadlineExpired(
-                    f"deadline passed {now - r.deadline:.3f}s before "
-                    f"dispatch (queued {now - r.submitted:.3f}s)"))
+                self._expire(r, now, "dispatch")
             else:
                 live.append(r)
         if not live:
             return
         for r in live:
             m.observe_queue_wait(now - r.submitted)
+            if obs is not None and r.trace_id is not None:
+                obs.spans.record("queue_wait", r.submitted, now,
+                                 trace_id=r.trace_id)
         m.observe_queue_depth(self.queue.qsize() + sum(
             len(d) for d in self._pending.values()))
 
@@ -387,35 +425,104 @@ class MicroBatcher:
                     warm[i] = True
                     m.inc("warm_hits")
                     m.inc_tenant(r.tenant or DEFAULT_TENANT, "warm_hits")
-        method = self.cache.params.method
+
+        # Solver routing: one backend decision per dispatch (every lane
+        # of a batch runs the same entry). Host-side: the routed
+        # cache's entries were built by SolverRouter.prewarm, so a
+        # table flip is a different lookup, never a new build.
+        if self.router is not None:
+            method, cache = self.router.decide(bucket)
+        else:
+            cache = self.cache
+            method = cache.params.method
         m.inc(f"routed_{method}", len(live))
         for r in live:
             m.inc_tenant(r.tenant or DEFAULT_TENANT, f"routed_{method}")
 
-        out = self._execute(bucket, slots, dtype, qp, x0, y0, live)
+        t_exec0 = time.monotonic()
+        out = self._execute(bucket, slots, dtype, qp, x0, y0, live,
+                            cache=cache)
         if out is None:
             return
         sol, device_label_, solve_s = out
+        t_exec1 = time.monotonic()
         if _faults.enabled():
             sol["x"] = _corrupt_lanes(sol["x"], len(live), "serve.result",
                                       f"{bucket.n}x{bucket.m}")
         done = time.monotonic()
+        iters = sol["iters"]
+        # The fused batch steps every lane until the slowest converges:
+        # the executed segment count is the batch maximum, which the
+        # anomaly detector's per-lane waste divides by.
+        ci = max(int(cache.params.check_interval), 1)
+        exec_segs = max(-(-int(iters[:len(live)].max()) // ci), 1)
         for i, r in enumerate(live):
+            # Spans are recorded before the future resolves, so a
+            # caller exporting the trace on its last result finds them.
+            if obs is not None and r.trace_id is not None:
+                batch_args = {"bucket": f"{bucket.n}x{bucket.m}",
+                              "slots": slots, "real": len(live),
+                              "device": device_label_}
+                obs.spans.record("assemble", now, t_exec0,
+                                 trace_id=r.trace_id, **batch_args)
+                obs.spans.record("solve", t_exec0, t_exec1,
+                                 trace_id=r.trace_id, **batch_args)
+                obs.spans.record("resolve", t_exec1, done,
+                                 trace_id=r.trace_id)
             self._finish_request(r, bucket, i, sol, done, device_label_,
-                                 warm[i])
+                                 warm[i], solve_s=solve_s,
+                                 executed_segments=exec_segs,
+                                 params=cache.params)
         m.observe_batch(len(live), slots, solve_s,
-                        float(sol["iters"][:len(live)].mean()))
+                        float(iters[:len(live)].mean()))
+        # Shadow-compare after every future resolved: the sampled
+        # losing-backend solve feeds the route table's evidence without
+        # sitting on a request's critical path.
+        if self.router is not None:
+            self.router.maybe_shadow(
+                bucket, slots, dtype, self.health.device(), qp, x0, y0,
+                method, {"status": sol["status"], "iters": iters,
+                         "obj": sol["obj_val"], "solve_s": solve_s},
+                live, self.harvest, calibrator=self.calibrator)
+        self._plane_tick()
+
+    def _plane_tick(self) -> None:
+        """Per-dispatch live-plane upkeep (both batchers call it after
+        a dispatch's retirements): clock-gated flight snapshot, SLO and
+        per-tenant SLO evaluations, and the calibrator's state-machine
+        tick."""
+        if self.flight is not None:
+            self.flight.maybe_snapshot()
+        if self.slo is not None:
+            self.slo.maybe_evaluate()
+        if self.tenant_slos is not None:
+            self.tenant_slos.maybe_evaluate()
+        if self.calibrator is not None:
+            self.calibrator.maybe_tick()
+
+    #: Harvest-record provenance tag (the continuous batcher overrides).
+    harvest_source = "serve"
 
     def _finish_request(self, r: SolveRequest, bucket: Bucket, i: int,
                         sol: dict, done: float, device_label_: str,
-                        warm_started: bool) -> None:
+                        warm_started: bool,
+                        segments: Optional[int] = None,
+                        solve_s: Optional[float] = None,
+                        executed_segments: Optional[int] = None,
+                        params=None) -> None:
         """Shared per-request retirement of both batchers: warm-start
         cache put, the latency / completed / per-lane-Status metrics,
-        and future resolution with the trimmed, copied
-        :class:`SolveResult`. ``sol`` holds host rows indexed by ``i``."""
+        the one SolveRecord fanned out to harvest, flight and
+        calibrator, future resolution with the trimmed, copied
+        :class:`SolveResult`, then the anomaly hook. ``sol`` holds host
+        rows indexed by ``i``; ``params`` are those the lane solved
+        under (a routed dispatch's backend). ``executed_segments`` is
+        the device-executed segment count for the anomaly waste signal
+        where it differs from the record's per-lane ``segments``."""
         m = self.metrics
         tenant = r.tenant or DEFAULT_TENANT
         xs, ys = sol["x"], sol["y"]
+        rp, rd, rr = sol["ring_prim"], sol["ring_dual"], sol["ring_rho"]
         status, iters = int(sol["status"][i]), int(sol["iters"][i])
         if (status == Status.SOLVED and r.warm_key is not None
                 and self.warm_cache is not None
@@ -429,6 +536,31 @@ class MicroBatcher:
         m.observe_tenant_latency(tenant, done - r.submitted)
         m.observe_status(status)
         m.observe_request_iters(iters)
+        if params is None:
+            params = self.cache.params
+        if (self.harvest is not None or self.flight is not None
+                or self.calibrator is not None):
+            ring = None
+            if rp is not None:
+                ring = ring_history(rp[i], rd[i], rr[i], iters,
+                                    params.check_interval)
+            # The JAX package attaches its per-dispatch roofline
+            # profile here (obs/devprof, item 19): none in the port.
+            rec = solve_record(
+                self.harvest_source, r.n_orig, r.m_orig, status, iters,
+                float(sol["prim_res"][i]), float(sol["dual_res"][i]),
+                float(sol["obj_val"][i]), params=params,
+                bucket=f"{bucket.n}x{bucket.m}", warm=warm_started,
+                warm_src=r.warm_src if warm_started else None,
+                wall_s=done - r.submitted, solve_s=solve_s,
+                device=device_label_, trace_id=r.trace_id, ring=ring,
+                segments=segments, tenant=tenant)
+            if self.harvest is not None:
+                self.harvest.emit(rec)
+            if self.flight is not None:
+                self.flight.record_solve(rec)
+            if self.calibrator is not None:
+                self.calibrator.observe(rec)
         r.future.set_result(SolveResult(
             x=np.array(xs[i, :r.n_orig], copy=True),
             status=status,
@@ -439,15 +571,32 @@ class MicroBatcher:
             latency_s=done - r.submitted,
             warm_started=warm_started,
             device=device_label_,
+            trace_id=r.trace_id,
+            ring_prim=None if rp is None else np.array(rp[i], copy=True),
+            ring_dual=None if rd is None else np.array(rd[i], copy=True),
+            ring_rho=None if rr is None else np.array(rr[i], copy=True),
         ))
+        # Anomaly hook after the future resolves: the caller has its
+        # answer before this retirement's telemetry can trigger an
+        # incident dump.
+        if self.anomaly is not None:
+            self.anomaly.observe(
+                f"{bucket.n}x{bucket.m}", float(params.eps_abs), iters,
+                segments=(segments if executed_segments is None
+                          else executed_segments),
+                check_interval=int(params.check_interval),
+                tenant=tenant)
 
     def _execute(self, bucket: Bucket, slots: int, dtype, qp, x0, y0,
-                 live: List[SolveRequest]):
-        """Run the batch on the current device; on failure, let the
+                 live: List[SolveRequest], cache=None):
+        """Run the batch on the current device through ``cache`` (the
+        routed backend's, else ``self.cache``); on failure, let the
         health manager trip the breaker and retry on whatever device it
         then points at (the degrade path, where the caller named a
         fallback). Returns ``(host solution, device label, seconds)``
         or ``None`` when the batch failed."""
+        if cache is None:
+            cache = self.cache
         last_exc: Optional[Exception] = None
         for _attempt in range(4):  # bounded: threshold trips inside this
             device = self.health.device()
@@ -460,7 +609,7 @@ class MicroBatcher:
                     _faults.fire("serve.dispatch",
                                  bucket=f"{bucket.n}x{bucket.m}",
                                  device=device_label(device))
-                exe = self.cache.get(bucket, slots, dtype, device)
+                exe = cache.get(bucket, slots, dtype, device)
                 with _profile.profiled_stage(
                         self.profiler, "serve/solve_batch",
                         "solve_batch") as prof:
@@ -474,11 +623,22 @@ class MicroBatcher:
                 # A policy violation (a post-warmup compile demand, an
                 # option not ported) is not a device fault: fail this
                 # batch loudly and leave the breaker alone.
+                if self.obs is not None:
+                    self.obs.events.emit(
+                        "sanitizer_violation", "error",
+                        what="dispatch", bucket=f"{bucket.n}x{bucket.m}",
+                        detail=str(exc))
                 self._fail(live, SolveError(f"sanitizer: {exc}"))
                 return None
             except Exception as exc:  # noqa: BLE001 - device faults vary
                 last_exc = exc
                 self.metrics.inc("dispatch_failures")
+                if self.obs is not None:
+                    self.obs.events.emit(
+                        "dispatch_failure", "error",
+                        bucket=f"{bucket.n}x{bucket.m}",
+                        device=device_label(device),
+                        error=f"{type(exc).__name__}: {exc}")
                 if not self.health.record_failure(exc):
                     break  # already on the last-resort device
         self._fail(live, SolveError(

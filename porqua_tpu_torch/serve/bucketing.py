@@ -124,20 +124,25 @@ class ExecutableCache:
     the same miss compile once: the first claims the key with a pending
     marker and builds, the rest wait on the marker and re-read.
 
+    ``events`` (an :class:`~porqua_tpu_torch.obs.events.EventBus`)
+    receives one ``compile`` event per entry built — the build and
+    warm-up of a compiled entry is the port's compile, counted where
+    the JAX package counts an AOT compile, so zero compile events
+    after prewarm means the same in both packages — and a
+    ``sanitizer_violation`` event per refused post-warmup compile.
     ``cost_log`` is the JAX package's device-cost harvest
     (``obs/devprof``): not ported, so anything but ``None``/``False``
-    raises.
+    raises (item 19).
     """
 
     def __init__(self, params: SolverParams = SolverParams(),
                  metrics=None, events=None, cost_log=None) -> None:
-        if events is not None:
-            raise _not_ported("the event bus (events=)", "item 18")
         if cost_log not in (None, False):
             raise _not_ported("the device-cost harvest (cost_log=)",
                               "item 19")
         self.params = params
         self.metrics = metrics
+        self.events = events
         self._lock = tsan.lock("ExecutableCache")
         self._cache: Dict[tuple, object] = {}  # guarded-by: self._lock
         # Per-bucket cache health (hits / compiles / compile seconds),
@@ -241,10 +246,20 @@ class ExecutableCache:
         try:
             # Every compile is counted; after prewarm() sealed this
             # device, a miss raises under PORQUA_SANITIZE=1.
-            sanitize.note_compile(
-                f"kind={kind} bucket={bucket} slots={int(slots)} "
-                f"device={dev_key}",
-                post_warmup=post_warmup)
+            try:
+                sanitize.note_compile(
+                    f"kind={kind} bucket={bucket} slots={int(slots)} "
+                    f"device={dev_key}",
+                    post_warmup=post_warmup)
+            except sanitize.SanitizerError as exc:
+                if self.events is not None:
+                    self.events.emit(
+                        "sanitizer_violation", "error",
+                        what="post_warmup_compile_refused",
+                        bucket=f"{bucket.n}x{bucket.m}",
+                        slots=int(slots), device=str(dev_key),
+                        detail=str(exc))
+                raise
             struct = batch_shape_struct(
                 int(slots), bucket.n, bucket.m, dtype=dtype,
                 factor_rows=bucket.factor_rows)
@@ -269,6 +284,13 @@ class ExecutableCache:
             stat["compile_seconds"] += seconds
         if self.metrics is not None:
             self.metrics.observe_compile(seconds)
+        if self.events is not None:
+            self.events.emit(
+                "compile", "warn" if post_warmup else "info",
+                bucket=f"{bucket.n}x{bucket.m}",
+                factor_rows=bucket.factor_rows, slots=int(slots),
+                device=str(dev_key), seconds=round(seconds, 4),
+                post_warmup=post_warmup)
         return exe
 
     def cost_records(self) -> list:

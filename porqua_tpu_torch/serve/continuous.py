@@ -21,6 +21,10 @@ All three entries are compiled per ``(bucket, slots, device)`` through
 the same :class:`~porqua_tpu_torch.serve.bucketing.ExecutableCache`
 (prewarm with ``continuous=True``), so steady state compiles nothing.
 
+Solver routing binds at cohort creation: a cohort's compiled triple is
+one backend's, so every lane admitted over its life runs that backend,
+and a route flip takes effect at the next cohort.
+
 Device faults: a cohort's carry lives on one device, so a mid-flight
 failure cannot migrate — the cohort's requests fail (``SolveError``),
 the breaker records the fault, and the next cohort forms on whatever
@@ -55,7 +59,6 @@ from porqua_tpu_torch.qp.solve import (
 )
 from porqua_tpu_torch.resilience import faults as _faults
 from porqua_tpu_torch.serve.batcher import (
-    DeadlineExpired,
     MicroBatcher,
     SolveError,
     SolveRequest,
@@ -90,6 +93,9 @@ class _Cohort:
         self.reqs: List[Optional[SolveRequest]] = [None] * slots
         self.warm = [False] * slots
         self.seg_count = np.zeros(slots, np.int64)
+        # Span-tiling anchor: the monotonic time each slot's request
+        # was admitted (its queue_wait ends, its "solve" span starts).
+        self.admit_t = np.zeros(slots, np.float64)
         self.active = np.zeros(slots, bool)
         self.neutral = _neutral_qp(bucket, dtype)
         # One persistent stacked host buffer for the cohort's problem
@@ -110,6 +116,10 @@ class _Cohort:
         # Set when the queue outgrows this cohort: stop refilling so it
         # drains and a larger replacement forms from the backlog.
         self.no_refill = False
+        # Which backend's triple this cohort runs and its SolverParams,
+        # stamped by the batcher at creation.
+        self.method: str = "admm"
+        self.params = None
 
     def write_slot(self, slot: int, qp: CanonicalQP) -> None:
         """Overwrite one slot's rows of the stacked problem buffer."""
@@ -138,6 +148,9 @@ class ContinuousBatcher(MicroBatcher):
     ``ceil(max_iter / check_interval)``, i.e. plain ``max_iter``
     semantics.
     """
+
+    #: Harvest-record provenance tag (continuous-mode retirements).
+    harvest_source = "serve.continuous"
 
     def __init__(self, *args, params=None,
                  segment_budget: Optional[int] = None, **kwargs) -> None:
@@ -215,12 +228,24 @@ class ContinuousBatcher(MicroBatcher):
             dtype = dq[0].qp.q.dtype
             slots = slot_count(min(len(dq), self.max_batch),
                                self.max_batch)
-            exes = self.cache.get_continuous(bucket, slots, dtype, device)
-            self._cohorts[bucket] = _Cohort(bucket, slots, dtype, device,
-                                            exes)
+            if self.router is not None:
+                method, cache = self.router.decide(bucket)
+                params = cache.params
+            else:
+                cache, params = self.cache, self.params
+                method = params.method
+            exes = cache.get_continuous(bucket, slots, dtype, device)
+            cohort = _Cohort(bucket, slots, dtype, device, exes)
+            cohort.method = method
+            cohort.params = params
+            self._cohorts[bucket] = cohort
         except (sanitize.SanitizerError, NotImplementedError) as exc:
             # A policy violation is not a device fault: fail these
             # requests loudly and leave the breaker closed.
+            if self.obs is not None:
+                self.obs.events.emit(
+                    "sanitizer_violation", "error", what="cohort_create",
+                    bucket=f"{bucket.n}x{bucket.m}", detail=str(exc))
             self._fail_pending(dq, exc)
         except Exception as exc:  # noqa: BLE001 - containment boundary
             self.health.record_failure(exc)
@@ -237,18 +262,18 @@ class ContinuousBatcher(MicroBatcher):
         while dq and free:
             r = dq.popleft()
             if r.deadline is not None and now > r.deadline:
-                m.inc("expired")
-                m.inc_tenant(r.tenant or DEFAULT_TENANT, "expired")
-                r.future.set_exception(DeadlineExpired(
-                    f"deadline passed {now - r.deadline:.3f}s before "
-                    f"admission (queued {now - r.submitted:.3f}s)"))
+                self._expire(r, now, "admission")
                 continue
             slot = free.pop(0)
             m.observe_queue_wait(now - r.submitted)
+            if self.obs is not None and r.trace_id is not None:
+                self.obs.spans.record("queue_wait", r.submitted, now,
+                                      trace_id=r.trace_id)
             cohort.reqs[slot] = r
             cohort.write_slot(slot, r.qp)
             cohort.seg_count[slot] = 0
             cohort.warm[slot] = False
+            cohort.admit_t[slot] = now
             cohort.x0[slot] = 0.0
             cohort.y0[slot] = 0.0
             if self.warm_cache is not None and r.warm_key is not None:
@@ -259,9 +284,11 @@ class ContinuousBatcher(MicroBatcher):
                     cohort.warm[slot] = True
                     m.inc("warm_hits")
                     m.inc_tenant(r.tenant or DEFAULT_TENANT, "warm_hits")
-            method = self.params.method
-            m.inc(f"routed_{method}")
-            m.inc_tenant(r.tenant or DEFAULT_TENANT, f"routed_{method}")
+            # The routing decision this lane rides (bound at cohort
+            # creation), counted at admission.
+            m.inc(f"routed_{cohort.method}")
+            m.inc_tenant(r.tenant or DEFAULT_TENANT,
+                         f"routed_{cohort.method}")
             cohort.staged.append(slot)
 
     def _tick_safe(self, bucket: Bucket, cohort: _Cohort) -> None:
@@ -270,10 +297,19 @@ class ContinuousBatcher(MicroBatcher):
         except (sanitize.SanitizerError, NotImplementedError) as exc:
             # Policy violations never open the breaker: fail this
             # cohort loudly.
+            if self.obs is not None:
+                self.obs.events.emit(
+                    "sanitizer_violation", "error", what="cohort_tick",
+                    bucket=f"{bucket.n}x{bucket.m}", detail=str(exc))
             self._fail_cohort(bucket, cohort, exc)
         except Exception as exc:  # noqa: BLE001 - containment boundary
             self.health.record_failure(exc)
             self.metrics.inc("dispatch_failures")
+            if self.obs is not None:
+                self.obs.events.emit(
+                    "dispatch_failure", "error",
+                    bucket=f"{bucket.n}x{bucket.m}", continuous=True,
+                    error=f"{type(exc).__name__}: {exc}")
             self._fail_cohort(bucket, cohort, exc)
 
     def _fail_cohort(self, bucket: Bucket, cohort: _Cohort, exc) -> None:
@@ -360,6 +396,7 @@ class ContinuousBatcher(MicroBatcher):
             sol = self._call(cohort.fin_exe, cohort.device, cohort.qp_dev,
                              cohort.scaled, cohort.scaling,
                              cohort.carry.state)
+            t_fin = time.monotonic()
             # Fetch only the retiring lanes' rows.
             rows = host_solution(sol, retire)
         if _faults.enabled():
@@ -369,10 +406,26 @@ class ContinuousBatcher(MicroBatcher):
         done = time.monotonic()
         label = device_label(cohort.device)
         for j, i in enumerate(retire):
-            self._finish_request(cohort.reqs[i], bucket, j, rows, done,
-                                 label, cohort.warm[i])
+            r = cohort.reqs[i]
+            if self.obs is not None and r.trace_id is not None:
+                # Tile the request's wall clock like the classic path:
+                # "solve" covers the admit and every segment through
+                # the finalize, "resolve" the host copy and fan-out.
+                self.obs.spans.record(
+                    "solve", cohort.admit_t[i], t_fin,
+                    trace_id=r.trace_id,
+                    bucket=f"{bucket.n}x{bucket.m}",
+                    slots=cohort.slots, continuous=True,
+                    segments=int(cohort.seg_count[i]), device=label)
+                self.obs.spans.record("resolve", t_fin, done,
+                                      trace_id=r.trace_id)
+            self._finish_request(r, bucket, j, rows, done, label,
+                                 cohort.warm[i],
+                                 segments=int(cohort.seg_count[i]),
+                                 params=cohort.params)
             cohort.reqs[i] = None
             cohort.write_slot(i, cohort.neutral)
             cohort.active[i] = False
         self.health.record_success()
         m.observe_iters(float(rows["iters"].mean()), len(retire))
+        self._plane_tick()

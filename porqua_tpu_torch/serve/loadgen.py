@@ -11,16 +11,16 @@ metrics window is reset after prewarm and a warm-up round, so
 ``compiles`` during measurement counts only recompiles (acceptance: 0);
 closed-loop mode keeps a bounded in-flight window via a semaphore.
 
-Not ported yet, and raising when asked: the observability options
-(``trace_out``, ``events_out``, ``ring_size``, ``harvest_out``, ``slo``,
-``flight_out``, ``anomaly_baseline``, ``tenant_slos``: ROADMAP queue A,
-item 18; ``cost_out``, ``profile_window_s``, ``profile_dir``: item 19)
-and the retry layer (``retry``, and ``chaos`` without ``no_retry``:
-item 17).
+The observability, retry and blend options are the JAX package's. Not
+ported yet, and raising when asked: the device-cost plane
+(``cost_out``, ``profile_window_s``, ``profile_dir``: ROADMAP queue A,
+item 19).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import threading
 import time
 from typing import Dict, List, Optional
@@ -44,14 +44,9 @@ _STATUS_NAMES = dict(Status.NAMES)
 SERVE_PARAMS = SolverParams(max_iter=2000, eps_abs=1e-3, eps_rel=1e-3,
                             polish=False, scaling_iters=2)
 
-#: Options of the JAX package's run_loadgen -> the item that ports them.
-_UNPORTED_OPTIONS = {
-    "trace_out": "item 18", "events_out": "item 18", "ring_size": "item 18",
-    "harvest_out": "item 18", "slo": "item 18", "flight_out": "item 18",
-    "anomaly_baseline": "item 18", "tenant_slos": "item 18",
-    "cost_out": "item 19", "profile_window_s": "item 19",
-    "profile_dir": "item 19", "retry": "item 17",
-}
+#: Options of the JAX package's run_loadgen not ported yet (the
+#: device-cost plane, obs/devprof.py).
+_UNPORTED_OPTIONS = ("cost_out", "profile_window_s", "profile_dir")
 
 
 def _qp(**fields) -> CanonicalQP:
@@ -142,19 +137,26 @@ def prewarm_buckets(service: SolveService, requests) -> tuple:
     return n_compiled, warm_examples
 
 
-def _tenant_fields(snap: Dict, tenants: List[str], offenders) -> Dict:
-    """The report's tenant axis: per-tenant counter/latency rows and the
-    ``tenant_fairness`` block (quiet-tenant p99 ratio, victim shed
-    share). Warm-up traffic runs untagged, so every figure covers
-    exactly the measured window."""
+def _tenant_fields(snap: Dict, tenant_set, tenants: List[str],
+                   offenders, sink) -> Dict:
+    """The report's tenant axis: per-tenant counter/latency rows, the
+    per-tenant SLO status, and the ``tenant_fairness`` block
+    (quiet-tenant p99 ratio, victim shed share, alert isolation, exact
+    per-tenant harvest reconciliation). Warm-up traffic runs untagged,
+    so every figure covers exactly the measured window."""
     measured = sorted(set(tenants))
     snap_tenants = snap.get("tenants") or {}
     rows = {t: snap_tenants.get(t, {}) for t in measured}
+    out: Dict = {"tenants": rows}
+    fired: Dict[str, int] = {}
+    if tenant_set is not None:
+        out["tenant_slo"] = tenant_set.status()
+        fired = tenant_set.alerts_fired()
     off = set(offenders or ())
     quiet = {t: r for t, r in rows.items() if t not in off}
     p99s = [float(r.get("latency_p99_ms", 0.0)) for r in quiet.values()
             if r.get("completed")]
-    return {"tenants": rows, "tenant_fairness": {
+    fairness: Dict = {
         "tenants": len(measured),
         "offenders": sorted(off & set(measured)),
         # Fair share among the non-offending tenants.
@@ -165,7 +167,30 @@ def _tenant_fields(snap: Dict, tenants: List[str], offenders) -> Dict:
             sum(int(r.get("rejected", 0)) for r in quiet.values())
             / max(sum(int(r.get("submitted", 0))
                       for r in quiet.values()), 1)),
-    }}
+        # Alert isolation: the offender's burn fires its own engines.
+        "offender_alerts": sum(v for t, v in fired.items() if t in off),
+        "nonoffender_alerts": sum(v for t, v in fired.items()
+                                  if t not in off and t in measured),
+    }
+    if sink is not None:
+        # Exact per-tenant reconciliation: one SolveRecord per
+        # completed request, per tenant.
+        from porqua_tpu_torch.obs.harvest import load_harvest
+
+        sink.flush()
+        records = (load_harvest(sink.path) if sink.path is not None
+                   else sink.buffered())
+        counts: Dict[str, int] = {}
+        for rec in records:
+            t = str(rec.get("tenant", ""))
+            if t in rows:
+                counts[t] = counts.get(t, 0) + 1
+        out["tenant_harvest_records"] = counts
+        fairness["harvest_reconciled"] = int(all(
+            counts.get(t, 0) == int(rows[t].get("completed", 0))
+            for t in measured))
+    out["tenant_fairness"] = fairness
+    return out
 
 
 def run_loadgen(requests: List[CanonicalQP],
@@ -209,31 +234,47 @@ def run_loadgen(requests: List[CanonicalQP],
 
     ``mode="closed"``: a bounded in-flight window (default
     ``4 * max_batch``) is kept full until every request is submitted.
-    ``mode="open"``: requests are submitted on a fixed-``rate``
-    schedule (or at the per-request ``arrivals`` offsets) regardless of
+    ``mode="open"``: requests are submitted on a fixed-``rate`` schedule
+    (or at the per-request ``arrivals`` offsets) regardless of
     completions; a full queue drops the arrival. ``warm_keys`` tags
     each request with its stream index. An externally-managed
     ``service`` (already started) may be passed; otherwise one is
     created on ``device`` (default: the card) and torn down.
 
-    ``chaos`` names a builtin fault scenario (or passes a ``Scenario``)
-    installed for the measured phase only; it needs ``no_retry=True``
-    until the retry layer is ported. ``tenants`` tags each request with
-    a tenant id; ``tenant_quota`` / ``tenant_weights`` configure the
-    service's admission quotas and DRR weights; ``offenders`` names the
-    tenants the report's ``tenant_fairness`` treats as noisy. The JAX
-    package's other options raise (module docstring; ``ring_samples``
-    and ``slo_latency_target_s`` qualify two of them)."""
-    asked = dict(trace_out=trace_out, events_out=events_out,
-                 ring_size=ring_size, harvest_out=harvest_out, slo=slo,
-                 flight_out=flight_out, anomaly_baseline=anomaly_baseline,
-                 tenant_slos=tenant_slos, cost_out=cost_out,
-                 profile_window_s=profile_window_s, profile_dir=profile_dir,
-                 retry=retry)
-    for name, value in asked.items():
-        if value:
-            raise _not_ported(f"run_loadgen({name}=)",
-                              _UNPORTED_OPTIONS[name])
+    Observability: ``trace_out`` writes the run's request spans as a
+    Chrome trace (with span-coverage figures in the report, and a
+    :class:`~porqua_tpu_torch.obs.profile.StageProfiler`'s counter
+    tracks merged in); ``events_out`` the event log (JSONL);
+    ``ring_size`` solves with convergence rings and emits a
+    ``convergence_ring`` event for the first ``ring_samples`` results;
+    ``harvest_out`` appends one SolveRecord per resolved request to a
+    JSONL(.gz) dataset. ``slo`` (``True`` for the default set at
+    ``slo_latency_target_s``, or an ``SLOEngine``), ``flight_out`` (a
+    directory or a ``FlightRecorder``), ``anomaly_baseline`` (a harvest
+    dataset path or an ``AnomalyDetector``) and ``tenant_slos``
+    (``True`` or a ``TenantSLOSet``) arm the live plane. These, the
+    tenancy knobs, ``ring_size`` and ``harvest_out`` wire at service
+    construction and raise against an external service.
+
+    Resilience: ``retry`` (a :class:`RetryPolicy`) routes every request
+    through the recovery layer. ``chaos`` names a builtin fault
+    scenario (or passes a ``Scenario``) installed for the measured
+    phase only; with ``chaos`` and no ``retry`` the default
+    ``RetryPolicy`` applies, unless ``no_retry=True`` asks for the raw
+    fault behaviour. Retries go through the service's breaker: they
+    reach a CPU only when the service names one as its fallback.
+
+    Tenancy: ``tenants`` tags each request with a tenant id;
+    ``arrivals`` replaces fixed-rate pacing with per-request offsets
+    (the :mod:`porqua_tpu_torch.serve.workloads` blend shape);
+    ``tenant_quota`` / ``tenant_weights`` configure admission quotas
+    and DRR weights; ``offenders`` names the tenants the report's
+    ``tenant_fairness`` treats as noisy. The device-cost options
+    (``cost_out``, ``profile_window_s``, ``profile_dir``) raise:
+    ROADMAP item 19."""
+    for name in _UNPORTED_OPTIONS:
+        if locals()[name] is not None:
+            raise _not_ported(f"run_loadgen({name}=)", "item 19")
     if mode not in ("closed", "open"):
         raise ValueError(f"unknown mode {mode!r}; expected closed|open")
     if mode == "open" and not rate and arrivals is None:
@@ -243,12 +284,12 @@ def run_loadgen(requests: List[CanonicalQP],
         raise ValueError("arrivals must align 1:1 with requests")
     if tenants is not None and len(tenants) != len(requests):
         raise ValueError("tenants must align 1:1 with requests")
+    if no_retry and retry is not None:
+        raise ValueError("no_retry=True contradicts an explicit retry "
+                         "policy; pass one or the other")
     scenario = None
+    retry_requested = retry is not None
     if chaos is not None:
-        if not no_retry:
-            raise _not_ported("run_loadgen(chaos=) with its default retry "
-                              "policy (pass no_retry=True for raw fault "
-                              "behaviour)", "item 17")
         if isinstance(chaos, _faults.Scenario):
             scenario = chaos
         else:
@@ -258,23 +299,97 @@ def run_loadgen(requests: List[CanonicalQP],
                     f"unknown chaos scenario {chaos!r}; builtin: "
                     f"{', '.join(sorted(catalog))}")
             scenario = catalog[chaos]
+        if retry is None and not no_retry:
+            from porqua_tpu_torch.resilience.retry import RetryPolicy
 
+            retry = RetryPolicy()
+
+    obs = sink = profiler = slo_engine = flight = anomaly = None
+    tenant_set = None
     own_service = service is None
     if own_service:
+        from porqua_tpu_torch import obs as _obs
+
+        if tenant_slos:
+            tenant_set = (tenant_slos
+                          if isinstance(tenant_slos, _obs.TenantSLOSet)
+                          else _obs.TenantSLOSet())
+        if ring_size:
+            params = dataclasses.replace(params, ring_size=int(ring_size))
+        if trace_out or events_out or ring_size or slo or flight_out \
+                or anomaly_baseline:
+            obs = _obs.Observability()
+        if slo:
+            slo_engine = (slo if isinstance(slo, _obs.SLOEngine)
+                          else _obs.SLOEngine(_obs.default_slos(
+                              latency_target_s=slo_latency_target_s)))
+        if flight_out:
+            flight = (flight_out
+                      if isinstance(flight_out, _obs.FlightRecorder)
+                      else _obs.FlightRecorder(out_dir=flight_out))
+        if anomaly_baseline:
+            anomaly = (anomaly_baseline
+                       if isinstance(anomaly_baseline, _obs.AnomalyDetector)
+                       else _obs.AnomalyDetector.from_harvest(
+                           anomaly_baseline))
+        if harvest_out:
+            sink = _obs.HarvestSink(
+                harvest_out, events=None if obs is None else obs.events)
+        if trace_out:
+            profiler = _obs.StageProfiler()
         service = SolveService(params=params, max_batch=max_batch,
                                max_wait_ms=max_wait_ms,
                                queue_capacity=max(4 * max_batch, 1024),
-                               continuous=continuous,
+                               obs=obs, continuous=continuous,
                                segment_budget=segment_budget,
+                               retry=retry, harvest=sink,
+                               profiler=profiler, slo=slo_engine,
+                               flight=flight, anomaly=anomaly,
                                tenant_quota=tenant_quota,
                                tenant_weights=tenant_weights,
+                               tenant_slos=tenant_set,
                                device=device)
         service.start()
-    elif tenant_quota is not None or tenant_weights:
-        raise ValueError(
-            "tenant_quota/tenant_weights require the service to be "
-            "constructed here; build it with SolveService(tenant_quota="
-            "..., tenant_weights=...)")
+    else:
+        obs, sink, profiler = service.obs, service.harvest, service.profiler
+        slo_engine, flight, anomaly = (service.slo, service.flight,
+                                       service.anomaly)
+        tenant_set = service.tenant_slos
+        if tenant_quota is not None or tenant_weights or tenant_slos:
+            raise ValueError(
+                "tenant_quota/tenant_weights/tenant_slos require the "
+                "service to be constructed here; build it with "
+                "SolveService(tenant_quota=..., tenant_weights=..., "
+                "tenant_slos=TenantSLOSet(...))")
+        if slo or flight_out or anomaly_baseline:
+            raise ValueError(
+                "slo/flight_out/anomaly_baseline require the service "
+                "to be constructed here; build it with SolveService("
+                "slo=..., flight=..., anomaly=...) and read those "
+                "objects directly")
+        if harvest_out is not None or ring_size:
+            raise ValueError(
+                "harvest_out/ring_size require the service to be "
+                "constructed here; build it with SolveService(harvest="
+                "HarvestSink(path), params=...ring_size...) instead")
+        if service._retry is None:
+            if retry_requested:
+                raise ValueError(
+                    "run_loadgen cannot apply a retry policy to an "
+                    "externally-built service; construct it with "
+                    "SolveService(retry=...)")
+            if scenario is not None and not no_retry:
+                raise ValueError(
+                    "chaos against an externally-built service "
+                    "requires it to carry a retry policy "
+                    "(SolveService(retry=RetryPolicy(...))): the "
+                    "validation gate keeps corrupting scenarios from "
+                    "resolving wrong answers (pass no_retry=True to "
+                    "measure raw fault behaviour)")
+        elif no_retry:
+            raise ValueError(
+                "no_retry=True cannot be honored for an externally-"
+                "built service that carries a retry policy")
     injector = None
     try:
         # Prewarm every distinct bucket, then reset the window after a
@@ -286,11 +401,15 @@ def run_loadgen(requests: List[CanonicalQP],
         for t in warm_tickets:
             service.result(t, timeout=120)
         service.metrics.reset_window()
+        # The sink saw the warm-up round too; remember the boundary so
+        # the report reconciles the measured window's records.
+        harvest_records0 = sink.records if sink is not None else 0
 
         if scenario is not None:
             # Faults perturb steady-state traffic, not the compiles.
             injector = _faults.install(_faults.FaultInjector(
-                scenario, metrics=service.metrics))
+                scenario, metrics=service.metrics,
+                events=None if obs is None else obs.events))
 
         errors: List[str] = []
         tickets = []
@@ -334,12 +453,15 @@ def run_loadgen(requests: List[CanonicalQP],
             tickets.append(ticket)
         solved = 0
         status_counts: Dict[str, int] = {}
+        sampled = []  # first few results, for convergence-ring events
         for ticket in tickets:
             try:
                 res = service.result(ticket, timeout=300)
                 solved += int(res.found)
                 name = _STATUS_NAMES.get(res.status, str(res.status))
                 status_counts[name] = status_counts.get(name, 0) + 1
+                if res.ring_prim is not None and len(sampled) < ring_samples:
+                    sampled.append(res)
             except Exception as exc:  # noqa: BLE001 - reported, not fatal
                 errors.append(f"{type(exc).__name__}: {exc}")
         elapsed = time.perf_counter() - t0
@@ -351,10 +473,84 @@ def run_loadgen(requests: List[CanonicalQP],
         snap = service.snapshot()
         if jsonl_path:
             service.metrics.write_jsonl(jsonl_path)
-        tenant_fields = ({} if tenants is None
-                         else _tenant_fields(snap, tenants, offenders))
+        # Closing evaluations before the event log is written: a burn
+        # that crested between the clock-gated evaluations still lands
+        # its alert transitions (and can still trigger a flight dump).
+        if slo_engine is not None:
+            slo_engine.evaluate()
+        if tenant_set is not None:
+            tenant_set.evaluate()
+
+        obs_fields: Dict = {}
+        if obs is not None:
+            from porqua_tpu_torch.obs.rings import ring_history
+            from porqua_tpu_torch.obs.trace import coverage_stats
+
+            for res in sampled:
+                hist = ring_history(res.ring_prim, res.ring_dual,
+                                    res.ring_rho, res.iters,
+                                    service.params.check_interval)
+                obs.events.emit(
+                    "convergence_ring", "info", trace_id=res.trace_id,
+                    iters_final=res.iters,
+                    final_prim_res=res.prim_res,
+                    final_dual_res=res.dual_res, **hist)
+            trace = obs.spans.chrome_trace()
+            cov = coverage_stats(trace)
+            obs_fields = {
+                "trace_events": len(trace["traceEvents"]),
+                "spans_dropped": obs.spans.dropped,
+                "span_cover_median": round(cov["cover_median"], 4),
+                "span_cover_min": round(cov["cover_min"], 4),
+            }
+            if profiler is not None:
+                from porqua_tpu_torch.obs.profile import (
+                    chrome_counter_events)
+
+                trace["traceEvents"].extend(chrome_counter_events(
+                    profiler, obs.spans.anchor_mono))
+                obs_fields["profile_stages"] = {
+                    k: round(v, 4)
+                    for k, v in profiler.stage_seconds().items()}
+            if trace_out:
+                with open(trace_out, "w") as f:
+                    json.dump(trace, f)
+                obs_fields["trace_out"] = trace_out
+            if events_out:
+                obs.events.write_jsonl(events_out)
+                obs_fields["events_out"] = events_out
+        if slo_engine is not None:
+            obs_fields["slo"] = slo_engine.status()
+        if flight is not None:
+            fc = flight.counters()
+            obs_fields["incident_bundles"] = fc["flight_bundles"]
+            obs_fields["incident_dumps_suppressed"] = (
+                fc["flight_dumps_suppressed"])
+            obs_fields["incident_bundle_paths"] = [
+                p for p in flight.bundles() if isinstance(p, str)][:8]
+        if anomaly is not None:
+            ast = anomaly.status()
+            obs_fields["convergence_anomalies"] = ast["fired"]
+            obs_fields["anomalous_groups"] = ast["anomalous"]
+        if tenants is not None:
+            obs_fields.update(_tenant_fields(
+                snap, tenant_set, tenants, offenders, sink))
+        if sink is not None:
+            sink.flush()
+            obs_fields.update({
+                "harvest_out": sink.path,
+                "harvest_records": sink.records,
+                # Records of the measured window alone: reconciles with
+                # the snapshot's `completed`.
+                "harvest_records_measured": sink.records - harvest_records0,
+                "harvest_write_failures": sink.write_failures,
+            })
+        if getattr(service, "router", None) is not None:
+            rsnap = service.router.snapshot()
+            obs_fields["route_table_version"] = rsnap["table_version"]
+            obs_fields["route_table"] = rsnap["table"]
         return {
-            **tenant_fields,
+            **obs_fields,
             "n_requests": len(requests),
             "n_assets": int(requests[0].n),
             "mode": mode,
@@ -374,6 +570,12 @@ def run_loadgen(requests: List[CanonicalQP],
             "errors": len(errors),
             "dropped_arrivals": dropped,
             "error_sample": errors[:3],
+            "retries": snap["retries"],
+            "hedges_fired": snap["hedges_fired"],
+            "hedges_won": snap["hedges_won"],
+            "resumed_requests": snap["resumed_requests"],
+            "retry_giveups": snap["retry_giveups"],
+            "validation_failures": snap["validation_failures"],
             "chaos": None if scenario is None else scenario.name,
             "faults_injected": snap["faults_injected"],
             "latency_p50_ms": snap["latency_p50_ms"],
@@ -394,3 +596,5 @@ def run_loadgen(requests: List[CanonicalQP],
             _faults.uninstall()
         if own_service:
             service.stop()
+            if sink is not None:
+                sink.close()

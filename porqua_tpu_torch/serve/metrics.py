@@ -524,7 +524,7 @@ class ServeMetrics:
         from porqua_tpu_torch.batch import _not_ported
 
         raise _not_ported("ServeMetrics.bridge_tracer (profiling.py's "
-                          "Tracer and StageTiming)", "item 18")
+                          "Tracer and StageTiming)", "item 19")
 
 
 class TenantMetricsView:

@@ -44,6 +44,16 @@ STEP_TOL = {np.float64: dict(atol=1e-10, rtol=0),
             np.float32: dict(atol=1e-6, rtol=1e-5)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def close(port, ref, tol):
     np.testing.assert_allclose(np.asarray(port), np.asarray(ref), **tol)
 

@@ -407,31 +407,43 @@ def _small_problems(rng):
     "solve_batch_compacted", "harvest", "sanitize", "named_backend",
     "ltr_builder",
 ])
-def test_unported_options_raise(call, rng, monkeypatch):
+def test_unported_options_raise(call, rng, monkeypatch, tmp_path):
     if call == "scan_grid_mesh":
         grid = tbatch._lanes(_small_problems(rng).qp)
         fn = lambda: tbatch.solve_scan_l1_grid(
             grid, 2, np.zeros((1, 2)), 0.01, mesh=object(),
             universes=tbatch.FIXED_UNIVERSE, device="cpu")
         item = "item 21"
-    elif call == "scan_checkpoint_harvest":
+    elif call in ("scan_checkpoint_harvest", "solve_batch_compacted",
+                  "harvest"):
+        # Ported since the telemetry warehouse (obs/harvest.py): the
+        # sink gets one record per date, labelled with the device
+        # (tests/test_torch_harvest.py holds them to the JAX package's).
         from porqua_tpu_torch.checkpoint import solve_scan_l1_checkpointed
+        from porqua_tpu_torch.obs import HarvestSink
 
-        fn = lambda: solve_scan_l1_checkpointed(
-            _small_problems(rng).qp, 2, np.zeros(2), 0.01, "unused",
-            harvest=[], universes=tbatch.FIXED_UNIVERSE, device="cpu")
-        item = "item 18"
+        sink, problems = HarvestSink(None), _small_problems(rng)
+        if call == "scan_checkpoint_harvest":
+            qp = problems.qp
+            solve_scan_l1_checkpointed(
+                qp, qp.n, np.full(qp.n, 1.0 / qp.n), 0.01,
+                str(tmp_path / "ck"), harvest=sink,
+                universes=tbatch.FIXED_UNIVERSE, device="cpu")
+        elif call == "solve_batch_compacted":
+            tbatch.solve_batch_compacted(problems, harvest=sink,
+                                         device="cpu")
+        else:
+            tbatch.solve_batch(problems, harvest=sink, device="cpu")
+        records = sink.buffered()
+        assert len(records) == len(problems.rebdates)
+        assert {r["device"] for r in records} == {"cpu:0"}
+        return
     elif call == "retry_policy":
+        # Ported since the retry layer (resilience/retry.py).
         import porqua_tpu_torch.resilience as res
 
-        fn = lambda: res.RetryPolicy
-        item = "item 17"
-    elif call == "solve_batch_compacted":
-        fn = lambda: tbatch.solve_batch_compacted(_small_problems(rng),
-                                                  harvest=[], device="cpu")
-    elif call == "harvest":
-        fn = lambda: tbatch.solve_batch(_small_problems(rng), harvest=[],
-                                        device="cpu")
+        assert res.RetryPolicy().max_attempts == 3
+        return
     elif call == "sanitize":
         monkeypatch.setenv("PORQUA_SANITIZE", "1")
         fn = lambda: tbatch.solve_batch(_small_problems(rng), device="cpu")
@@ -454,7 +466,7 @@ def test_unported_options_raise(call, rng, monkeypatch):
         fn = lambda: tb.bibfn_selection_ltr(None, "2020-06-01")
     with pytest.raises(NotImplementedError, match="not ported") as err:
         fn()
-    if call in ("scan_grid_mesh", "scan_checkpoint_harvest", "retry_policy"):
+    if call == "scan_grid_mesh":
         assert item in str(err.value)
 
 

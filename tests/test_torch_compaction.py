@@ -315,12 +315,6 @@ def test_prewarm_leaves_no_compile_and_sanitize_counts(batch, monkeypatch):
     sanitize.reset()
 
 
-def test_harvest_raises_naming_item_18(batch):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        pt.compaction.solve_batch_compacted(batch, PARAMS, harvest=[],
-                                            device="cpu")
-
-
 def test_warm_start_and_l1_lanes_match_fused(batch, fused):
     """Warm starts and a native L1 term ride the group like every other
     lane field: the compacted solve equals the fused one."""

@@ -586,6 +586,58 @@ def test_service_on_card_matches_cpu(kind, continuous):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("continuous", [False, True],
+                         ids=["micro", "continuous"])
+def test_routed_service_on_card(continuous):
+    """A routed, retried and observed service on the card: 64 tracking
+    requests (60 assets, bucket 64 x 8) routed to ADMM (the table set
+    by a versioned swap), a shadow on a losing backend after the first
+    classic dispatch. Every served record says cuda:0 and admm, every
+    result solves on cuda:0, the ADMM arm launched K2's cluster form,
+    and the shadow lanes solved on a loser; then a route flip to PDHG
+    serves the same requests with zero compiles after prewarm."""
+    import dataclasses
+
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.resilience import RetryPolicy
+    from porqua_tpu_torch.serve import SolverRouter, SolveService
+    from porqua_tpu_torch.serve.loadgen import (SERVE_PARAMS,
+                                                build_tracking_requests)
+
+    need_card()
+    reqs = build_tracking_requests(64, n_assets=60, window=120, seed=3)
+    params = dataclasses.replace(SERVE_PARAMS, backend="pallas",
+                                 **FORMS["triangular"])
+    router = SolverRouter(params, shadow_rate=1.0, shadow_seed=0,
+                          shadow_budget_per_tick=1)
+    router.set_table({("64x8", params.eps_abs): "admm"})
+    sink = obs.HarvestSink(None)
+    before = counts_of(tk.admm_segment)
+    with SolveService(params, max_batch=16, max_wait_ms=2.0,
+                      continuous=continuous, warm_start=False,
+                      router=router, retry=RetryPolicy(),
+                      obs=obs.Observability(), harvest=sink,
+                      slo=obs.SLOEngine(), device="cuda") as svc:
+        n_prewarm = svc.prewarm(reqs[0])
+        results = [svc.result(t, timeout=300)
+                   for t in [svc.submit(q) for q in reqs]]
+        counts = [a - b for a, b in zip(counts_of(tk.admm_segment), before)]
+        router.force("pdhg")
+        flipped = [svc.solve(q, timeout=300) for q in reqs[:8]]
+        snap = svc.snapshot()
+    served = [r for r in sink.buffered() if r["source"] != "serve.shadow"]
+    shadows = [r for r in sink.buffered() if r["source"] == "serve.shadow"]
+    assert counts[1] > 0 and counts[2] == 0
+    assert all(r.found and r.device == "cuda:0" for r in results + flipped)
+    assert len(served) == 64 + 8
+    assert {r["device"] for r in served} == {"cuda:0"}
+    assert [r["solver"] for r in served] == ["admm"] * 64 + ["pdhg"] * 8
+    assert bool(shadows) != continuous
+    assert all(r["solver"] in ("pdhg", "napg") for r in shadows)
+    assert snap["compiles"] == n_prewarm
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("form", ["factored_refine0", "triangular"])
 def test_compacted_solve_on_card_walks_the_ladder(form):
     """A compacted tracking batch (24 dates of 60 assets, eps 1e-4,

@@ -42,6 +42,16 @@ RIDGE = 1e-3
 ADMM = dict(eps_abs=1e-3, eps_rel=1e-3, polish=False, max_iter=400)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def problems(dtype, case):
     """B ridge tracking problems (N assets, a T-day window, box
     [0, 0.3]) as numpy ``CanonicalQP`` fields, plus the L1 pair

@@ -116,13 +116,3 @@ def test_corrupt_feed_poisons_a_copy_of_the_tensors():
         assert torch.isnan(bad.q).sum() == (lanes or 1)
         assert torch.equal(qp.q, q_before)
         assert bad.P is qp.P
-
-
-def test_retry_names_are_not_ported():
-    import porqua_tpu_torch.resilience as res
-
-    for name in ("RetryPolicy", "RetryManager", "validate_result"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            getattr(res, name)
-    with pytest.raises(AttributeError):
-        res.NoSuchName

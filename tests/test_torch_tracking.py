@@ -249,7 +249,9 @@ def test_ridge_and_window_gradients_through_the_build_match_jax():
 def test_port_imports_no_jax():
     """The port imports every module, solves, runs a batched backtest,
     a chained scan, a crashed and resumed checkpointed scan, a solve
-    service round trip in both batching modes, a compacted solve, PDHG
+    service round trip in both batching modes, a routed, retried and
+    observed service (every production option, ``/metrics`` up) and
+    the workload library's selftest, a compacted solve, PDHG
     and NAPG solves with rings, a sketch-fed tracking_step, a backward
     through solve_qp_diff and solve_qp_l1_diff, compare_solvers' ipm-f64
     and native-cpp-admm rows and an Optimization with
@@ -313,6 +315,25 @@ def test_port_imports_no_jax():
         "[svc.submit(q) for q in reqs]]\n"
         "    assert [r.status for r in rs] == [1] * 4, rs\n"
         "    assert svc.snapshot()['completed'] == 4\n"
+        "from porqua_tpu_torch import obs\n"
+        "from porqua_tpu_torch.resilience import RetryPolicy\n"
+        "from porqua_tpu_torch.serve import SolverRouter, workloads\n"
+        "router = SolverRouter(SERVE_PARAMS, shadow_rate=1.0)\n"
+        "router.set_table({('32x8', SERVE_PARAMS.eps_abs): 'pdhg'})\n"
+        "sink = obs.HarvestSink(None)\n"
+        "with SolveService(SERVE_PARAMS, max_batch=4, device='cpu', "
+        "router=router, retry=RetryPolicy(), obs=obs.Observability(), "
+        "harvest=sink, slo=obs.SLOEngine(), flight=obs.FlightRecorder(), "
+        "anomaly=obs.AnomalyDetector({}), calibrator=obs.Calibrator(), "
+        "tenant_slos=obs.TenantSLOSet()) as svc:\n"
+        "    svc.prewarm(reqs[0])\n"
+        "    rs = [svc.solve(q, timeout=60, tenant='a') for q in reqs]\n"
+        "    assert svc.start_http() > 0 and svc.vitals()['threads'] > 0\n"
+        "assert all(r.found for r in rs) and svc.snapshot()['routed_pdhg'] "
+        "== 4\n"
+        "assert {r['source'] for r in sink.buffered()} == {'serve', "
+        "'serve.shadow'}\n"
+        "workloads.selftest()\n"
         "from porqua_tpu_torch.compaction import CompactingDriver\n"
         "p5 = pt.SolverParams(polish=False, eps_abs=1e-5, eps_rel=1e-5, "
         "backend='pallas')\n"
