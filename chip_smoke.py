@@ -87,7 +87,18 @@ printed):
    backwards as controls, and ``compare_solvers`` (device rows on the
    card, the f64 IPM, the native C++ core built here, SLSQP) with the
    f32 row through the triangular-inverse kernel.
-10. One JSON line per kernel, then the card line, then the result line.
+10. The routed, retried and observed service (``routed_serve_phase``):
+   phase 7's stream through a ``SolverRouter`` with retries, spans,
+   harvest, SLOs, flight recorder and anomaly detection, the
+   three-tenant blend, the calibration and chaos cells.
+11. The device-cost plane (``cost_phase``): phase 7's stream through
+   the triangular-inverse and the factored kernel with CostRecords of
+   every built entry (their flops, bytes, peak memory and kernel part
+   held against the launches), a per-dispatch roofline on every
+   harvest record, a bounded profiler window over the burst, the
+   roofline verdict, the text report, the run ledger and a fleet of
+   two services on the card.
+12. One JSON line per kernel, then the card line, then the result line.
 """
 
 import dataclasses
@@ -221,6 +232,20 @@ BLEND_MAX_BATCH = 16
 CHAOS_ATOL = 5e-4
 POISON_SHADOW_RATE = 0.125
 ON_OFF_WIDTH = 128
+# Phase 10's routers run with the device-cost plane off. The plane
+# counts every aten op of each entry's warm-up through a
+# TorchDispatchMode, and NAPG's ladder runs its row-by-row projection
+# there (thousands of small ops per entry), so counting makes the
+# routers' prewarm several times longer. Phase 10 tests routing, not
+# cost; phase 11 runs the plane on phase 7's stream, and prints the
+# prewarm with the plane on and off.
+ROUTER_COST_LOG = False
+# Phase 11 (the device-cost plane): the services' batching wait, long
+# enough that a burst of 512 forms two full batches of 256 (so the
+# plane-on and plane-off services dispatch the same batches and must
+# serve the same bits), and the profiler window over the burst.
+COST_MAX_WAIT_MS = 2000.0
+COST_WINDOW_S = 4.0
 TE_DRIFT = 1e-6
 # The backends' A/B: each alternate backend's median TE within
 # BACKEND_BAND of the ADMM arm's (bench_gate's config_pdhg/config_napg
@@ -317,56 +342,6 @@ def cuda_times(fn, warmup, reps):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return times
-
-
-def work(name, args, kw):
-    """(flops, bytes) the kernel's function needs for this call: every
-    matvec of every iteration, each input read once (L^-1: its lower
-    triangle, V and Dv only when refining), each output written once.
-    Elementwise updates (~30 flops per entry) are left out: under 1%."""
-    if name.startswith("admm_segment_factored"):
-        W, inv_d, Y0, Ginv, V, Dv, C = args[:7]
-        B, k, n = W.shape
-        m = C.shape[-2]
-        r = kw["refine_steps"]
-        per_iter = 4 * k * n * (1 + 2 * r) + 2 * m * n * 3 + 2 * m * m + 2 * n * m
-        inputs = [a for i, a in enumerate(args) if r or i not in (4, 5)]
-        nbytes = sum(a.numel() for a in inputs) * 4
-    else:
-        op, C = args[:2]
-        B, n, _ = op.shape
-        m = C.shape[-2]
-        if kw["triangular"]:
-            per_iter = 2 * n * (n + 1) + 4 * m * n
-            op_bytes = B * n * (n + 1) // 2 * 4
-        else:
-            per_iter = 2 * n * n + 4 * m * n
-            op_bytes = op.numel() * 4
-        nbytes = op_bytes + sum(a.numel() for a in args[1:]) * 4
-    nbytes += B * (5 * n + 3 * m) * 4     # x z w y mu dx dy dmu
-    return B * kw["n_iters"] * per_iter, nbytes
-
-
-def traffic(name, args, kw):
-    """Device-memory bytes a kernel design moves per launch, from its
-    access pattern: the streaming forms read their operator on every
-    iteration (W twice, V twice more per refinement round, L^-1's lower
-    triangle twice, K^-1 once); the cluster forms read each input once.
-    All write each output once."""
-    once = work(name, args, kw)[1]
-    if "_cluster" in name:
-        return once
-    op = args[0]
-    if name.startswith("admm_segment_factored"):
-        r = kw["refine_steps"]
-        per_iter = (2 + 4 * r) * op.numel() * 4
-        counted = op.numel() * 4 * (1 + (r > 0))     # W (and V) once
-        return once + kw["n_iters"] * per_iter - counted
-    B, n, _ = op.shape
-    op_bytes = (B * n * (n + 1) // 2 * 4 if kw["triangular"]
-                else op.numel() * 4)
-    reads = 2 if kw["triangular"] else 1
-    return once + (reads * kw["n_iters"] - 1) * op_bytes
 
 
 def ptxas_lines(log):
@@ -654,11 +629,11 @@ def backtest_phase(rows, reset_counts):
             check(ok, f"{rname} agrees with its plain twin: per output "
                   f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} |plain-f64| + "
                   f"{tfloor:.3g} scale")
-            flops, nbytes = work(rname, args, kw)
+            flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
             ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, 5)
-            moved = traffic(rname, args, kw)
+            moved = admm_kernel.launch_traffic(rname, args, kw)
             smem, active = cluster_shape(dense, args, kw)
             rows[(name, form)] = {
                 "name": rname,
@@ -707,11 +682,11 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches):
     ok, err, rel, tfloor = check_twin(out_k, out_p, out_64, kw, out_cpu)
     check(ok, f"{rname} agrees with its plain twin: per output |kernel-f64| "
           f"<= {KERNEL_VS_PLAIN:g} |plain-f64| + {tfloor:.3g} scale")
-    flops, nbytes = work(rname, args, kw)
+    flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
     plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, 5)
-    moved = traffic(rname, args, kw)
+    moved = admm_kernel.launch_traffic(rname, args, kw)
     dense = fn is admm_kernel.admm_segment
     smem, active = cluster_shape(dense, args, kw)
     rows[key] = {
@@ -2645,7 +2620,7 @@ def calibration_cells(device, label):
     def service(clk, shadow_rate, **kw):
         sink = obs.HarvestSink(None)
         router = SolverRouter(params, shadow_rate=shadow_rate,
-                              shadow_seed=0)
+                              shadow_seed=0, cost_log=ROUTER_COST_LOG)
         cal = obs.Calibrator(min_interval_s=0.0, min_samples=4,
                              win_rate=0.6, canary_dwell_s=5.0,
                              guard_window_s=30.0, clock=clk)
@@ -2867,7 +2842,7 @@ def chaos_cells(device, label):
 
     # solver_route_flap
     t0 = time.perf_counter()
-    router = SolverRouter(params)
+    router = SolverRouter(params, cost_log=ROUTER_COST_LOG)
     svc = SolveService(params, ladder=ladder, max_batch=8, max_wait_ms=5.0,
                        queue_capacity=256, router=router,
                        retry=RetryPolicy(), obs=obs.Observability(),
@@ -3051,7 +3026,8 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
         eps = params.eps_abs
         router = SolverRouter(params, shadow_rate=1.0 if budget else 0.0,
                               shadow_seed=0,
-                              shadow_budget_per_tick=budget)
+                              shadow_budget_per_tick=budget,
+                              cost_log=ROUTER_COST_LOG)
         seeded = router.seed_from_aggregate(agg)
         snap0 = router.snapshot()
         check(snap0["table"] == rmeta["seeded"]
@@ -3226,7 +3202,7 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
     specs = workloads.parse_tenant_specs(bl["spec"])
     base = json.loads(str(golden["trinv/params"]))
     params = pt.SolverParams(**{**base, "backend": "pallas"})
-    router = SolverRouter(params)
+    router = SolverRouter(params, cost_log=ROUTER_COST_LOG)
     table = {(rmeta["blend_buckets"][s.name], params.eps_abs):
              bl["routes"][s.name] for s in specs}
     router.set_table(table)
@@ -3356,6 +3332,414 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
         added.append(key)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return added
+
+
+def _kernel_flops_of(tag, slots, wrapper, reqs, params, device):
+    """``launch_cost`` of one launch of ``wrapper`` at the entry width
+    ``slots``: the call the first segment of a batch of ``slots``
+    requests makes (only its shapes matter)."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    fn, args, kw = serve_kernel_call(reqs[:slots], params, device)
+    check(fn is wrapper,
+          f"[{tag}] the {slots}-slot entry launches {wrapper.__name__}")
+    return admm_kernel.launch_cost(fn.__name__, args, kw)[0]
+
+
+def _trace_kernels(path, name, exclude=None):
+    """(events, device microseconds) of the kernels in a Chrome trace
+    whose name contains ``name`` (and not ``exclude``)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    hits = [e for e in events if e.get("cat") == "kernel"
+            and name in str(e.get("name", ""))
+            and (exclude is None or exclude not in str(e.get("name", "")))]
+    return len(hits), sum(float(e.get("dur", 0.0)) for e in hits)
+
+
+def cost_phase(rows, reset_counts, device="cuda"):
+    """Phase 11: the device-cost plane on ``device`` (the card); returns
+    the kernel rows it adds to ``rows``.
+
+    Phase 7's north-star stream (512 requests x 500 assets, bucket
+    512 x 8, max_batch 256; max_wait long enough that the burst forms
+    two full batches, so two services dispatch the same batches) runs
+    through ``cost_trinv`` (K2) and ``cost_woodbury`` (K1 r0), each
+    served by a service with the plane on (``CostLog`` on disk,
+    ``HarvestSink``, ``Observability``, a ``StageProfiler``) and one
+    with ``cost_log=False``; prewarm seconds of both printed. Checks:
+    - one CostRecord per entry the ladder built, each on ``cuda:0``
+      with flops, bytes accessed and peak bytes above 0, the file on
+      disk holding the same records; each record's ``kernel_flops``
+      equal to the wrapper's launches at that width (counted from zero
+      before the prewarm) times ``launch_cost`` at that width; the op
+      hash equal for the same entry built by a second cache, and
+      different between the trinv and woodbury entries;
+    - every answer equal to ``serve_golden.npz`` by phase 7's rule, and
+      the plane-off service's answers the same bits;
+    - every harvest record a ``profile`` with ``cost_source`` "torch"
+      and the MFU fields of the card's peaks;
+    - a ``ProfileWindow`` over the burst stops by its timer and writes a
+      trace that names the kernel with device time;
+    - ``roofline_verdict`` with the card's ridge point and a ranking,
+      ``render_report`` with all nine sections, a ledger row appended,
+      read back and its rolling median;
+    - a ``FleetCollector`` over two ``WorkerStream``s, fed by two
+      services sharing the card and splitting the stream, reconciles:
+      fleet completed = the workers' completed = their harvest
+      records; zero compiles after prewarm on both."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.obs import devprof
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.profiling import device_peaks
+    from porqua_tpu_torch.serve import (BucketLadder, ExecutableCache,
+                                        SolveService, slot_ladder)
+    from porqua_tpu_torch.serve.loadgen import build_tracking_requests
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, SERVE_PATH))
+    meta = json.loads(str(golden["meta"]))
+    n = meta["n_assets"]
+    dev = torch.device(device)
+    label = f"{dev.type}:{dev.index or 0}"
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    runs = (("cost_trinv", "trinv", K2, "dense_cluster_kernel", None),
+            ("cost_woodbury", "woodbury", K1, "cluster_kernel",
+             "dense_cluster_kernel"))
+    requests = {factor: build_tracking_requests(
+        meta["n_requests"], n, meta["window"], meta["seed"], factor)
+        for factor in (False, True)}
+    tmp = tempfile.mkdtemp(prefix="porqua-phase11-")
+    ladder = slot_ladder(STREAM_MAX_BATCH)
+    launches, calls, hashes = {}, {}, {}
+    # The counter's first use imports torch's dispatch-mode and flop
+    # counting machinery, once per process: paid here, so that the
+    # prewarm times below compare the plane on and off.
+    t0 = time.perf_counter()
+    devprof.count_call(torch.matmul, torch.ones(2, 2, device=dev),
+                       torch.ones(2, 2, device=dev))
+    print(f"phase 11: the cost counter's first use (imports) "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    def burst(svc, reqs):
+        tickets = [svc.submit(q) for q in reqs]
+        return [svc.result(t, timeout=600) for t in tickets]
+
+    def service(params, **kw):
+        return SolveService(params, max_batch=STREAM_MAX_BATCH,
+                            max_wait_ms=COST_MAX_WAIT_MS, warm_start=False,
+                            device=device, **kw)
+
+    for tag, config, wrapper, kname, kexclude in runs:
+        t_run = time.perf_counter()
+        p = json.loads(str(golden[f"{config}/params"]))
+        params = pt.SolverParams(**{**p, "backend": "pallas"})
+        reqs = requests[config == "woodbury"]
+        calls[tag] = (params, reqs)
+        bucket = BucketLadder().select(reqs[0])
+
+        # -- prewarm with the plane off, then on -------------------------
+        off = service(params, cost_log=False)
+        t0 = time.perf_counter()
+        off.prewarm(reqs[0])
+        prewarm_off = time.perf_counter() - t0
+        check(off.cache.cost_records() == [],
+              f"[{tag}] cost_log=False harvests nothing")
+        log_path = os.path.join(tmp, f"{tag}.costs.jsonl")
+        log = obs.CostLog(log_path)
+        sink = obs.HarvestSink(None)
+        o = obs.Observability()
+        profiler = obs.StageProfiler()
+        on = service(params, cost_log=log, harvest=sink, obs=o,
+                     profiler=profiler)
+        reset_counts()
+        t0 = time.perf_counter()
+        n_prewarm = on.prewarm(reqs[0])
+        prewarm_on = time.perf_counter() - t0
+        widths = dict(wrapper.widths)
+        records = sorted(on.cache.cost_records(), key=lambda r: r["slots"])
+        log.flush()
+        on_disk = devprof.load_cost_records(log_path)
+        print(f"{tag}: prewarm {n_prewarm} entries, plane off "
+              f"{prewarm_off:.3f} s, plane on {prewarm_on:.3f} s; "
+              f"warm-up launches by width {widths}", flush=True)
+        for r in records:
+            print(f"  {r['entry']} x{r['slots']}: flops {r['flops']:.6g} "
+                  f"(kernel {r['kernel_flops']:.6g}, share "
+                  f"{r['kernel_flops'] / r['flops']:.4f}), bytes "
+                  f"{r['bytes_accessed']:.6g} (kernel "
+                  f"{r['kernel_bytes']:.6g}, share "
+                  f"{r['kernel_bytes'] / r['bytes_accessed']:.4f}), peak "
+                  f"{r['peak_bytes']} B (temp {r['temp_bytes']}), "
+                  f"segments {r['segments']}, launches "
+                  f"{r['kernel_launches']}, hash {r['hlo_hash']}, "
+                  f"warm-up {r['compile_s']:.3f} s", flush=True)
+        check(len(records) == n_prewarm == len(ladder)
+              and [r["slots"] for r in records] == list(ladder)
+              and all(r["entry"] == "solve" and r["device"] == label
+                      and r["cost_source"] == "torch" for r in records),
+              f"[{tag}] one CostRecord per built entry ({len(records)} "
+              f"for {n_prewarm}), every one {label}")
+        check(all(r["flops"] > 0 and r["bytes_accessed"] > 0
+                  for r in records),
+              f"[{tag}] every record has flops and bytes accessed above 0")
+        check(all((r["peak_bytes"] or 0) > 0 for r in records),
+              f"[{tag}] every record has peak bytes above 0")
+        check(len(on_disk) == len(records) and sorted(
+            (r["slots"], r["hlo_hash"]) for r in on_disk) == [
+            (r["slots"], r["hlo_hash"]) for r in records],
+              f"[{tag}] the CostLog on disk holds the same {len(on_disk)} "
+              f"records")
+        want = {s: widths.get(s, 0) * _kernel_flops_of(tag, s, wrapper, reqs,
+                                                       params, dev)
+                for s in ladder}
+        got = {r["slots"]: r["kernel_flops"] for r in records}
+        counted = {r["slots"]: sum(r["kernel_launches"].values())
+                   for r in records}
+        check(got == want and counted == {s: widths.get(s, 0)
+                                          for s in ladder}
+              and all(v > 0 for v in widths.values())
+              and set(widths) == set(ladder),
+              f"[{tag}] kernel_flops = launches x launch_cost at every "
+              f"width (launches {widths}; mismatch "
+              f"{ {s: (got[s], want[s]) for s in ladder if got[s] != want[s]} })")
+        twin = ExecutableCache(params)
+        twin.get(bucket, ladder[-1], torch.float32, dev)
+        again = twin.cost_record_for(bucket, ladder[-1], torch.float32,
+                                     device_label=label)
+        hashes[tag] = records[-1]["hlo_hash"]
+        check(again is not None and again["hlo_hash"] == hashes[tag],
+              f"[{tag}] the same entry built by a second cache has the "
+              f"same op hash ({hashes[tag]})")
+        gauges = on.cache.prometheus_gauges()["bucket_peak_bytes"]
+        check(len(gauges) == 1 and gauges[0][1] == max(
+            r["peak_bytes"] for r in records),
+              f"[{tag}] /metrics' bucket_peak_bytes is the bucket's "
+              f"largest peak ({gauges})")
+
+        # -- the burst: plane on under a profiler window, then off --------
+        on.start()
+        off.start()
+        try:
+            window = devprof.ProfileWindow(os.path.join(tmp, f"{tag}.trace"),
+                                           window_s=COST_WINDOW_S)
+            reset_counts()
+            window.start()
+            t0 = time.perf_counter()
+            res = burst(on, reqs)
+            burst_s = time.perf_counter() - t0
+            launches[tag] = {"cluster": wrapper.cluster_launches,
+                             "stream": wrapper.stream_launches}
+            deadline = time.monotonic() + COST_WINDOW_S + 60.0
+            while window.state == "tracing" and time.monotonic() < deadline:
+                time.sleep(0.1)
+            stopped_by_timer = window.stopped_by == "timer"
+            res_off = burst(off, reqs)
+            snap = on.snapshot()
+            health = on._health_payload()
+        finally:
+            window.stop()
+            on.stop()
+            off.stop()
+        status = np.array([r.status for r in res])
+        iters = np.array([r.iters for r in res])
+        x = np.stack([r.x for r in res])
+        x_off = np.stack([r.x for r in res_off])
+        dx = np.abs(x - golden[f"{config}/x"]).max(axis=1)
+        eps = params.eps_abs
+        budget_err = float(np.abs(x.sum(axis=1) - 1.0).max())
+        box = float(max(-x.min(), x.max() - 1.0, 0.0))
+        print(f"{tag}: burst of {len(res)} in {burst_s * 1e3:.1f} ms "
+              f"({len(res) / burst_s:.1f} solves/s, plane on, profiler "
+              f"window open); launches {launches[tag]}; max|dx| "
+              f"{float(dx.max()):.3e}", flush=True)
+        check(np.array_equal(status, golden[f"{config}/status"])
+              and np.array_equal(iters, golden[f"{config}/iters"])
+              and bool(np.isfinite(x).all()) and float(dx.max()) <= W_ATOL
+              and budget_err <= eps and box <= eps,
+              f"[{tag}] {len(res)}/{len(res)} answers equal serve_golden "
+              f"(status, iterations, max|dx| {float(dx.max()):.3e} <= "
+              f"{W_ATOL:g}, budget and box to eps_abs)")
+        check(np.array_equal(x, x_off) and [r.status for r in res_off]
+              == status.tolist() and [r.iters for r in res_off]
+              == iters.tolist(),
+              f"[{tag}] the plane-off service serves the same bits")
+        check(launches[tag]["cluster"] > 0 and launches[tag]["stream"] == 0,
+              f"[{tag}] the burst launched the cluster form, never the "
+              f"streaming one ({launches[tag]})")
+        check(snap["compiles"] == n_prewarm and snap["completed"] == len(res)
+              and all(s == 0 for s in (snap["failed"], snap["expired"],
+                                       snap["rejected"])),
+              f"[{tag}] no compile after prewarm, every request completed")
+        check(health["cache"].get("cost_records") == len(records)
+              and health["cache"].get("cost_write_failures") == 0,
+              f"[{tag}] /healthz's cache section carries the cost "
+              f"counters ({ {k: health['cache'].get(k) for k in ('cost_records', 'cost_write_failures')} })")
+        harvest = sink.buffered()
+        profs = [h.get("profile") or {} for h in harvest]
+        peak_f, peak_bw = device_peaks(kind)
+        check(len(harvest) == len(res) and all(
+            pr.get("cost_source") == "torch"
+            and pr.get("flops_xla", 0) > 0 and pr.get("bytes_xla", 0) > 0
+            for pr in profs),
+              f"[{tag}] every harvest record has a profile from the "
+              f"entry's CostRecord (cost_source torch)")
+        check(peak_f is not None and all(
+            "mfu_f32_est" in pr and "mfu_bf16_peak" in pr
+            and "hbm_utilization" in pr for pr in profs),
+              f"[{tag}] every profile has MFU fields against the card's "
+              f"peaks ({kind!r})")
+        if profs and "mfu_f32_est" in profs[0]:
+            print(f"{tag}: dispatch profile: "
+                  f"{ {k: profs[0].get(k) for k in ('seconds', 'batch', 'flops_xla', 'bytes_xla', 'flops_model_ratio', 'bytes_model_ratio', 'achieved_tflops', 'achieved_hbm_gbps', 'mfu_f32_est', 'hbm_utilization', 'roofline_bound', 'peak_bytes')} }",
+                  flush=True)
+        n_k, dev_us = (_trace_kernels(window.trace_file, kname, kexclude)
+                       if window.trace_file else (0, 0.0))
+        print(f"{tag}: profiler window {COST_WINDOW_S:g} s, state "
+              f"{window.state}, stopped by its timer {stopped_by_timer}, "
+              f"error {window.error}; {n_k} {kname} events, "
+              f"{dev_us / 1e3:.3f} ms of device time", flush=True)
+        check(stopped_by_timer and window.error is None
+              and window.trace_file is not None,
+              f"[{tag}] the ProfileWindow stopped by its timer and wrote "
+              f"its trace")
+        check(n_k > 0 and dev_us > 0,
+              f"[{tag}] the trace names the kernel {kname} with device "
+              f"time")
+
+        # -- the readers ---------------------------------------------------
+        stages = profiler.stage_seconds()
+        verdict = obs.roofline_verdict(records, stage_seconds=stages,
+                                       device_kind=kind)
+        ridge = (peak_f / peak_bw) if peak_f else None
+        check(len(verdict["ranked"]) == len(records)
+              and verdict["ranked"][0].get("stage_seconds")
+              and verdict["fusion_candidates"],
+              f"[{tag}] roofline_verdict ranks {len(verdict['ranked'])} "
+              f"entries joined to the stage seconds; {verdict['verdict']}")
+        check(ridge is not None
+              and verdict["ridge_flops_per_byte"] == ridge,
+              f"[{tag}] roofline_verdict's ridge point "
+              f"{verdict['ridge_flops_per_byte']} flop/B is the card's "
+              f"peaks'")
+        text = obs.render_report(trace=o.spans.chrome_trace(),
+                                 events=o.events.events(), snapshot=snap,
+                                 harvest=harvest, costs=records)
+        sections = text.split("\n" + "-" * 64 + "\n")
+        check(len(sections) == 9 and "measured-vs-model" in text
+              and f"device cost / memory ({len(records)} CostRecords)"
+              in text and f"({len(harvest)} records)" in text,
+              f"[{tag}] render_report renders every section "
+              f"({len(sections)})")
+        ledger_path = os.path.join(tmp, "ledger.jsonl")
+        row = obs.ledger_row(
+            "serve_loadgen", {"throughput_solves_per_s": len(res) / burst_s,
+                        "recompiles_after_warmup": 0, "errors": 0},
+            run_id=tag)
+        obs.append_row(ledger_path, row)
+        rows_back = obs.load_ledger(ledger_path)
+        med = obs.rolling_median(rows_back, "throughput_solves_per_s")
+        check(rows_back[-1] == json.loads(json.dumps(row))
+              and med is not None and med > 0,
+              f"[{tag}] a ledger row appended and read back (rolling "
+              f"median {med})")
+        fleet = _fleet_cell(tag, params, reqs, tmp, device)
+        check(fleet["reconciled"] and fleet["fleet"]["completed"] == len(reqs)
+              == fleet["fleet"]["harvest_records"]
+              == sum(r.get("completed", 0) for r in fleet["rows"])
+              and fleet["fleet"]["recompiles_after_warmup"] == 0
+              and not fleet["workers_lost"],
+              f"[{tag}] two workers on the card reconcile: fleet completed "
+              f"{fleet['fleet']['completed']}, harvest "
+              f"{fleet['fleet']['harvest_records']}, recompiles "
+              f"{fleet['fleet']['recompiles_after_warmup']}")
+        print(f"{tag}: {time.perf_counter() - t_run:.1f} s", flush=True)
+    check(hashes["cost_trinv"] != hashes["cost_woodbury"],
+          "the trinv and woodbury entries have different op hashes")
+
+    added = []
+    for key, rname, base, tag in (
+            ("cost_k2", "admm_segment[triangular]_cluster, cost plane",
+             ("trinv", "cluster"), "cost_trinv"),
+            ("cost_k1", "admm_segment_factored_cluster[refine=0], cost plane",
+             ("woodbury", "cluster"), "cost_woodbury")):
+        params, reqs = calls[tag]
+        fn, args, kw = serve_kernel_call(reqs[:STREAM_MAX_BATCH], params, dev)
+        kernel_row(rows, key, rname, base, fn, args, kw,
+                   launches[tag]["cluster"])
+        added.append(key)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return added
+
+
+def _fleet_cell(tag, params, reqs, tmp, device):
+    """Two services on ``device``, each a worker of a FleetCollector
+    with its own WorkerStream, serving alternate requests of ``reqs``;
+    returns the collector's merged report."""
+    from porqua_tpu_torch import obs
+    from porqua_tpu_torch.serve import SolveService
+    from porqua_tpu_torch.serve.metrics import LATENCY_BUCKETS_S
+
+    collector = obs.FleetCollector(heartbeat_timeout_s=600.0)
+    workers = []
+    for i in range(2):
+        wid = f"w{i}"
+        path = os.path.join(tmp, f"{tag}.{wid}.jsonl")
+        collector.add_worker(wid, path)
+        stream = obs.WorkerStream(path, wid)
+        stream.hello(latency_le=LATENCY_BUCKETS_S, worker_idx=i,
+                     n_workers=2)
+        sink = obs.HarvestSink(None)
+        svc = SolveService(params, max_batch=STREAM_MAX_BATCH,
+                           max_wait_ms=2.0, warm_start=False, harvest=sink,
+                           device=device)
+        workers.append((wid, stream, sink, svc))
+    try:
+        prewarmed = {}
+        for wid, stream, sink, svc in workers:
+            svc.start()
+            prewarmed[wid] = svc.prewarm(reqs[0])
+            svc.metrics.reset_window()
+        t0 = time.perf_counter()
+        tickets = [(workers[i % 2][3], workers[i % 2][3].submit(q))
+                   for i, q in enumerate(reqs)]
+        for svc, t in tickets:
+            svc.result(t, timeout=600)
+        measured = time.perf_counter() - t0
+        for wid, stream, sink, svc in workers:
+            snap = svc.snapshot()
+            stream.sample(svc.metrics.slo_sample(),
+                          hist=svc.metrics.histograms(),
+                          snap={k: snap[k] for k in ("submitted", "batches",
+                                                     "compiles")},
+                          vitals=svc.vitals())
+            stream.report({
+                "worker": wid, "completed": snap["completed"],
+                "failed": snap["failed"], "expired": snap["expired"],
+                "harvest_records": sink.records,
+                "recompiles_after_warmup": snap["compiles"],
+                "prewarm_compiles": prewarmed[wid],
+                "throughput_solves_per_s": snap["completed"] / measured})
+        collector.drain()
+        report = collector.report()
+        print(f"{tag}: fleet of 2 on the card: completed "
+              f"{report['fleet']['completed']}, harvest "
+              f"{report['fleet']['harvest_records']}, "
+              f"{report['fleet']['throughput_solves_per_s']:.1f} solves/s, "
+              f"reconciliation {report['reconciliation']}", flush=True)
+        return report
+    finally:
+        for wid, stream, sink, svc in workers:
+            svc.stop()
+            stream.close()
 
 
 def shadow_rule(lanes, golden, check_interval):
@@ -3521,7 +3905,7 @@ def main():
             rname = row_name(name, form)
             print(f"kernel {rname} against its plain twin:", flush=True)
             ok, err, rel, floor = check_twin(out_k, out_p, out_64, kw)
-            flops, nbytes = work(rname, args, kw)
+            flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
             rows[(name, form)] = {
                 "name": rname,
@@ -3555,7 +3939,7 @@ def main():
         for form in forms:
             row = rows[(name, form)]
             row["ms"] = statistics.median(samples[form])
-            moved = traffic(row["name"], args, kw)
+            moved = admm_kernel.launch_traffic(row["name"], args, kw)
             print(f"time {row['name']}: kernel {row['ms']:.4f} ms "
                   f"(turn medians "
                   f"{statistics.median(samples[form][:10]):.4f}, "
@@ -3662,6 +4046,9 @@ def main():
     # -- 10. the routed, retried and observed service ----------------------
     kernel_rows += routed_serve_phase(rows, reset_counts,
                                       bare_bursts=bare_bursts)
+
+    # -- 11. the device-cost plane -----------------------------------------
+    kernel_rows += cost_phase(rows, reset_counts)
 
     # -- report ----------------------------------------------------------
     if FAILURES:

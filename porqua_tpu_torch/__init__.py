@@ -52,6 +52,8 @@ from porqua_tpu_torch.checkpoint import (
     run_batch_checkpointed,
     solve_scan_l1_checkpointed,
 )
+from porqua_tpu_torch.obs import Observability
+from porqua_tpu_torch.serve import SolveService
 from porqua_tpu_torch.synthetic import synthetic_usa_np
 from porqua_tpu_torch.tracking import (
     TrackingResult,
@@ -75,6 +77,7 @@ __all__ = [
     "solve_batch_compacted", "CompactingDriver", "CompactionReport",
     "run_batch_checkpointed", "solve_scan_l1_checkpointed",
     "compare_solvers", "available_backends",
+    "Observability", "SolveService",
     "synthetic_usa_np",
     "TrackingResult", "build_tracking_qp", "synthetic_universe_np",
     "tracking_step",

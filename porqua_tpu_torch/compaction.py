@@ -64,6 +64,7 @@ from porqua_tpu_torch.qp.solve import (
     segment_step_batch,
     select_lanes,
 )
+from porqua_tpu_torch.serve.batcher import device_kind, device_label
 from porqua_tpu_torch.serve.bucketing import slot_ladder
 
 __all__ = [
@@ -143,10 +144,9 @@ class CompactionReport:
     dispatch_sizes: Tuple[int, ...]
     compiles: int                  # entries built during this solve
     max_iter_lanes: int            # lanes graded MAX_ITER after polish
-    # Per-solve stage seconds (init / segment_step / finalize) and the
-    # solve's wall seconds. The JAX package also attaches a roofline
-    # estimate (obs.profile.qp_solve_profile), not ported yet (ROADMAP
-    # item 19).
+    # Per-solve stage/roofline profile (obs.profile.qp_solve_profile:
+    # the analytic model against the solve's wall seconds, with the
+    # init / segment_step / finalize stage seconds).
     profile: Optional[dict] = None
 
     @property
@@ -413,6 +413,11 @@ class CompactingDriver:
         executed = int(sum(sizes))
         with self._lock:
             compiled = self.compiles - compiles0
+        profile = _profile.qp_solve_profile(
+            n, m, float(iters.mean()) if iters.size else 0.0, solve_wall,
+            params=self.params, batch=B, factor_rows=fr,
+            device_kind=device_kind(device_label(dev)),
+            stage_seconds=stage_s)
         report = CompactionReport(
             batch=B,
             segments=len(sizes),
@@ -424,7 +429,7 @@ class CompactingDriver:
             dispatch_sizes=tuple(sizes),
             compiles=compiled,
             max_iter_lanes=int(np.sum(status == Status.MAX_ITER)),
-            profile={"seconds": solve_wall, "stage_seconds": stage_s},
+            profile=profile,
         )
         return sol, report
 

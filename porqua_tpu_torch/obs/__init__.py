@@ -14,18 +14,32 @@
 * Prometheus exposition with a stdlib ``/metrics`` + ``/healthz``
   endpoint (:mod:`~porqua_tpu_torch.obs.exposition`) and process vitals
   (:mod:`~porqua_tpu_torch.obs.vitals`).
+* The device-cost plane (:mod:`~porqua_tpu_torch.obs.devprof`): one
+  CostRecord per compiled serving entry (its counted warm-up: flops,
+  bytes, peak memory, an op-sequence hash), the ``CostLog``
+  warehouse, a bounded ``torch.profiler`` window and the roofline
+  verdict.
+* The readers: the text report (:mod:`~porqua_tpu_torch.obs.report`),
+  the run ledger (:mod:`~porqua_tpu_torch.obs.ledger`) and the fleet
+  federation (:mod:`~porqua_tpu_torch.obs.federation`).
 
 :class:`Observability` bundles one span recorder and one event bus;
 pass it to ``SolveService(obs=...)``. Everything here is host code: it
-changes nothing the card runs. Not ported yet: the device-cost plane
-(``devprof``, ROADMAP item 19) and the fleet federation, run ledger and
-report modules.
+changes nothing the card runs.
 """
 
 from porqua_tpu_torch.obs.anomaly import AnomalyDetector
 from porqua_tpu_torch.obs.calibrate import Calibrator, replay_audit
+from porqua_tpu_torch.obs.devprof import (
+    CostLog,
+    ProfileWindow,
+    cost_record,
+    load_cost_records,
+    roofline_verdict,
+)
 from porqua_tpu_torch.obs.events import EventBus, load_jsonl
 from porqua_tpu_torch.obs.exposition import ObsHTTPServer, prometheus_text
+from porqua_tpu_torch.obs.federation import FleetCollector, WorkerStream
 from porqua_tpu_torch.obs.flight import FlightRecorder, load_bundle
 from porqua_tpu_torch.obs.harvest import (
     HarvestSink,
@@ -34,6 +48,12 @@ from porqua_tpu_torch.obs.harvest import (
     load_harvest,
     solve_record,
 )
+from porqua_tpu_torch.obs.ledger import (
+    append_row,
+    ledger_row,
+    load_ledger,
+    rolling_median,
+)
 from porqua_tpu_torch.obs.profile import (
     StageProfiler,
     annotate,
@@ -41,6 +61,7 @@ from porqua_tpu_torch.obs.profile import (
     profiled_stage,
     qp_solve_profile,
 )
+from porqua_tpu_torch.obs.report import render_report
 from porqua_tpu_torch.obs.rings import ring_history, solution_ring_history
 from porqua_tpu_torch.obs.slo import (
     SLO,
@@ -74,11 +95,14 @@ __all__ = [
     "AnomalyDetector",
     "BurnRateRule",
     "Calibrator",
+    "CostLog",
     "EventBus",
+    "FleetCollector",
     "FlightRecorder",
     "HarvestSink",
     "Observability",
     "ObsHTTPServer",
+    "ProfileWindow",
     "SLO",
     "SLOEngine",
     "Span",
@@ -86,20 +110,29 @@ __all__ = [
     "StageProfiler",
     "TenantSLOSet",
     "VitalsTrend",
+    "WorkerStream",
     "aggregate",
     "annotate",
+    "append_row",
     "chrome_counter_events",
+    "cost_record",
     "default_slos",
     "harvest_solution",
+    "ledger_row",
     "load_bundle",
+    "load_cost_records",
     "load_harvest",
     "load_jsonl",
+    "load_ledger",
     "process_vitals",
     "profiled_stage",
     "prometheus_text",
     "qp_solve_profile",
+    "render_report",
     "replay_audit",
     "ring_history",
+    "rolling_median",
+    "roofline_verdict",
     "solution_ring_history",
     "solve_record",
 ]

@@ -169,9 +169,8 @@ class FlightRecorder:
         an event-bus listener). ``params`` feeds the bundle's config
         fingerprint; ``extra_config`` rides along verbatim. ``cache``
         (an :class:`~porqua_tpu_torch.serve.bucketing.ExecutableCache`)
-        names the implicated bucket; its device-cost records are the
-        JAX package's XLA cost harvest, whose port is ROADMAP item 19,
-        so a bundle's ``cost_records`` is empty here."""
+        names the implicated bucket and supplies its CostRecords to
+        each bundle."""
         if metrics is not None:
             self.metrics = metrics
         if obs is not None:
@@ -338,9 +337,10 @@ class FlightRecorder:
             # anomalies), falling back to the whole harvested set
             # when the trigger names none. Bounded: a cache holds a
             # handful of executables per bucket, not per request.
-            # The device-cost harvest (obs/devprof.py) is item 19:
-            # no records to attach yet.
-            records: List[Dict[str, Any]] = []
+            try:
+                records = self.cache.cost_records()
+            except Exception:  # noqa: BLE001 - evidence, not dependency
+                records = []
             implicated = trigger.get("bucket")
             if implicated is not None:
                 # Exact bucket, or its factored variants ("NxM" events

@@ -10,9 +10,12 @@ exports the accumulated stage seconds as Chrome-trace counter tracks.
 Stage seconds cover dispatch and completion: the bracketed loops
 read a result on the host at every boundary.
 
-The per-solve roofline estimate :func:`qp_solve_profile` needs the
-flop model of ``profiling.py`` and the device-cost plane; it is not
-ported yet and raises.
+:func:`qp_solve_profile` is the per-dispatch MFU / bandwidth estimate:
+the analytic cost of the dispatched work
+(:func:`porqua_tpu_torch.profiling.admm_flop_model`), or the entry's
+counted warm-up where a CostRecord is given, against measured seconds
+and the card's published peaks. The harvest producers export it into
+SolveRecords (``profile`` field).
 """
 
 from __future__ import annotations
@@ -141,11 +144,94 @@ def chrome_counter_events(profiler: StageProfiler,
     } for t, name, cum in profiler.samples()]
 
 
-def qp_solve_profile(*args, **kwargs):
-    """The per-solve FLOPs/bytes estimate of the JAX package (its
-    ``profiling.admm_flop_model`` against the executable's cost
-    analysis): not ported yet."""
-    from porqua_tpu_torch.batch import _not_ported
+def qp_solve_profile(n: int, m: int, iters: float, seconds: float,
+                     params=None,
+                     batch: int = 1,
+                     factor_rows: Optional[int] = None,
+                     window: Optional[int] = None,
+                     device_kind: str = "",
+                     stage_seconds: Optional[Dict[str, float]] = None,
+                     cost: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
+    """FLOPs/bytes of the dispatched batch + achieved rates.
 
-    raise _not_ported("qp_solve_profile (profiling.py, obs/devprof.py)",
-                      "item 19")
+    ``seconds`` is the measured wall of the whole ``batch``-lane
+    dispatch; the analytic model
+    (:func:`porqua_tpu_torch.profiling.admm_flop_model`) multiplies
+    per-lane cost by ``batch``, so achieved figures describe the
+    dispatch, which every lane's record shares. ``window`` (or a
+    factored objective's ``factor_rows``, T for tracking problems)
+    re-enables the Gram-assembly accounting; the default 0 counts only
+    what a pure QP solve runs. MFU fields appear only for a card
+    :func:`~porqua_tpu_torch.profiling.device_peaks` knows (its name,
+    ``torch.cuda.get_device_name``); on the CPU the record carries the
+    cost and achieved rates alone.
+
+    ``cost`` is the dispatched entry's CostRecord
+    (:func:`porqua_tpu_torch.obs.devprof.cost_record`, looked up with
+    :meth:`~porqua_tpu_torch.serve.bucketing.ExecutableCache.
+    cost_record_for`). Where it carries counted flops/bytes they become
+    the numerators (``cost_source``: the record's, ``"torch"`` for the
+    port's), recorded under the JAX package's field names ``flops_xla``
+    and ``bytes_xla`` (here they hold the warm-up's harvested count,
+    not XLA's), with ``peak_bytes``; the analytic figures ride beside
+    as ``model_flops``/``model_bytes`` with their
+    ``flops_model_ratio``/``bytes_model_ratio``. Without ``cost`` the
+    model is the numerator (``cost_source: "model"``)."""
+    from porqua_tpu_torch.profiling import admm_flop_model, roofline_report
+    from porqua_tpu_torch.qp.admm import SolverParams
+
+    params = SolverParams() if params is None else params
+    T = int(window if window is not None
+            else (factor_rows if factor_rows is not None else 0))
+    model = admm_flop_model(
+        int(n), int(m), T, float(max(iters, 1.0)), int(batch),
+        check_interval=params.check_interval,
+        scaling_iters=params.scaling_iters,
+        scaling_mode=params.scaling_mode,
+        polish_passes=params.polish_passes if params.polish else 0,
+        linsolve="trinv" if params.linsolve == "auto" else params.linsolve,
+        woodbury_refine=params.woodbury_refine,
+    )
+    num_flops = model["flops_total"]
+    num_bytes = model["bytes_total"]
+    out: Dict[str, Any] = {
+        "seconds": float(seconds),
+        "batch": int(batch),
+        "cost_source": "model",
+    }
+    cost_flops = None if cost is None else cost.get("flops")
+    cost_bytes = None if cost is None else cost.get("bytes_accessed")
+    if cost_flops or cost_bytes:
+        from porqua_tpu_torch.obs.devprof import measured_rates
+
+        out["cost_source"] = str(cost.get("cost_source", "torch"))
+        out["model_flops"] = model["flops_total"]
+        out["model_bytes"] = model["bytes_total"]
+        out.update(measured_rates(cost,
+                                  model_flops=model["flops_total"],
+                                  model_bytes=model["bytes_total"]))
+        if cost_flops:
+            num_flops = float(cost_flops)
+            out["flops_xla"] = num_flops
+        if cost_bytes:
+            num_bytes = float(cost_bytes)
+            out["bytes_xla"] = num_bytes
+        if cost.get("peak_bytes") is not None:
+            out["peak_bytes"] = float(cost["peak_bytes"])
+    out["flops_est"] = num_flops
+    out["bytes_est"] = num_bytes
+    if seconds > 0:
+        roof = roofline_report(
+            {"flops_total": num_flops, "bytes_total": num_bytes},
+            float(seconds), device_kind)
+        out["achieved_tflops"] = roof["achieved_tflops"]
+        out["achieved_hbm_gbps"] = roof["achieved_hbm_gbps"]
+        for key in ("mfu_bf16_peak", "mfu_f32_est", "hbm_utilization",
+                    "roofline_bound"):
+            if key in roof:
+                out[key] = roof[key]
+    if stage_seconds:
+        out["stage_seconds"] = {k: round(v, 6)
+                                for k, v in stage_seconds.items()}
+    return out

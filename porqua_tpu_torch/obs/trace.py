@@ -30,6 +30,9 @@ import time
 from typing import Any, Dict, List, Optional
 
 from porqua_tpu_torch.analysis import tsan
+# The span-cover readers live with the report; imported here for the
+# callers that reach them through this module.
+from porqua_tpu_torch.obs.report import coverage_stats, span_coverage  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,44 +189,3 @@ class _SpanCtx:
     def __exit__(self, *exc) -> None:
         self._recorder.record(self._name, self._t0, time.monotonic(),
                               trace_id=self._trace_id, **self._args)
-
-
-def span_coverage(trace: Any) -> List[tuple]:
-    """Per-request ``(trace_id, spans_sum_s, extent_s)`` over a Chrome
-    trace object (or its event list): the summed span durations of each
-    trace id against its last-end minus first-start. A well
-    instrumented pipeline has the two within a few percent; a gap means
-    a stage lives outside any span. (A copy of the JAX package's
-    ``obs/report.py::span_coverage``; the report module itself is not
-    ported yet.)"""
-    events = (trace.get("traceEvents", []) if isinstance(trace, dict)
-              else list(trace or []))
-    per: Dict[str, List[tuple]] = {}
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        tid = (e.get("args") or {}).get("trace_id")
-        if tid is None:
-            continue
-        ts, dur = float(e.get("ts", 0.0)), float(e.get("dur", 0.0))
-        per.setdefault(tid, []).append((ts, dur))
-    out = []
-    for tid, spans in per.items():
-        total = sum(d for _, d in spans) * 1e-6
-        extent = (max(ts + d for ts, d in spans)
-                  - min(ts for ts, _ in spans)) * 1e-6
-        out.append((tid, total, extent))
-    return out
-
-
-def coverage_stats(trace: Any) -> Dict[str, float]:
-    """Median and minimum span-cover ratio of :func:`span_coverage`."""
-    cov = span_coverage(trace)
-    if not cov:
-        return {"n_traces": 0, "cover_median": 0.0, "cover_min": 0.0}
-    ratios = sorted(t / e if e > 0 else 1.0 for _, t, e in cov)
-    return {
-        "n_traces": len(ratios),
-        "cover_median": ratios[len(ratios) // 2],
-        "cover_min": ratios[0],
-    }

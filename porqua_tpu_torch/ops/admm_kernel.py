@@ -38,7 +38,9 @@ wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
 in a plain int attribute, ``launches``, and each form's own
 (``cluster_launches``, ``stream_launches``), and keeps them by batch
-width in a dict, ``widths`` (width -> launches).
+width in a dict, ``widths`` (width -> launches). Each launch also
+reports its :func:`launch_cost` to the device-cost counter that
+``obs/devprof.py`` has active on the calling thread, if any.
 """
 
 from __future__ import annotations
@@ -225,13 +227,75 @@ def _choose_form(kind, need_cluster, active_clusters, need_stream, n, m, k):
                                    limit, n, m, k))
 
 
-def _count(wrapper, form, width):
+def launch_cost(name, args, kw):
+    """(flops, bytes) one launch's function needs: every matvec of
+    every iteration, each input read once (L^-1: its lower triangle, V
+    and Dv only when refining), each output written once. Elementwise
+    updates (~30 flops per entry) are left out: under 1%. ``name``
+    starting with ``admm_segment_factored`` is K1, any other K2 or K3;
+    ``args``/``kw`` are the wrapper's. These counts are the bound of
+    ``chip_smoke.py``'s kernel rows and the kernel part of a
+    CostRecord (``obs/devprof.py``)."""
+    if name.startswith("admm_segment_factored"):
+        W, inv_d, Y0, Ginv, V, Dv, C = args[:7]
+        B, k, n = W.shape
+        m = C.shape[-2]
+        r = kw["refine_steps"]
+        per_iter = 4 * k * n * (1 + 2 * r) + 2 * m * n * 3 + 2 * m * m + 2 * n * m
+        inputs = [a for i, a in enumerate(args) if r or i not in (4, 5)]
+        nbytes = sum(a.numel() for a in inputs) * 4
+    else:
+        op, C = args[:2]
+        B, n, _ = op.shape
+        m = C.shape[-2]
+        if kw["triangular"]:
+            per_iter = 2 * n * (n + 1) + 4 * m * n
+            op_bytes = B * n * (n + 1) // 2 * 4
+        else:
+            per_iter = 2 * n * n + 4 * m * n
+            op_bytes = op.numel() * 4
+        nbytes = op_bytes + sum(a.numel() for a in args[1:]) * 4
+    nbytes += B * (5 * n + 3 * m) * 4     # x z w y mu dx dy dmu
+    return B * kw["n_iters"] * per_iter, nbytes
+
+
+def launch_traffic(name, args, kw):
+    """Device-memory bytes a kernel design moves per launch, from its
+    access pattern: the streaming forms (``name`` without ``_cluster``)
+    read their operator on every iteration (W twice, V twice more per
+    refinement round, L^-1's lower triangle twice, K^-1 once); the
+    cluster forms read each input once. All write each output once."""
+    once = launch_cost(name, args, kw)[1]
+    if "_cluster" in name:
+        return once
+    op = args[0]
+    if name.startswith("admm_segment_factored"):
+        r = kw["refine_steps"]
+        per_iter = (2 + 4 * r) * op.numel() * 4
+        counted = op.numel() * 4 * (1 + (r > 0))     # W (and V) once
+        return once + kw["n_iters"] * per_iter - counted
+    B, n, _ = op.shape
+    op_bytes = (B * n * (n + 1) // 2 * 4 if kw["triangular"]
+                else op.numel() * 4)
+    reads = 2 if kw["triangular"] else 1
+    return once + (reads * kw["n_iters"] - 1) * op_bytes
+
+
+def _count(wrapper, form, width, inputs, kw):
     wrapper.launches += 1
     wrapper.widths[width] = wrapper.widths.get(width, 0) + 1
     if form == "cluster":
         wrapper.cluster_launches += 1
     else:
         wrapper.stream_launches += 1
+    # Local import: the obs package imports the solver, which imports
+    # this module.
+    from porqua_tpu_torch.obs import devprof
+
+    counter = devprof.active_counter()
+    if counter is not None:
+        name = wrapper.__name__
+        counter.kernel(name, form, *launch_cost(name, inputs, kw))
 
 
 def dense_form(n: int, m: int, triangular: bool) -> str:
@@ -277,7 +341,9 @@ def _dense_on_card(form, inputs, *, sigma, alpha, n_iters, triangular):
         lib_name, fn_name = _DENSE_LAUNCHER[form]
         _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, n_iters), sigma, alpha, int(triangular))
-    _count(admm_segment, form, B)
+    _count(admm_segment, form, B, inputs,
+           dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
+                triangular=triangular))
     return tuple(outs)
 
 
@@ -363,7 +429,9 @@ def _factored_on_card(form, inputs, *, sigma, alpha, n_iters, refine_steps):
         lib_name, fn_name = _FACTORED_LAUNCHER[form]
         _launch(_library(lib_name), fn_name, stream, inputs, outs,
                 (B, n, m, k, n_iters), sigma, alpha, int(refine_steps))
-    _count(admm_segment_factored, form, B)
+    _count(admm_segment_factored, form, B, inputs,
+           dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
+                refine_steps=refine_steps))
     return tuple(outs)
 
 

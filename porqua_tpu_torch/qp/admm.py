@@ -331,6 +331,17 @@ def factored_solve_pieces(Dv, V):
     return inv_d, W
 
 
+def factored_spd_solve_operator(Dv, V, refine_steps: int = 1):
+    """Solve operator for the SPD matrix ``K = diag(Dv) + V' V`` by
+    Woodbury with the capacitance matrix ``S = I + (V D^-1) V'``
+    (k x k, k = V's rows): ``K^-1 r = D^-1 r - W'(W r)`` with
+    ``W = L_S^-1 (V D^-1)``, plus ``refine_steps`` rounds of iterative
+    refinement against the factor form (each multiplies the raw apply's
+    cond(K) * eps error by the same factor). Batched over leading axes."""
+    inv_d, W = factored_solve_pieces(Dv, V)
+    return factored_solve_from_pieces(Dv, V, inv_d, W, refine_steps)
+
+
 def factored_solve_from_pieces(Dv, V, inv_d, W, refine_steps: int = 1):
     """The Woodbury solve closure from already-built pieces, with
     ``refine_steps`` rounds of iterative refinement against
@@ -788,7 +799,8 @@ def run_segments(carry, segment, params: SolverParams) -> ADMMState:
     (``select_lanes``), so a finished lane is frozen exactly where the
     reference's vmapped while_loop leaves it. Returns the final state
     with RUNNING retired to MAX_ITER."""
-    # Local import: qp/solve.py imports this module.
+    # Local imports: qp/solve.py and the obs package import this module.
+    from porqua_tpu_torch.obs import devprof
     from porqua_tpu_torch.qp.solve import select_lanes
 
     while True:
@@ -797,6 +809,7 @@ def run_segments(carry, segment, params: SolverParams) -> ADMMState:
         if not bool(active.any()):
             break
         carry = select_lanes(active, segment(carry), carry)
+        devprof.note_segment()
     final = carry.state
     return final._replace(
         status=torch.where(final.status == Status.RUNNING, Status.MAX_ITER,

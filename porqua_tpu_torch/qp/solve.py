@@ -272,8 +272,11 @@ def segment_step_batch(scaled: CanonicalQP,
     carry (per-lane status in ``carry.state.status``). The step never
     retires a lane on its iteration count: that is the caller's
     policy."""
+    from porqua_tpu_torch.obs import devprof  # local: obs imports this module
+
     HP.check()
     _, seg_step, _ = _backend(params)
+    devprof.note_segment()
     return seg_step(carry, scaled, scaling, params, l1w_s, l1c_s)[0]
 
 
@@ -407,8 +410,12 @@ def aot_compile_continuous(qp_struct: CanonicalQP,
     ``(params, device, shape)``, resolves the kernel form the shape
     launches (:func:`kernel_form` raises where none fits) and runs the
     triple once on a neutral cohort, which loads the kernel library and
-    creates the solver handles before any request arrives. ``structs``
-    is ``(scaled, scaling, carry)`` as ``meta`` tensors."""
+    creates the solver handles before any request arrives. Inside
+    :func:`porqua_tpu_torch.obs.devprof.harvest_warmups` each entry's
+    warm-up is counted (the CostRecords of the executable cache).
+    ``structs`` is ``(scaled, scaling, carry)`` as ``meta`` tensors."""
+    from porqua_tpu_torch.obs import devprof  # local: obs imports this module
+
     dev = resolve_device(device)
     HP.apply()
     kernel_form(qp_struct, params, dev)
@@ -430,10 +437,12 @@ def aot_compile_continuous(qp_struct: CanonicalQP,
     y0 = torch.zeros((B, m), dtype=qp_struct.q.dtype, device=dev)
     every = torch.ones(B, dtype=torch.bool, device=dev)
     state = prepare_batch(neutral, params, x0, y0)[:3]
-    qp_dev, scaled, scaling, carry = admit_entry(neutral, x0, y0, every,
-                                                 *state)
-    carry = step_entry(scaled, scaling, carry, every)[0]
-    fin(qp_dev, scaled, scaling, carry.state)
+    qp_dev, scaled, scaling, carry = devprof.warmup_call(
+        "admit", admit_entry, neutral, x0, y0, every, *state, device=dev)
+    carry = devprof.warmup_call("step", step_entry, scaled, scaling, carry,
+                                every, device=dev)[0]
+    devprof.warmup_call("finalize", fin, qp_dev, scaled, scaling,
+                        carry.state, device=dev)
     structs = map_tensors(lambda t: t.to("meta"), state)
     return admit_entry, step_entry, fin, structs
 
@@ -449,6 +458,8 @@ def aot_compile_batch(qp_struct: CanonicalQP,
     ``device`` (default: the card). Warm starts are always part of the
     signature: zeros run the identical arithmetic as a cold start. What
     "compile" means here: :func:`aot_compile_continuous`."""
+    from porqua_tpu_torch.obs import devprof  # local: obs imports this module
+
     dev = resolve_device(device)
     HP.apply()
     kernel_form(qp_struct, params, dev)
@@ -460,9 +471,10 @@ def aot_compile_batch(qp_struct: CanonicalQP,
         return _solve_impl(qp.to(dev), params, x0.to(dev), y0.to(dev))
 
     dtype = qp_struct.q.dtype
-    entry(neutral_batch(qp_struct, dev),
-          torch.zeros((B, n), dtype=dtype, device=dev),
-          torch.zeros((B, m), dtype=dtype, device=dev))
+    devprof.warmup_call("solve", entry, neutral_batch(qp_struct, dev),
+                        torch.zeros((B, n), dtype=dtype, device=dev),
+                        torch.zeros((B, m), dtype=dtype, device=dev),
+                        device=dev)
     return entry
 
 

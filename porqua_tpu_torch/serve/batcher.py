@@ -59,6 +59,15 @@ def device_label(device) -> str:
     return f"{device.type}:{0 if device.index is None else device.index}"
 
 
+def device_kind(label: str) -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a
+    ``"cuda:N"`` label, ``""`` for any other device: the key of the
+    peaks a profile's MFU fields are read against."""
+    if not label.startswith("cuda"):
+        return ""
+    return torch.cuda.get_device_name(torch.device(label))
+
+
 def problem_fingerprint(qp: CanonicalQP) -> str:
     """Stable fingerprint of a problem's feasible set (C, l, u, lb, ub
     and shapes): the identity of a portfolio across rebalances (its
@@ -449,8 +458,21 @@ class MicroBatcher:
         if _faults.enabled():
             sol["x"] = _corrupt_lanes(sol["x"], len(live), "serve.result",
                                       f"{bucket.n}x{bucket.m}")
-        done = time.monotonic()
         iters = sol["iters"]
+        profile = None
+        if self.harvest is not None:
+            # Per-dispatch roofline, shared by the dispatch's lanes: the
+            # entry's counted warm-up (its CostRecord) against measured
+            # seconds, the analytic model beside it as the drift probe.
+            fr = None if qp.Pf is None else int(qp.Pf.shape[-2])
+            cost = cache.cost_record_for(bucket, slots, dtype, kind="solve",
+                                         device_label=device_label_)
+            profile = _profile.qp_solve_profile(
+                bucket.n, bucket.m, float(iters[:len(live)].mean()),
+                solve_s, params=cache.params, batch=slots,
+                factor_rows=fr, device_kind=device_kind(device_label_),
+                cost=cost)
+        done = time.monotonic()
         # The fused batch steps every lane until the slowest converges:
         # the executed segment count is the batch maximum, which the
         # anomaly detector's per-lane waste divides by.
@@ -472,7 +494,7 @@ class MicroBatcher:
             self._finish_request(r, bucket, i, sol, done, device_label_,
                                  warm[i], solve_s=solve_s,
                                  executed_segments=exec_segs,
-                                 params=cache.params)
+                                 params=cache.params, profile=profile)
         m.observe_batch(len(live), slots, solve_s,
                         float(iters[:len(live)].mean()))
         # Shadow-compare after every future resolved: the sampled
@@ -509,7 +531,7 @@ class MicroBatcher:
                         segments: Optional[int] = None,
                         solve_s: Optional[float] = None,
                         executed_segments: Optional[int] = None,
-                        params=None) -> None:
+                        params=None, profile=None) -> None:
         """Shared per-request retirement of both batchers: warm-start
         cache put, the latency / completed / per-lane-Status metrics,
         the one SolveRecord fanned out to harvest, flight and
@@ -518,7 +540,8 @@ class MicroBatcher:
         rows indexed by ``i``; ``params`` are those the lane solved
         under (a routed dispatch's backend). ``executed_segments`` is
         the device-executed segment count for the anomaly waste signal
-        where it differs from the record's per-lane ``segments``."""
+        where it differs from the record's per-lane ``segments``;
+        ``profile`` the dispatch's roofline profile for the record."""
         m = self.metrics
         tenant = r.tenant or DEFAULT_TENANT
         xs, ys = sol["x"], sol["y"]
@@ -544,8 +567,6 @@ class MicroBatcher:
             if rp is not None:
                 ring = ring_history(rp[i], rd[i], rr[i], iters,
                                     params.check_interval)
-            # The JAX package attaches its per-dispatch roofline
-            # profile here (obs/devprof, item 19): none in the port.
             rec = solve_record(
                 self.harvest_source, r.n_orig, r.m_orig, status, iters,
                 float(sol["prim_res"][i]), float(sol["dual_res"][i]),
@@ -554,7 +575,7 @@ class MicroBatcher:
                 warm_src=r.warm_src if warm_started else None,
                 wall_s=done - r.submitted, solve_s=solve_s,
                 device=device_label_, trace_id=r.trace_id, ring=ring,
-                segments=segments, tenant=tenant)
+                segments=segments, profile=profile, tenant=tenant)
             if self.harvest is not None:
                 self.harvest.emit(rec)
             if self.flight is not None:

@@ -19,6 +19,7 @@ to the same solution with zeros in the padding slots.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import threading
 import time
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
@@ -26,7 +27,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from porqua_tpu_torch.analysis import sanitize, tsan
-from porqua_tpu_torch.batch import _not_ported
+from porqua_tpu_torch.obs import devprof
 from porqua_tpu_torch.qp.canonical import CanonicalQP, pad_qp
 from porqua_tpu_torch.qp.solve import (
     SolverParams,
@@ -130,21 +131,34 @@ class ExecutableCache:
     the JAX package counts an AOT compile, so zero compile events
     after prewarm means the same in both packages — and a
     ``sanitizer_violation`` event per refused post-warmup compile.
-    ``cost_log`` is the JAX package's device-cost harvest
-    (``obs/devprof``): not ported, so anything but ``None``/``False``
-    raises (item 19).
+
+    ``cost_log`` is the device-cost warehouse
+    (:mod:`porqua_tpu_torch.obs.devprof`): each entry's warm-up is
+    counted while it is built and becomes one CostRecord (flops, bytes
+    accessed, peak memory, compile seconds, op-sequence hash). Host-side
+    and once per build; the served answers are the same bits with the
+    plane on or off. ``None`` means a default in-memory ``CostLog``, so
+    the per-bucket peak-memory gauges always have data; pass
+    ``CostLog(path)`` to persist, ``False`` to turn the plane off.
     """
 
     def __init__(self, params: SolverParams = SolverParams(),
                  metrics=None, events=None, cost_log=None) -> None:
-        if cost_log not in (None, False):
-            raise _not_ported("the device-cost harvest (cost_log=)",
-                              "item 19")
         self.params = params
         self.metrics = metrics
         self.events = events
+        if cost_log is False:
+            self.cost_log = None
+        elif cost_log is None:
+            self.cost_log = devprof.CostLog()
+        else:
+            self.cost_log = cost_log
         self._lock = tsan.lock("ExecutableCache")
         self._cache: Dict[tuple, object] = {}  # guarded-by: self._lock
+        # Latest CostRecord per (kind, bucket, slots, dtype, device,
+        # entry): what the batcher's per-dispatch profile and the flight
+        # recorder's incident bundles read.
+        self._cost_records: Dict[tuple, dict] = {}  # guarded-by: self._lock
         # Per-bucket cache health (hits / compiles / compile seconds),
         # keyed by the bucket label ("NxM"[xfR]); cumulative.
         self._bucket_stats: Dict[str, Dict[str, float]] = {}  # guarded-by: self._lock
@@ -263,11 +277,15 @@ class ExecutableCache:
             struct = batch_shape_struct(
                 int(slots), bucket.n, bucket.m, dtype=dtype,
                 factor_rows=bucket.factor_rows)
-            if kind == "continuous":
-                exe = aot_compile_continuous(struct, self.params,
-                                             device=device)
-            else:
-                exe = aot_compile_batch(struct, self.params, device=device)
+            harvest = (devprof.harvest_warmups() if self.cost_log is not None
+                       else contextlib.nullcontext({}))
+            with harvest as warmups:
+                if kind == "continuous":
+                    exe = aot_compile_continuous(struct, self.params,
+                                                 device=device)
+                else:
+                    exe = aot_compile_batch(struct, self.params,
+                                            device=device)
             with self._lock:
                 self._cache[key] = exe
         finally:
@@ -282,6 +300,8 @@ class ExecutableCache:
             stat = self._bucket_stat(bucket)
             stat["compiles"] += 1
             stat["compile_seconds"] += seconds
+        self._harvest_cost(bucket, slots, dtype, dev_key, kind, warmups,
+                           seconds)
         if self.metrics is not None:
             self.metrics.observe_compile(seconds)
         if self.events is not None:
@@ -293,32 +313,92 @@ class ExecutableCache:
                 post_warmup=post_warmup)
         return exe
 
-    def cost_records(self) -> list:
-        """The JAX package's harvested XLA cost records: not ported."""
-        raise _not_ported("ExecutableCache.cost_records (obs/devprof.py)",
-                          "item 19")
+    def _harvest_cost(self, bucket: Bucket, slots: int, dtype, dev_key,
+                      kind: str, warmups: dict, seconds: float) -> None:
+        """The built entry's counted warm-ups as CostRecords: one for a
+        one-shot solve, three for the continuous admit/step/finalize
+        triple (the compile event stays one). Never raises."""
+        if self.cost_log is None:
+            return
+        try:
+            label = self._bucket_label(bucket)
+            dev_label = ":".join(str(p) for p in dev_key)
+            dtype_str = str(dtype).replace("torch.", "")
+            entries = (("admit", "step", "finalize") if kind == "continuous"
+                       else ("solve",))
+            for entry in entries:
+                rec = devprof.cost_record(
+                    warmups.get(entry), entry=entry, kind=kind,
+                    bucket=label, slots=int(slots), dtype=dtype_str,
+                    device=dev_label, compile_s=seconds)
+                with self._lock:
+                    self._cost_records[
+                        (kind, label, int(slots), dtype_str, dev_label,
+                         entry)] = rec
+                self.cost_log.emit(rec)
+        except Exception:  # noqa: BLE001 - cost evidence must not fail
+            # the build it describes.
+            pass
 
-    def cost_record_for(self, *args, **kwargs):
-        """The JAX package's per-entry XLA cost record: not ported."""
-        raise _not_ported("ExecutableCache.cost_record_for "
-                          "(obs/devprof.py)", "item 19")
+    def cost_records(self) -> list:
+        """Every harvested CostRecord (latest per entry identity)."""
+        with self._lock:
+            return [dict(r) for r in self._cost_records.values()]
+
+    def cost_record_for(self, bucket: Bucket, slots: int, dtype,
+                        kind: str = "solve",
+                        entry: Optional[str] = None,
+                        device_label: Optional[str] = None):
+        """The CostRecord of one cached entry, or ``None``: the batcher
+        reads it to switch a dispatch's MFU/bandwidth numerators from
+        the analytic model to the counted warm-up. ``device_label``
+        (``"type:index"``) narrows to one device; ``None`` matches any."""
+        if entry is None:
+            entry = "step" if kind == "continuous" else "solve"
+        label = self._bucket_label(bucket)
+        dtype_str = str(dtype).replace("torch.", "")
+        with self._lock:
+            if device_label is not None:
+                rec = self._cost_records.get(
+                    (kind, label, int(slots), dtype_str, device_label,
+                     entry))
+                return None if rec is None else dict(rec)
+            for key, rec in self._cost_records.items():
+                if key[:4] == (kind, label, int(slots), dtype_str) \
+                        and key[5] == entry:
+                    return dict(rec)
+        return None
 
     def bucket_stats(self) -> Dict[str, Dict[str, float]]:
         """Per-bucket cache health: hits, compiles (== misses that
-        built) and cumulative compile seconds."""
+        built), cumulative compile seconds, and the largest harvested
+        peak memory / bytes accessed over the bucket's entries."""
         with self._lock:
-            return {label: dict(stat)
-                    for label, stat in self._bucket_stats.items()}
+            out = {label: dict(stat)
+                   for label, stat in self._bucket_stats.items()}
+            for (kind, label, slots, _dt, _dev, entry), rec \
+                    in self._cost_records.items():
+                stat = out.setdefault(
+                    label, {"cache_hits": 0, "compiles": 0,
+                            "compile_seconds": 0.0})
+                for field, key in (("peak_bytes_max", "peak_bytes"),
+                                   ("bytes_accessed_max",
+                                    "bytes_accessed")):
+                    v = rec.get(key)
+                    if v is not None:
+                        stat[field] = max(stat.get(field, 0.0), float(v))
+        return out
 
     def prometheus_gauges(self) -> Dict[str, list]:
         """Per-bucket cache-health series for a ``/metrics`` exposition:
-        compile seconds, compile and hit counters. (The JAX package
-        adds peak device memory from its cost harvest, item 19.)"""
+        compile seconds, compile and hit counters, and peak device
+        memory (from the cost harvest; none on the CPU)."""
         stats = self.bucket_stats()
         out: Dict[str, list] = {
             "bucket_compile_seconds_total": [],
             "bucket_compiles_total": [],
             "bucket_cache_hits_total": [],
+            "bucket_peak_bytes": [],
         }
         for label in sorted(stats):
             stat = stats[label]
@@ -329,6 +409,9 @@ class ExecutableCache:
                 (tag, stat.get("compiles", 0)))
             out["bucket_cache_hits_total"].append(
                 (tag, stat.get("cache_hits", 0)))
+            if "peak_bytes_max" in stat:
+                out["bucket_peak_bytes"].append(
+                    (tag, stat["peak_bytes_max"]))
         return out
 
     @property

@@ -11,10 +11,8 @@ metrics window is reset after prewarm and a warm-up round, so
 ``compiles`` during measurement counts only recompiles (acceptance: 0);
 closed-loop mode keeps a bounded in-flight window via a semaphore.
 
-The observability, retry and blend options are the JAX package's. Not
-ported yet, and raising when asked: the device-cost plane
-(``cost_out``, ``profile_window_s``, ``profile_dir``: ROADMAP queue A,
-item 19).
+The observability, retry, blend and device-cost options are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from porqua_tpu_torch.batch import _not_ported
+from porqua_tpu_torch.obs import devprof
 from porqua_tpu_torch.qp.admm import Status
 from porqua_tpu_torch.qp.canonical import CanonicalQP
 from porqua_tpu_torch.qp.solve import SolverParams
@@ -43,10 +41,6 @@ _STATUS_NAMES = dict(Status.NAMES)
 #: (serving trades the polish for latency).
 SERVE_PARAMS = SolverParams(max_iter=2000, eps_abs=1e-3, eps_rel=1e-3,
                             polish=False, scaling_iters=2)
-
-#: Options of the JAX package's run_loadgen not ported yet (the
-#: device-cost plane, obs/devprof.py).
-_UNPORTED_OPTIONS = ("cost_out", "profile_window_s", "profile_dir")
 
 
 def _qp(**fields) -> CanonicalQP:
@@ -269,12 +263,16 @@ def run_loadgen(requests: List[CanonicalQP],
     (the :mod:`porqua_tpu_torch.serve.workloads` blend shape);
     ``tenant_quota`` / ``tenant_weights`` configure admission quotas
     and DRR weights; ``offenders`` names the tenants the report's
-    ``tenant_fairness`` treats as noisy. The device-cost options
-    (``cost_out``, ``profile_window_s``, ``profile_dir``) raise:
-    ROADMAP item 19."""
-    for name in _UNPORTED_OPTIONS:
-        if locals()[name] is not None:
-            raise _not_ported(f"run_loadgen({name}=)", "item 19")
+    ``tenant_fairness`` treats as noisy.
+
+    Device cost: the service's cache harvests one CostRecord per built
+    entry by default; the report's ``cost_summary`` gives their count
+    and largest bytes accessed and peak memory, and ``cost_out`` writes
+    them as JSONL(.gz). ``profile_window_s`` opens a bounded
+    ``torch.profiler`` window over the measured phase (stopped by its
+    timer, or at the end of the run if sooner), written under
+    ``profile_dir`` (default ``porqua_profile_trace``); the report
+    links it as ``profile_trace_dir``."""
     if mode not in ("closed", "open"):
         raise ValueError(f"unknown mode {mode!r}; expected closed|open")
     if mode == "open" and not rate and arrivals is None:
@@ -391,6 +389,11 @@ def run_loadgen(requests: List[CanonicalQP],
                 "no_retry=True cannot be honored for an externally-"
                 "built service that carries a retry policy")
     injector = None
+    window_trace = None
+    if profile_window_s is not None or profile_dir is not None:
+        window_trace = devprof.ProfileWindow(
+            profile_dir or "porqua_profile_trace",
+            window_s=profile_window_s)
     try:
         # Prewarm every distinct bucket, then reset the window after a
         # warm-up round: measured `compiles` == recompiles.
@@ -410,6 +413,12 @@ def run_loadgen(requests: List[CanonicalQP],
             injector = _faults.install(_faults.FaultInjector(
                 scenario, metrics=service.metrics,
                 events=None if obs is None else obs.events))
+
+        if window_trace is not None:
+            # The window opens with the measured phase (after prewarm
+            # and warm-up: steady-state dispatches, not builds) and is
+            # bounded by its timer even if the run hangs.
+            window_trace.start()
 
         errors: List[str] = []
         tickets = []
@@ -465,6 +474,10 @@ def run_loadgen(requests: List[CanonicalQP],
             except Exception as exc:  # noqa: BLE001 - reported, not fatal
                 errors.append(f"{type(exc).__name__}: {exc}")
         elapsed = time.perf_counter() - t0
+        if window_trace is not None:
+            # Stop before the report, so the linked trace is written (a
+            # no-op when the timer already fired).
+            window_trace.stop()
         if injector is not None:
             _faults.uninstall()
             injector = None
@@ -484,7 +497,7 @@ def run_loadgen(requests: List[CanonicalQP],
         obs_fields: Dict = {}
         if obs is not None:
             from porqua_tpu_torch.obs.rings import ring_history
-            from porqua_tpu_torch.obs.trace import coverage_stats
+            from porqua_tpu_torch.obs.report import coverage_stats
 
             for res in sampled:
                 hist = ring_history(res.ring_prim, res.ring_dual,
@@ -532,6 +545,28 @@ def run_loadgen(requests: List[CanonicalQP],
             ast = anomaly.status()
             obs_fields["convergence_anomalies"] = ast["fired"]
             obs_fields["anomalous_groups"] = ast["anomalous"]
+        # The run's cost records (harvested by the cache unless its
+        # plane is off; cost_out persists them).
+        cost_records = service.cache.cost_records()
+        if cost_records:
+            bytes_vals = [r["bytes_accessed"] for r in cost_records
+                          if r.get("bytes_accessed")]
+            peak_vals = [r["peak_bytes"] for r in cost_records
+                         if r.get("peak_bytes")]
+            obs_fields["cost_summary"] = {
+                "executables": len(cost_records),
+                "bytes_accessed_max": max(bytes_vals) if bytes_vals else None,
+                "peak_bytes_max": max(peak_vals) if peak_vals else None,
+            }
+        if cost_out:
+            obs_fields["cost_out"] = cost_out
+            obs_fields["cost_records"] = devprof.write_cost_records(
+                cost_out, cost_records)
+        if window_trace is not None:
+            obs_fields["profile_trace_dir"] = window_trace.logdir
+            obs_fields["profile_window_s"] = profile_window_s
+            if window_trace.error:
+                obs_fields["profile_trace_error"] = window_trace.error
         if tenants is not None:
             obs_fields.update(_tenant_fields(
                 snap, tenant_set, tenants, offenders, sink))
@@ -592,6 +627,9 @@ def run_loadgen(requests: List[CanonicalQP],
             "iters_mean": snap["iters_mean"],
         }
     finally:
+        if window_trace is not None:
+            # Exception path: a dangling profiler would outlive the run.
+            window_trace.stop()
         if injector is not None:
             _faults.uninstall()
         if own_service:

@@ -519,12 +519,23 @@ class ServeMetrics:
         return snap
 
     def bridge_tracer(self, tracer) -> None:
-        """Export the window's stage seconds into a ``profiling.Tracer``
-        (``StageTiming`` records): ``profiling.py`` is not ported yet."""
-        from porqua_tpu_torch.batch import _not_ported
+        """Export the window's accumulated stage seconds into a
+        :class:`porqua_tpu_torch.profiling.Tracer`, so serving runs
+        render through the same ``Tracer.report()`` as one-shot runs.
+        ``serve/queue_wait`` rides along: requests spend most of their
+        lives waiting for a batch slot, not on the device."""
+        from porqua_tpu_torch.profiling import StageTiming
 
-        raise _not_ported("ServeMetrics.bridge_tracer (profiling.py's "
-                          "Tracer and StageTiming)", "item 19")
+        snap = self.snapshot()
+        for stage, seconds in (
+                ("serve/queue_wait", snap["queue_wait_seconds"]),
+                ("serve/solve", snap["solve_seconds"]),
+                ("serve/compile", snap["compile_seconds"])):
+            tracer.timings.append(StageTiming(stage, seconds, {
+                "batches": snap["batches"],
+                "occupancy_mean": round(snap["occupancy_mean"], 4),
+                "compiles": snap["compiles"],
+            }))
 
 
 class TenantMetricsView:

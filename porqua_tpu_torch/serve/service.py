@@ -25,8 +25,10 @@ calibration loop over the router's table), ``retry=``, ``obs=``
 (spans and events), ``harvest=``, ``slo=``, ``flight=``,
 ``anomaly=``, ``tenant_slos=``, and the ``/metrics`` + ``/healthz``
 endpoint (:meth:`SolveService.start_http`) with process
-:meth:`SolveService.vitals`. Only the device-cost plane
-(``cost_log=``, ROADMAP item 19) raises.
+:meth:`SolveService.vitals`, and ``cost_log=``, the device-cost
+warehouse (one CostRecord per built entry,
+:mod:`porqua_tpu_torch.obs.devprof`): on by default in memory,
+``False`` turns it off.
 """
 
 from __future__ import annotations
@@ -522,8 +524,9 @@ class SolveService:
             out["events_listener_failures"] = (
                 self.obs.events.listener_failures)
             out["spans_dropped"] = self.obs.spans.dropped
-        for plane in (self.harvest, self.slo, self.tenant_slos,
-                      self.flight, self.anomaly, self.calibrator):
+        for plane in (self.harvest, self.cache.cost_log, self.slo,
+                      self.tenant_slos, self.flight, self.anomaly,
+                      self.calibrator):
             if plane is not None:
                 out.update(plane.counters())
         return out
@@ -539,9 +542,14 @@ class SolveService:
             "degraded": self.health.degraded,
             "device": snap.get("device"),
             **self._obs_counters(),
+            # Cache health: per-bucket compile seconds, hit/compile
+            # counters, harvested peak device memory, and the cost
+            # warehouse's record/failure counters.
             "cache": {
                 "executables": len(self.cache),
                 "buckets": self.cache.bucket_stats(),
+                **(self.cache.cost_log.counters()
+                   if self.cache.cost_log is not None else {}),
             },
             "vitals": self.vitals(),
         }

@@ -40,6 +40,17 @@ from porqua_tpu_torch.synthetic import (
     usa_rebdates,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(_ROOT, "porqua_tpu_torch", "testdata",
                       "backtest_usa_golden.npz")

@@ -27,6 +27,17 @@ from porqua_tpu_torch.qp import canonical as tcan
 from porqua_tpu_torch.qp import ruiz as truiz
 from porqua_tpu_torch.tracking import build_tracking_qp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {np.float64: (torch.float64, dict(atol=1e-10, rtol=0)),
           np.float32: (torch.float32, dict(atol=1e-6, rtol=1e-5))}
 

@@ -337,29 +337,25 @@ def test_warm_start_and_l1_lanes_match_fused(batch, fused):
 # against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """The JAX driver and fused solve on the same seven problems, per
-    backend, at JAX_EPS (one prewarmed JAX driver per method)."""
-    qp = jax_batch(straggler_parts())
-    out = {}
-    for method in ("admm", "pdhg", "napg"):
-        prm = dataclasses.replace(PARAMS, eps_abs=JAX_EPS, eps_rel=JAX_EPS,
-                                  method=method)
-        d = JaxDriver(to_jax(prm))
-        d.prewarm(B, N, M)
-        sol, rep = d.solve(qp)
-        out[method] = (prm, {k: np.asarray(getattr(sol, k))
-                             for k in ("x", "status", "iters")}, rep)
-    return out
+def jax_run(method):
+    """The JAX driver on the seven problems of :func:`straggler_parts`
+    for one backend at JAX_EPS (one prewarmed JAX driver). Per method,
+    so that a worker running one case compiles only its own driver."""
+    prm = dataclasses.replace(PARAMS, eps_abs=JAX_EPS, eps_rel=JAX_EPS,
+                              method=method)
+    d = JaxDriver(to_jax(prm))
+    d.prewarm(B, N, M)
+    sol, rep = d.solve(jax_batch(straggler_parts()))
+    return prm, {k: np.asarray(getattr(sol, k))
+                 for k in ("x", "status", "iters")}, rep
 
 
 @pytest.mark.parametrize("method", ["admm", "pdhg", "napg"])
-def test_compacted_matches_jax_driver(method, batch, jax_runs):
+def test_compacted_matches_jax_driver(method, batch):
     """Per lane: status and iterations equal the JAX driver's, x within
     X_TOL; the report's accounting and dispatch widths equal the JAX
     report's."""
-    prm, ref, jrep = jax_runs[method]
+    prm, ref, jrep = jax_run(method)
     sol, rep = CompactingDriver(prm, device="cpu").solve(batch)
     np.testing.assert_array_equal(sol.status.numpy(), ref["status"])
     np.testing.assert_array_equal(sol.iters.numpy(), ref["iters"])

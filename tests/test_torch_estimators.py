@@ -17,6 +17,17 @@ from porqua_tpu_torch.estimators import covariance as tcov
 from porqua_tpu_torch.estimators import mean as tmean
 from porqua_tpu_torch.utils import psd as tpsd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-12
 
 

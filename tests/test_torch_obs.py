@@ -27,6 +27,17 @@ from porqua_tpu_torch.serve.metrics import COUNTERS
 from tests.test_torch_serve import TIMEOUT, grid_requests, port_params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _stamp_free(e):
     return {k: v for k, v in e.items() if k not in ("t", "ts")}
 

@@ -11,6 +11,17 @@ from porqua_tpu.resilience import faults as jfaults
 import porqua_tpu_torch as pt
 from porqua_tpu_torch.resilience import faults
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PACKAGES = {"port": faults, "jax": jfaults}
 
 

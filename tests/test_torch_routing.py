@@ -50,6 +50,7 @@ from porqua_tpu_torch.serve.routing import METHODS, SolverRouter
 from tests.test_torch_serve import (GOLDEN_BATCH, NORTHSTAR, TIMEOUT,
                                     X_ATOL, grid_requests, jax_params,
                                     port_params)
+from tests.test_torch_serve import SMALL_GOLDEN
 from tests.test_torch_serve import write_golden as write_serve_golden
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -435,6 +436,18 @@ def test_write_golden_and_rehearse_phase10_at_a_small_size(tmp_path,
     st = SMALL["stream"]
     write_serve_golden(serve_path, n_requests=st["n_requests"],
                        n_assets=st["n_assets"], batch=st["batch"])
+    # The committed small serving golden (phase 11's rehearsal reads it)
+    # is this stream's.
+    fresh, committed = np.load(serve_path), np.load(SMALL_GOLDEN)
+    assert json.loads(str(fresh["meta"])) == json.loads(
+        str(committed["meta"]))
+    assert sorted(fresh.files) == sorted(committed.files)
+    for k in fresh.files:
+        if fresh[k].dtype.kind in "fi":
+            np.testing.assert_allclose(fresh[k], committed[k], rtol=0,
+                                       atol=1e-7, err_msg=k)
+        elif k != "meta":
+            assert fresh[k] == committed[k], k
     write_golden(route_path, SMALL)
     g = np.load(route_path)
     meta = json.loads(str(g["meta"]))

@@ -42,8 +42,7 @@ from porqua_tpu_torch.analysis import sanitize, tsan
 from porqua_tpu_torch.obs import qp_solve_profile
 from porqua_tpu_torch.resilience import faults
 from porqua_tpu_torch.serve import (DeadlineExpired, DeviceHealth,
-                                    ExecutableCache, ServeMetrics,
-                                    SolveError, SolveService)
+                                    ServeMetrics, SolveError, SolveService)
 from porqua_tpu_torch.serve.loadgen import (build_exposure_requests,
                                             build_tracking_requests,
                                             run_loadgen)
@@ -51,6 +50,12 @@ from porqua_tpu_torch.serve.loadgen import (build_exposure_requests,
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(_ROOT, "porqua_tpu_torch", "testdata",
                       "serve_golden.npz")
+# The same stream at the rehearsals' size (8 requests of 20 assets,
+# bucket 32 x 8): chip_smoke.py's serving phases run on the CPU against
+# it. The phase-10 rehearsal writes it afresh and holds it equal.
+SMALL_GOLDEN = os.path.join(_ROOT, "porqua_tpu_torch", "testdata",
+                            "serve_golden_small.npz")
+SMALL_SIZES = dict(n_requests=8, n_assets=20, batch=8)
 
 TIMEOUT = 120.0
 # The serving solver config (loadgen's SERVE_PARAMS) and the two
@@ -288,32 +293,66 @@ def _service(**kw):
     return SolveService(port_params("dense"), device="cpu", **kw)
 
 
+# ROADMAP item 19's options, which raised until the device-cost plane
+# was ported: each now runs on the CPU (tests/test_torch_devprof.py
+# holds their results against the JAX package's).
 UNPORTED = {
-    "cost_log": (lambda: _service(cost_log=object()), "item 19"),
-    "bridge_tracer": (lambda: ServeMetrics().bridge_tracer(None),
-                      "item 19"),
-    "cost_records": (lambda: ExecutableCache().cost_records(), "item 19"),
-    "qp_solve_profile": (lambda: qp_solve_profile(32, 8, 25.0, 0.1),
-                         "item 19"),
+    "cost_log": lambda tmp: _prewarmed(cost_log=pt.obs.CostLog(
+        str(tmp / "c.jsonl"))).cache.cost_log.records == 1,
+    "bridge_tracer": lambda tmp: _bridged(),
+    "cost_records": lambda tmp: len(
+        _prewarmed().cache.cost_records()) == 1,
+    "qp_solve_profile": lambda tmp: qp_solve_profile(
+        32, 8, 25.0, 0.1)["cost_source"] == "model",
 }
 LOADGEN_UNPORTED = {
-    "cost_out": ("c.jsonl", "item 19"), "profile_window_s": (1.0, "item 19"),
-    "profile_dir": ("p", "item 19"),
+    "cost_out": ("c.jsonl", "cost_records"),
+    "profile_window_s": (30.0, "profile_trace_dir"),
+    "profile_dir": ("p", "profile_trace_dir"),
 }
+
+
+def _prewarmed(**kw):
+    _, treq = grid_requests("dense", n=1)
+    svc = _service(max_batch=1, **kw)
+    svc.prewarm(treq[0])
+    return svc
+
+
+def _bridged():
+    from porqua_tpu_torch.profiling import Tracer
+
+    tracer = Tracer()
+    ServeMetrics().bridge_tracer(tracer)
+    return [t.name for t in tracer.timings] == [
+        "serve/queue_wait", "serve/solve", "serve/compile"]
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise(name):
-    call, item = UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+def test_unported_options_raise(name, tmp_path):
+    """The service options of ROADMAP item 19 no longer raise: each
+    runs and does its job."""
+    assert UNPORTED[name](tmp_path)
 
 
 @pytest.mark.parametrize("name", sorted(LOADGEN_UNPORTED))
-def test_unported_loadgen_options_raise(name):
-    value, item = LOADGEN_UNPORTED[name]
-    with pytest.raises(NotImplementedError, match=item):
-        run_loadgen([], device="cpu", **{name: value})
+def test_unported_loadgen_options_raise(name, tmp_path, monkeypatch):
+    """``run_loadgen``'s device-cost options (ROADMAP item 19) no longer
+    raise: each runs on the CPU and fills its report field (the window's
+    default directory is relative to the working directory)."""
+    monkeypatch.chdir(tmp_path)
+    value, field = LOADGEN_UNPORTED[name]
+    if isinstance(value, str):
+        value = str(tmp_path / value)
+    _, treq = grid_requests("dense", n=2)
+    report = run_loadgen(treq, port_params("dense"), max_batch=2,
+                         device="cpu", **{name: value})
+    assert report[field] and report["solved"] == 2
+    assert report["cost_summary"]["executables"] == 2
+    if name == "cost_out":
+        assert len(pt.obs.load_cost_records(value)) == 2
+    else:
+        assert "profile_trace_error" not in report
 
 
 def _routed(**kw):
@@ -533,7 +572,11 @@ def write_golden(path=GOLDEN, n_requests=NORTHSTAR["n_requests"],
 
 if __name__ == "__main__":
     if "--write-golden" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_serve.py --write-golden")
+        sys.exit("usage: python tests/test_torch_serve.py --write-golden "
+                 "[--small]")
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    write_golden()
+    if "--small" in sys.argv:
+        write_golden(SMALL_GOLDEN, **SMALL_SIZES)
+    else:
+        write_golden()

@@ -20,6 +20,19 @@ from porqua_tpu_torch.resilience.faults import FaultClock
 from porqua_tpu_torch.serve.metrics import ServeMetrics
 from porqua_tpu_torch.serve.routing import SolverRouter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STAMPS = ("t", "ts", "pid", "window_seconds", "uptime_s", "now")
 
 

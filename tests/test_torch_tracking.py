@@ -30,6 +30,17 @@ from porqua_tpu.tracking import tracking_step as jax_tracking_step
 import porqua_tpu_torch as pt
 from porqua_tpu_torch.qp.solve import solve_qp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small problems gain nothing from intra-op threads beside the
+    suite's other workers (see tests/test_torch_scan.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(_ROOT, "porqua_tpu_torch", "testdata",
                       "tracking_golden.npz")
@@ -251,8 +262,10 @@ def test_port_imports_no_jax():
     a chained scan, a crashed and resumed checkpointed scan, a solve
     service round trip in both batching modes, a routed, retried and
     observed service (every production option, ``/metrics`` up) and
-    the workload library's selftest, a compacted solve, PDHG
-    and NAPG solves with rings, a sketch-fed tracking_step, a backward
+    the workload library's selftest, one CostRecord harvested from a
+    compiled entry with its roofline profile and report, a compacted
+    solve, PDHG and NAPG solves with rings, a sketch-fed tracking_step,
+    a backward
     through solve_qp_diff and solve_qp_l1_diff, compare_solvers' ipm-f64
     and native-cpp-admm rows and an Optimization with
     solver_name="ipm" with JAX made unimportable, and pulls in no
@@ -262,6 +275,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
         "import porqua_tpu_torch as pt\n"
         "for m in pkgutil.walk_packages(pt.__path__, 'porqua_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -334,6 +349,19 @@ def test_port_imports_no_jax():
         "assert {r['source'] for r in sink.buffered()} == {'serve', "
         "'serve.shadow'}\n"
         "workloads.selftest()\n"
+        "from porqua_tpu_torch.obs import profile, report\n"
+        "cache = pt.serve.ExecutableCache(SERVE_PARAMS)\n"
+        "b = pt.serve.BucketLadder().select(reqs[0])\n"
+        "cache.get(b, 2, torch.float32, 'cpu')\n"
+        "rec = cache.cost_record_for(b, 2, torch.float32)\n"
+        "assert rec['flops'] > 0 and rec['cost_source'] == 'torch', rec\n"
+        "prof = profile.qp_solve_profile(b.n, b.m, 25.0, 0.01, "
+        "params=SERVE_PARAMS, batch=2, cost=rec)\n"
+        "assert prof['cost_source'] == 'torch' and prof['flops_xla'] == "
+        "rec['flops'], prof\n"
+        "text = report.render_report(costs=[rec], harvest=[{'bucket': "
+        "'32x8', 'profile': prof}])\n"
+        "assert 'measured-vs-model (per bucket' in text, text\n"
         "from porqua_tpu_torch.compaction import CompactingDriver\n"
         "p5 = pt.SolverParams(polish=False, eps_abs=1e-5, eps_rel=1e-5, "
         "backend='pallas')\n"
@@ -394,6 +422,62 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_top_level_and_obs_names_match_jax():
+    """Every name of the JAX package's ``__all__`` and of its
+    ``obs.__all__`` imports from the port's (ROADMAP section C: the top
+    level lacked ``SolveService`` and ``Observability``)."""
+    import porqua_tpu
+    import porqua_tpu.obs
+
+    import porqua_tpu_torch.obs
+
+    for ref, port in ((porqua_tpu, pt), (porqua_tpu.obs, porqua_tpu_torch.obs)):
+        missing = [n for n in ref.__all__ if not hasattr(port, n)]
+        assert not missing, (port.__name__, missing)
+        assert set(ref.__all__) <= set(port.__all__)
+    from porqua_tpu_torch import Observability, SolveService  # noqa: F401
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_factored_spd_solve_operator_matches_jax(refine):
+    """``K^-1 r`` for ``K = diag(Dv) + V'V`` through Woodbury, both sides
+    in f32 on the same inputs (V 12 x 40, a batch of 3 right-hand
+    sides): within 1e-5 of each other relative to the solution's scale
+    (the capacitance Cholesky and triangular inverse round differently
+    in each package) and within the same of the f64 solve; refine 1
+    lands nearer the f64 solve than refine 0."""
+    from porqua_tpu.qp.admm import factored_spd_solve_operator as jax_op
+
+    from porqua_tpu_torch.qp.admm import factored_spd_solve_operator
+
+    rng = np.random.default_rng(11)
+    V = rng.standard_normal((12, 40)).astype(np.float32)
+    Dv = (0.05 + rng.random(40)).astype(np.float32)
+    R = rng.standard_normal((3, 40)).astype(np.float32)
+    K = np.diag(Dv.astype(np.float64)) + V.T.astype(np.float64) @ V
+    exact = np.linalg.solve(K, R.T.astype(np.float64)).T
+    scale = np.abs(exact).max()
+    jop = jax_op(jnp.asarray(Dv), jnp.asarray(V), refine_steps=refine)
+    ref = np.stack([np.asarray(jop(jnp.asarray(r))) for r in R])
+    op = factored_spd_solve_operator(torch.from_numpy(Dv),
+                                     torch.from_numpy(V), refine_steps=refine)
+    mine = op(torch.from_numpy(R)).numpy()
+    assert mine.dtype == ref.dtype == np.float32
+    assert np.abs(mine - ref).max() <= 1e-5 * scale
+    assert np.abs(mine - exact).max() <= 1e-5 * scale
+    if refine:
+        base = factored_spd_solve_operator(
+            torch.from_numpy(Dv), torch.from_numpy(V), refine_steps=0)(
+            torch.from_numpy(R)).numpy()
+        assert np.abs(mine - exact).max() <= np.abs(base - exact).max()
+    # Batched over a leading axis as the port's kernels use it.
+    opb = factored_spd_solve_operator(torch.from_numpy(Dv)[None].repeat(2, 1),
+                                      torch.from_numpy(V)[None].repeat(2, 1, 1),
+                                      refine_steps=refine)
+    got = opb(torch.from_numpy(R[:2])).numpy()
+    assert np.abs(got - mine[:2]).max() <= 1e-6 * scale
 
 
 def write_golden(path=GOLDEN):
