@@ -98,9 +98,19 @@ printed):
    harvest record, a bounded profiler window over the burst, the
    roofline verdict, the text report, the run ledger and a fleet of
    two services on the card.
-12. One JSON line per kernel, then the card line, then the result line.
+12. The ML selection models (``ml_phase``), against the JAX golden
+   (``porqua_tpu_torch/testdata/ml_golden.npz``; checks listed at
+   ``ml_phase``): the pairwise LTR ranker trained on the card for the
+   first 12 rebalance dates of the USA example at full width, its
+   selection (top 260 of 520) feeding ``run_batch`` for ``usa_trinv``
+   (the triangular-inverse kernel) and ``usa_woodbury`` (the factored
+   kernel at refine 1); the shipped LSTM ranker, ``train_lstm`` from
+   the golden's draws, the reference's Keras architecture, the ordinal
+   regressions and OLS/PCA/PCAOLS on the USA monthly panel.
+13. One JSON line per kernel, then the card line, then the result line.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -382,17 +392,24 @@ def check_twin(out_k, out_p, out_64, kw, out_cpu=None):
     return ok, max(errs), max(rels), floor
 
 
-def usa_service(X, bm, rebdates, meta):
+def usa_service(X, bm, rebdates, meta, features=None, selection=None):
     """``examples/backtest_usa.py``'s configuration 1 (budget and box,
-    LeastSquares) as a BacktestService of the port."""
+    LeastSquares) as a BacktestService of the port; ``selection`` (a
+    bibfn and its keywords) adds a selection item ``ltr`` that reads
+    ``features``."""
     import porqua_tpu_torch as pt
     from porqua_tpu_torch import builders as tb
 
     O = pt.OptimizationItemBuilder
+    data = {"return_series": X, "bm_series": bm}
+    items = {"data": pt.SelectionItemBuilder(bibfn=tb.bibfn_selection_data)}
+    if selection is not None:
+        data["features"] = features
+        bibfn, kw = selection
+        items["ltr"] = pt.SelectionItemBuilder(bibfn=bibfn, **kw)
     return pt.BacktestService(
-        data={"return_series": X, "bm_series": bm},
-        selection_item_builders={
-            "data": pt.SelectionItemBuilder(bibfn=tb.bibfn_selection_data)},
+        data=data,
+        selection_item_builders=items,
         optimization_item_builders={
             "returns": O(bibfn=tb.bibfn_return_series, width=meta["width"]),
             "bm": O(bibfn=tb.bibfn_bm_series, width=meta["width"],
@@ -403,6 +420,655 @@ def usa_service(X, bm, rebdates, meta):
         settings={"rebdates": rebdates, "quiet": True})
 
 
+def usa_weights(strategy, rebdates, columns):
+    """A strategy's weights by rebalance date over ``columns``: (date,
+    asset), NaN where a date holds no weight for the asset."""
+    return strategy.get_weights_df().reindex(
+        index=rebdates, columns=columns).to_numpy(float)
+
+
+def usa_te(problems64, w, columns, width):
+    """Per date the in-sample tracking error sqrt(||X w - y||^2 / width)
+    of (date, asset) weights ``w`` over ``columns`` (NaN is no weight),
+    from the f64 BatchProblems ``problems64`` on the host."""
+    import numpy as np
+    import torch
+
+    idx = {a: j for j, a in enumerate(columns)}
+    w = np.nan_to_num(w)
+    x = np.zeros(tuple(problems64.qp.q.shape))
+    for i, uni in enumerate(problems64.universes):
+        x[i, :len(uni)] = w[i, [idx[a] for a in uni]]
+    val = problems64.qp.objective_value(torch.tensor(x)).numpy()
+    return np.sqrt(np.maximum(val, 0.0) / width)
+
+
+def usa_checks(tag, ref, problems64, columns, meta, prm, iters, w, held,
+               w_iter, ref_w, ref_iter, iter64):
+    """``examples/backtest_usa.py`` configuration 1's checks on one run
+    (its optimum is a face, ROADMAP section C, so the weights are held
+    through the ADMM iterate and the in-sample TE, not by |dw|):
+    - the weights ``w`` (date, asset; NaN where not held) on exactly the
+      ``held`` assets of each date, finite, inside the budget and the box
+      to eps_abs;
+    - the ADMM iterate ``w_iter`` (the same run with polish off) per date
+      within KERNEL_VS_PLAIN times ``ref_iter``'s distance to the f64
+      iterate ``iter64``, plus ULPS_PER_ITER f32 ulps of the box per
+      iteration;
+    - the in-sample TE per date within KERNEL_VS_PLAIN times that of
+      ``ref_w``, the weights of the run ``ref`` names.
+    Returns the iterates' distances to ``iter64`` (this run's, ref's)
+    and the two in-sample TEs."""
+    import numpy as np
+
+    wz = np.nan_to_num(w)
+    check(np.array_equal(~np.isnan(w), held)
+          and float(np.abs(wz.sum(1) - 1).max()) <= prm.eps_abs
+          and float(wz.min()) >= -prm.eps_abs
+          and float(wz.max()) <= meta["upper"] + prm.eps_abs,
+          f"[{tag}] weights on the selected assets of every date, finite, "
+          f"budget and box hold to {prm.eps_abs:g}")
+    floor = ULPS_PER_ITER * int(iters.max()) * F32_EPS * meta["upper"]
+    d_run = np.abs(np.nan_to_num(w_iter) - np.nan_to_num(iter64)).max(axis=1)
+    d_ref = np.abs(np.nan_to_num(ref_iter) - np.nan_to_num(iter64)).max(
+        axis=1)
+    check(bool(np.all(d_run <= KERNEL_VS_PLAIN * d_ref + floor)),
+          f"[{tag}] ADMM iterate per date within {KERNEL_VS_PLAIN:g}x "
+          f"{ref}'s distance to the f64 iterate (+{floor:.2g}; max "
+          f"{d_run.max():.3e} and {d_ref.max():.3e})")
+    te = usa_te(problems64, w, columns, meta["width"])
+    te_ref = usa_te(problems64, ref_w, columns, meta["width"])
+    check(bool(np.all(te <= KERNEL_VS_PLAIN * te_ref)),
+          f"[{tag}] in-sample TE per date within {KERNEL_VS_PLAIN:g}x "
+          f"{ref}'s (max ratio {float(np.max(te / te_ref)):.3f})")
+    return d_run, d_ref, te, te_ref
+
+
+LTR_HORIZONS = (21, 63, 126, 252)
+LTR_VOL_DAYS = 63
+
+
+def usa_features(X):
+    """The LTR ranker's (date, asset) feature panel from a return frame:
+    at each month's last trading day, the trailing 21-, 63-, 126- and
+    252-day compounded returns and the 63-day volatility (the standard
+    deviation of daily returns, ddof 1). Month ends with less than 252
+    days of history are left out. float64."""
+    import numpy as np
+    import pandas as pd
+
+    R = X.to_numpy(np.float64)
+    cum = np.vstack([np.zeros((1, R.shape[1])), np.cumsum(np.log1p(R), 0)])
+    month_ends = pd.Series(np.arange(len(X)), index=X.index).resample(
+        "ME").last().to_numpy()
+    frames = {}
+    for t in month_ends:
+        if t + 1 < max(LTR_HORIZONS):
+            continue
+        cols = {f"ret{h}": np.expm1(cum[t + 1] - cum[t + 1 - h])
+                for h in LTR_HORIZONS}
+        cols[f"vol{LTR_VOL_DAYS}"] = R[t + 1 - LTR_VOL_DAYS:t + 1].std(
+            axis=0, ddof=1)
+        frames[X.index[t]] = pd.DataFrame(cols, index=X.columns)
+    return pd.concat(frames, axis=0)
+
+
+# Phase 12 (the ML selection models) holds the card against the JAX
+# golden ``ml_golden.npz`` (XLA-CPU, f32, written by
+# ``tests/test_torch_models.py --write-golden``), which also carries
+# each run in float64. The pairwise ranker is held per date after its
+# first ``early_epochs`` (25) epochs, where XLA-CPU's f32 run still sits
+# within 3e-6 of its scale from its f64 run: the scores (centred: the
+# output bias gets no gradient from a pairwise loss, only rounding noise)
+# and the per-epoch losses by the twin rule (twin_rule); the same run on
+# features rounded to bfloat16 must fail it on every date. The 300
+# full-batch Adam epochs are chaotic in f32: XLA-CPU's own f32 scores sit
+# up to tens of percent of their scale from its f64 run on most dates
+# (one date within 1e-6), the port's f32 run on the CPU as far, and
+# their selected sets differ by up to 19 names in 260. So there the
+# centred scores are held only by the twin rule pooled over the dates,
+# as a second check: the mean over
+# the dates of the card's distance to the f64 run, relative to each
+# date's scale, at most KERNEL_VS_PLAIN times XLA-CPU's mean plus
+# ULPS_PER_ITER f32 ulps per epoch (the untrained ranker must fail it);
+# a name may enter or leave the top k only where its golden score lies
+# within that bound (times the date's scale) of the golden's
+# k-th/(k+1)-th boundary. The backtest that the card's selection feeds is held on
+# every date by the twin rule against the plain path on the same
+# problems in f64, and the golden's own selection, solved through the
+# same kernels, as backtest_phase holds configuration 1. The LSTM
+# forward and training runs, the ordinal fits and the regressions agree
+# with XLA-CPU to rounding (CPU parity tests): the LSTM runs by the twin
+# rule against the golden's f64 runs, with a control that skips the
+# optimizer step; the fits at their optimum within ML_OPT_ATOL (the JAX
+# package's own test holds its fit to scipy's BFGS at 2e-2) and the NLL
+# within ML_NLL_ATOL; the regressions within ML_REG_RTOL of each
+# output's scale (PCA's components up to a sign per row).
+ML_PATH = os.path.join("porqua_tpu_torch", "testdata", "ml_golden.npz")
+LSTM_NPZ = os.path.join("porqua_tpu_torch", "testdata", "lstm_msci.npz")
+ML_OPT_ATOL = 2e-3
+ML_NLL_ATOL = 1e-5
+ML_REG_RTOL = 1e-4
+ML_NDCG_ATOL = 1e-6
+
+
+def lstm_series(seed, n_days, n_assets):
+    """A synthetic daily return series (n_days, n_assets), float32:
+    AR(1) per asset (phi 0.85-0.95) on 1% shocks, so the next day is
+    predictable from the window."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    phi = np.linspace(0.85, 0.95, n_assets)
+    eps = 0.01 * rng.standard_normal((n_days, n_assets))
+    R = np.zeros((n_days, n_assets))
+    for t in range(1, n_days):
+        R[t] = phi * R[t - 1] + eps[t]
+    return R.astype(np.float32)
+
+
+def ordinal_data(seed, n, d, n_classes):
+    """Latent-variable rows ``y* = X beta + eps`` cut at the latent
+    quantiles into ``n_classes`` ordered labels: (X float32, y int)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    latent = X @ (0.5 * rng.standard_normal(d)) + rng.standard_normal(n)
+    cuts = np.quantile(latent, np.linspace(0, 1, n_classes + 1)[1:-1])
+    return X, np.searchsorted(cuts, latent)
+
+
+def usa_panel(X, features):
+    """The monthly regression panel: each (month end, asset) row of
+    ``features`` with its forward 21-day compounded return; rows
+    without 21 days ahead are left out. (X float32, y float32)."""
+    import numpy as np
+
+    R = X.to_numpy(np.float64)
+    pos = {d: i for i, d in enumerate(X.index)}
+    rows, ys = [], []
+    for d in features.index.get_level_values(0).unique():
+        t = pos[d]
+        if t + LTR_HORIZONS[0] >= len(X):
+            continue
+        rows.append(features.xs(d, level=0).to_numpy(np.float64))
+        ys.append(np.prod(1.0 + R[t + 1:t + 1 + LTR_HORIZONS[0]], 0) - 1.0)
+    return (np.concatenate(rows).astype(np.float32),
+            np.concatenate(ys).astype(np.float32))
+
+
+def tree_of(arrays, prefix):
+    """A nested parameter tree from the flat ``prefix``-ed keys
+    ``a/b/c`` of an npz."""
+    tree = {}
+    for key in arrays.files:
+        if not key.startswith(prefix):
+            continue
+        *path, leaf = key[len(prefix):].split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arrays[key]
+    return tree
+
+
+@contextlib.contextmanager
+def fitted_rankers(module):
+    """Context: ``module.PairwiseRanker`` (``module`` the port's ltr
+    module or the JAX package's) appends every ranker that it fits to
+    the list this yields, so that a caller of ``ltr_selection_scores``
+    reads each fit's per-epoch losses (``_losses``)."""
+    fitted = []
+    base = module.PairwiseRanker
+
+    class Recorded(base):
+        def fit(self, groups, **kw):
+            fitted.append(super().fit(groups, **kw))
+            return self
+
+    module.PairwiseRanker = Recorded
+    try:
+        yield fitted
+    finally:
+        module.PairwiseRanker = base
+
+
+def ml_phase(rows, reset_counts, device="cuda"):
+    """Phase 12: the ML selection models on ``device`` (the card) against
+    ``ml_golden.npz``; returns the kernel rows it adds to ``rows``.
+
+    ``ltr_usa``: ``examples/backtest_usa.py``'s configuration 1 at full
+    width (520 assets, window 252) on its first 12 rebalance dates, with
+    a selection item ``bibfn_selection_ltr`` (top_k 260, train_dates 12,
+    horizon 21, epochs 300) over ``usa_features``. Checks:
+    - per date, the ranker trained here from the golden's initial
+      parameters for ``early_epochs``: its centred scores and per-epoch
+      losses by the twin rule against the golden's f64 run, which the
+      run on bfloat16-rounded features must fail on every date;
+    - per date, the ranker trained for 300 epochs: its centred scores
+      by the pooled twin rule above, which the untrained ranker's
+      scores must fail;
+      every name that enters or leaves the top k has its golden score
+      within that bound of the golden's boundary (the swaps printed);
+    - ``run_batch`` through the LTR item for ``usa_trinv`` (K2) and
+      ``usa_woodbury`` (K1 refine 1), B = 12, n = 260: the config's
+      cluster form launched, its streaming form and the other wrapper
+      never; on every date status equal to the plain path's on the same
+      problems and ``usa_checks`` against the plain path (weights on
+      the ranker's selection above);
+    - the golden's selection solved through the same kernels: status
+      and iterations equal the golden's on every date and
+      ``usa_checks`` against the golden;
+    - ``bibfn_selection_ltr`` raises no NotImplementedError any more.
+    ``lstm_msci``: the shipped ranker (``lstm_msci.npz``, converted from
+    ``model/lstm_msci_flax.msgpack``) on the last windows of
+    ``lstm_series``: predictions by the twin rule against the golden's
+    f64 forward, NDCG@10 per window within ML_NDCG_ATOL.
+    ``lstm_train``: ``train_lstm`` from the golden's initial parameters,
+    minibatch indices and dropout masks: the per-epoch losses and the
+    final predictions by the twin rule against the golden's f64 run; a
+    control run with learning rate 0 (no optimizer step) must fail it.
+    ``ReferenceLSTM`` from the golden's Keras arrays by the twin rule
+    against the f64 forward (``load_reference_lstm``, which needs h5py,
+    is tested on the CPU).
+    ``ordinal``: ``OrdinalRegression`` (probit, logit) at the golden's
+    optimum within ML_OPT_ATOL (coefficients, cutpoints,
+    probabilities) and its NLL within ML_NLL_ATOL.
+    ``regression``: ``OLS`` on the USA monthly panel (full rank and with
+    a dependent column), ``PCA`` and ``PCAOLS``, each within
+    ML_REG_RTOL of the output's scale.
+    Printed: each part's time, the ranker's fit time per date, and the
+    kernels' rows (CUDA events, median of 20 launches)."""
+    import importlib.util
+    import inspect
+    import types
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch import builders as tb
+    from porqua_tpu_torch.models import lstm as tlstm
+    from porqua_tpu_torch.models import ltr as tltr
+    from porqua_tpu_torch.models.ordinal import OrdinalRegression
+    from porqua_tpu_torch.models.regression import OLS, PCA, PCAOLS
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp import solve as tsolve
+    from porqua_tpu_torch.qp.admm import admm_init, segment_kernel_call
+    from porqua_tpu_torch.synthetic import (synthetic_usa_np,
+                                            usa_benchmark_np, usa_rebdates)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    golden = np.load(os.path.join(here, ML_PATH))
+    meta = json.loads(str(golden["meta"]))
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("msgpack", "h5py", "sklearn")}
+    print(f"phase 12: importable on this machine: {have}", flush=True)
+    check("NotImplementedError" not in inspect.getsource(
+        tb.bibfn_selection_ltr),
+        "[ltr_usa] bibfn_selection_ltr no longer raises NotImplementedError")
+    part_s = {}
+
+    # -- ltr_usa: the ranker per date -------------------------------------
+    t0 = time.perf_counter()
+    lm = meta["ltr"]
+    X, _ = synthetic_usa_np(n_days=lm["n_days"], n_assets=lm["n_assets"])
+    bm = usa_benchmark_np(X)
+    rebdates = usa_rebdates(X.index)[:lm["n_dates"]]
+    feats = usa_features(X)
+    init = {d: [{"w": golden["ltr/w0"][i], "b": golden["ltr/b0"][i]},
+                {"w": golden["ltr/w1"][i], "b": golden["ltr/b1"][i]}]
+            for i, d in enumerate(rebdates)}
+    ltr_kw = dict(top_k=lm["top_k"], train_dates=lm["train_dates"],
+                  horizon=lm["horizon"], epochs=lm["epochs"],
+                  init_params=lambda rebdate, sizes: init[rebdate],
+                  device=device)
+    centred = lambda v: v - v.mean(axis=-1, keepdims=True)
+
+    def ranked(features, epochs):
+        """Per date the ranker's frame, its scores over the columns and
+        its per-epoch losses, and the fit times (ms)."""
+        holder = types.SimpleNamespace(data={"return_series": X,
+                                             "features": features})
+        frames, losses, fit_ms = {}, [], []
+        for d in rebdates:
+            sync()
+            t1 = time.perf_counter()
+            with fitted_rankers(tltr) as fitted:
+                frames[d] = tltr.ltr_selection_scores(
+                    holder, d, **{**ltr_kw, "epochs": epochs})
+            sync()
+            fit_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(fitted[0]._losses.cpu().numpy())
+        scores = np.stack([frames[d]["values"].reindex(X.columns).to_numpy(
+            np.float64) for d in rebdates])
+        return frames, scores, np.stack(losses), fit_ms
+
+    # Per date after the first epochs, where the f32 run still follows
+    # the f64 one. Control: the same run on features rounded to bfloat16.
+    early = lm["early_epochs"]
+
+    def early_rule(tag, scores, losses):
+        ok_s, d_s, b_s = twin_rule(centred(scores),
+                                   centred(golden["ltr/early_scores"]),
+                                   centred(golden["ltr/early_scores_f64"]))
+        ok_l, d_l, b_l = twin_rule(losses, golden["ltr/early_losses"],
+                                   golden["ltr/early_losses_f64"])
+        print(f"[{tag}] after {early} epochs, distance to the f64 run over "
+              f"the band per date: centred scores "
+              f"{np.round(d_s / b_s, 3).tolist()}, losses "
+              f"{np.round(d_l / b_l, 3).tolist()}", flush=True)
+        return ok_s & ok_l
+
+    _, s_early, l_early, early_ms = ranked(feats, early)
+    check(bool(early_rule("ltr_usa", s_early, l_early).all()),
+          f"[ltr_usa] after {early} epochs the centred scores and the "
+          f"per-epoch losses within the twin rule on every date")
+    bf16 = pd.DataFrame(torch.tensor(feats.to_numpy(np.float32)).to(
+        torch.bfloat16).double().numpy(), index=feats.index,
+        columns=feats.columns)
+    check(not bool(early_rule("ltr_usa control: bfloat16 features",
+                              *ranked(bf16, early)[1:3]).any()),
+          "[ltr_usa control: features rounded to bfloat16] the rule fails "
+          "it on every date")
+
+    picked, scores, _, fit_ms = ranked(feats, lm["epochs"])
+    sel = np.stack([picked[d]["binary"].reindex(X.columns).to_numpy() == 1
+                    for d in rebdates])
+    g32, g64 = golden["ltr/scores"], golden["ltr/scores_f64"]
+    gsel = golden["ltr/binary"] == 1
+    print(f"[ltr_usa] ranker fit per date (ms, {lm['epochs']} epochs, "
+          f"1-{lm['train_dates']} groups of {lm['n_assets']}): "
+          f"{[round(t, 1) for t in fit_ms]}; at {early} epochs "
+          f"{[round(t, 1) for t in early_ms]}", flush=True)
+    # Pooled over the dates: the mean of each date's distance relative
+    # to its scale. Control: the untrained ranker (0 epochs, the initial
+    # parameters' scores) must fail the rule.
+    scale = np.abs(g64).max(axis=1)
+
+    def rel_dist(s):
+        return np.abs(centred(s) - centred(g64)).max(axis=1) / scale
+
+    d_card, d_gold = rel_dist(scores), rel_dist(g32)
+    bound = (KERNEL_VS_PLAIN * d_gold.mean()
+             + ULPS_PER_ITER * lm["epochs"] * F32_EPS)
+    untrained = ranked(feats, 0)[1]
+    print(f"[ltr_usa] centred scores to the f64 run, relative to the "
+          f"scale, per date: card {np.round(d_card, 5).tolist()}, golden "
+          f"{np.round(d_gold, 5).tolist()}; means {d_card.mean():.4g} and "
+          f"{d_gold.mean():.4g}, bound {bound:.4g}; untrained "
+          f"{rel_dist(untrained).mean():.4g}", flush=True)
+    check(bool(d_card.mean() <= bound),
+          f"[ltr_usa] centred scores within {KERNEL_VS_PLAIN:g}x the "
+          f"golden's distance to its f64 run (+{ULPS_PER_ITER} ulps per "
+          f"epoch), relative to each date's scale, on the mean of the "
+          f"dates")
+    check(not bool(rel_dist(untrained).mean() <= bound),
+          "[ltr_usa control: the untrained ranker] the rule fails it")
+    k = lm["top_k"]
+    swaps, ok = [], True
+    for i in range(len(rebdates)):
+        top = np.sort(g32[i])[::-1]
+        edge = 0.5 * (top[k - 1] + top[k])
+        moved = sel[i] ^ gsel[i]
+        ok &= int(sel[i].sum()) == k and bool(
+            np.all(np.abs(g32[i][moved] - edge) <= bound * scale[i]))
+        swaps.append(int(moved.sum()) // 2)
+    print(f"[ltr_usa] swaps at the top-{k} boundary per date {swaps}; "
+          f"selection equal to the golden's on "
+          f"{sum(s == 0 for s in swaps)}/{len(rebdates)} dates", flush=True)
+    check(ok, f"[ltr_usa] top {k} on every date; names swapped only where "
+          f"their golden score lies within the score bound of the "
+          f"golden's k-th/(k+1)-th boundary")
+
+    # -- ltr_usa: the backtest the selection feeds ------------------------
+    def service(bibfn, **kw):
+        return usa_service(X, bm, rebdates, lm, features=feats,
+                           selection=(bibfn, kw))
+
+    def problems_of(frames):
+        """f32 and f64 BatchProblems of the service on a fixed selection."""
+        fixed = service(lambda bs, rebdate, **kw: frames[rebdate])
+        return (tbatch.build_problems(fixed),
+                tbatch.build_problems(fixed, dtype=torch.float64))
+
+    def solve(problems, prm):
+        sol = tbatch.solve_batch(problems, prm, device=device)
+        return (usa_weights(tbatch.to_strategy(problems, sol), rebdates,
+                            X.columns),
+                sol.status.cpu().numpy(), sol.iters.cpu().numpy())
+
+    mine = problems_of(picked)
+    theirs = problems_of({d: pd.DataFrame(
+        {"values": g32[i], "binary": golden["ltr/binary"][i]},
+        index=X.columns) for i, d in enumerate(rebdates)})
+    wrappers = {"dense": admm_kernel.admm_segment,
+                "factored": admm_kernel.admm_segment_factored}
+    part_s["ltr_usa ranker"] = time.perf_counter() - t0
+    added = []
+    for name, ref_row in (("usa_trinv", "trinv"),
+                          ("usa_woodbury", "woodbury_refine1")):
+        t0 = time.perf_counter()
+        prm = pt.SolverParams(**{**json.loads(str(golden[f"{name}/params"])),
+                                 "backend": "pallas"})
+        kind = "factored" if prm.linsolve == "woodbury" else "dense"
+        wrapper, other = wrappers[kind], wrappers[
+            "dense" if kind == "factored" else "factored"]
+        sync()
+        reset_counts()
+        t1 = time.perf_counter()
+        bt = tbatch.run_batch(service(tb.bibfn_selection_ltr, **ltr_kw),
+                              prm, device=device)
+        sync()
+        run_ms = (time.perf_counter() - t1) * 1e3
+        launches = {"cluster": wrapper.cluster_launches,
+                    "stream": wrapper.stream_launches,
+                    "other": other.launches}
+        w = usa_weights(bt.strategy, rebdates, X.columns)
+        status = bt.output["batch"]["status"]
+        iters = bt.output["batch"]["iters"]
+
+        # The same problems on the plain path, in f32 and f64.
+        off = dataclasses.replace(prm, polish=False)
+        plain = dataclasses.replace(prm, backend="xla")
+        plain_off = dataclasses.replace(off, backend="xla")
+        w0 = solve(mine[0], off)[0]
+        wp, plain_status, plain_iters = solve(mine[0], plain)
+        wp0 = solve(mine[0], plain_off)[0]
+        w64 = solve(mine[1], plain_off)[0]
+        B, n = mine[0].qp.q.shape
+        print(f"[{name}] run_batch through the LTR item {run_ms:.1f} ms "
+              f"({len(rebdates)} ranker fits and the solve); shape B={B} "
+              f"n={n}; launches {launches}; solved "
+              f"{int((status == 1).sum())}/{B}; iters {iters.tolist()} "
+              f"(plain path {plain_iters.tolist()})", flush=True)
+        check(launches["cluster"] > 0 and launches["stream"] == 0
+              and launches["other"] == 0,
+              f"[{name}] run_batch launched the {kind} cluster form, never "
+              f"its streaming form nor the other kernel")
+        check(np.array_equal(status, plain_status),
+              f"[{name}] status equals the plain path's on every date")
+        usa_checks(name, "the plain path", mine[1], X.columns, lm, prm, iters,
+                   w, sel, w0, wp, wp0, w64)
+
+        # The golden's selection through the same kernels, held as
+        # backtest_phase holds configuration 1.
+        wg, st_g, it_g = solve(theirs[0], prm)
+        wg0 = solve(theirs[0], off)[0]
+        g_w = golden[f"{name}/weights"]
+        check(np.array_equal(st_g, golden[f"{name}/status"])
+              and np.array_equal(it_g, golden[f"{name}/iters"]),
+              f"[{name}] on the golden's selection: status and iterations "
+              f"equal the golden's on every date")
+        usa_checks(f"{name} on the golden's selection", "the golden",
+                   theirs[1], X.columns, lm, prm, it_g, wg, gsel, wg0, g_w,
+                   golden[f"{name}/weights_nopolish"],
+                   golden[f"{name}/weights_nopolish_f64"])
+        print(f"[{name}] on the golden's selection: max|dw| vs golden "
+              f"{float(np.abs(np.nan_to_num(wg) - g_w).max()):.3e}",
+              flush=True)
+
+        # The segment kernel at this shape against its plain twin.
+        qp_dev = mine[0].qp.to(dev)
+        scaled = tsolve._prepare_impl(qp_dev, prm)[0]
+        fn, args, kw = segment_kernel_call(admm_init(scaled, prm), scaled,
+                                           prm)
+        check(fn is wrapper, f"[{name}] the segment kernel is "
+              f"{wrapper.__name__}")
+        key = (name.replace("usa_", "ltr_"), "cluster")
+        kernel_row(rows, key, f"{rows[(ref_row, 'cluster')]['name']}@ltr",
+                   (ref_row, "cluster"), fn, args, kw, launches["cluster"])
+        added.append(key)
+        part_s[f"ltr_usa {name}"] = time.perf_counter() - t0
+
+    # -- lstm_msci: the shipped ranker --------------------------------------
+    t0 = time.perf_counter()
+    sm = meta["lstm"]
+    R = lstm_series(sm["seed"], sm["n_days"], sm["n_assets"])
+    Xw, yw = tlstm.make_windows(R, sm["window"])
+    Xm, ym = Xw[-sm["n_windows"]:], yw[-sm["n_windows"]:]
+    artifact = tree_of(np.load(os.path.join(here, LSTM_NPZ)), "")
+    cell = artifact["OptimizedLSTMCell_0"]
+    model = tlstm.TrainedLSTM(module=tlstm.LSTMRanker(
+        n_assets=cell["ii"]["kernel"].shape[0],
+        hidden=cell["hi"]["kernel"].shape[0]).to(dev), params=artifact)
+    pred = model.predict(Xm)
+
+    def held(tag, card, key, floor_steps):
+        """``card`` by the twin rule against the golden's ``key`` and
+        its f64 run, with a floor of ULPS_PER_ITER f32 ulps of the
+        scale per step; prints the distances."""
+        g = golden[f"{key}_f64"]
+        ok, d, band = twin_rule(card, golden[key], g, floor=(
+            ULPS_PER_ITER * floor_steps * F32_EPS * float(np.abs(g).max())))
+        print(f"  {tag}: |card-f64| max {float(d.max()):.3e}, worst ratio "
+              f"to the band {float(np.max(d / band)):.3f}", flush=True)
+        return bool(ok.all())
+
+    check(held("lstm_msci predictions", pred, "msci/pred", sm["window"]),
+          "[lstm_msci] predictions within the twin rule")
+    rel = np.argsort(np.argsort(ym, axis=1), axis=1).astype(np.float32)
+    nd = tlstm.ndcg(torch.as_tensor(pred, device=dev), rel, k=10).cpu().numpy()
+    check(float(np.abs(nd - golden["msci/ndcg"]).max()) <= ML_NDCG_ATOL,
+          f"[lstm_msci] NDCG@10 per window within {ML_NDCG_ATOL:g} of the "
+          f"golden (mean {float(nd.mean()):.6f}, golden "
+          f"{float(golden['msci/ndcg'].mean()):.6f})")
+    part_s["lstm_msci"] = time.perf_counter() - t0
+
+    # -- lstm_train -----------------------------------------------------------
+    t0 = time.perf_counter()
+    tm = meta["lstm_train"]
+    Xt, yt = tlstm.make_windows(R, tm["window"])
+    draws = dict(init_params=tree_of(golden, "train/init/"),
+                 batch_indices=golden["train/idx"],
+                 dropout_masks=golden["train/masks"], device=device,
+                 **tm["kwargs"])
+    n_steps = golden["train/idx"].shape[0]
+
+    def trained(lr):
+        res = tlstm.train_lstm(Xt, yt, **{**draws, "learning_rate": lr})
+        return res.loss_history, res.predict(Xt[-sm["n_windows"]:])
+
+    def run_held(tag, run):
+        return all([held(f"{tag} {key}", out, f"train/{key}",
+                         n_steps * tm["window"])
+                    for out, key in zip(run, ("loss", "pred"))])
+
+    sync()
+    t1 = time.perf_counter()
+    run = trained(tm["kwargs"]["learning_rate"])
+    sync()
+    train_ms = (time.perf_counter() - t1) * 1e3
+    print(f"[lstm_train] {n_steps} Adam steps of batch "
+          f"{golden['train/idx'].shape[1]} over a {tm['window']}-step "
+          f"window: {train_ms:.1f} ms; losses {run[0].tolist()}", flush=True)
+    check(run_held("lstm_train", run), "[lstm_train] losses and "
+          "predictions within the twin rule")
+    check(not run_held("control (no optimizer step)", trained(0.0)),
+          "[lstm_train control: learning rate 0] the twin rule fails it")
+
+    Xr, _ = tlstm.reference_lstm_windows(R, golden["ref/W"].shape[0])
+    Xr = Xr[-sm["n_windows"]:]
+    module = tlstm.ReferenceLSTM(n_assets=golden["ref/Wd"].shape[1],
+                                 hidden=golden["ref/U"].shape[0],
+                                 n_features=golden["ref/W"].shape[0])
+    module.load_state_dict({k: torch.as_tensor(golden[f"ref/{a}"])
+                            for k, a in (("kernel_i", "W"), ("kernel_h", "U"),
+                                         ("bias", "b"), ("dense_kernel", "Wd"),
+                                         ("dense_bias", "bd"))})
+    ref = tlstm.TrainedLSTM(module=module.to(dev))
+    check(held("ReferenceLSTM predictions", ref.predict(Xr), "ref/pred",
+               Xr.shape[1]), "[lstm_train] ReferenceLSTM forward from the "
+          "golden's Keras arrays within the twin rule")
+    part_s["lstm_train"] = time.perf_counter() - t0
+
+    # -- ordinal -----------------------------------------------------------
+    t0 = time.perf_counter()
+    om = meta["ordinal"]
+    Xo, yo = ordinal_data(om["seed"], om["n"], om["d"], om["n_classes"])
+    for distr in ("probit", "logit"):
+        sync()
+        t1 = time.perf_counter()
+        fit = OrdinalRegression(distr=distr, device=device).fit(Xo, yo)
+        fit_s = time.perf_counter() - t1
+        p = f"ord/{distr}/"
+        d = {k: float(np.abs(v - golden[p + k]).max()) for k, v in (
+            ("beta", fit.beta_), ("cutpoints", fit.cutpoints_),
+            ("proba", fit.predict_proba(Xo[:om["n_proba"]])))}
+        d64 = {k: float(np.abs(getattr(fit, f"{k}_") - golden[f"{p}{k}_f64"])
+                        .max()) for k in ("beta", "cutpoints")}
+        g64 = {k: float(np.abs(golden[p + k] - golden[f"{p}{k}_f64"]).max())
+               for k in ("beta", "cutpoints")}
+        dnll = abs(fit.nll_ - float(golden[p + "nll"]))
+        print(f"[ordinal {distr}] fit {fit_s:.2f} s; vs golden {d}, NLL "
+              f"{fit.nll_:.7f} (golden {float(golden[p + 'nll']):.7f}); to "
+              f"the f64 optimum: card {d64}, golden {g64}", flush=True)
+        check(max(d.values()) <= ML_OPT_ATOL and dnll <= ML_NLL_ATOL,
+              f"[ordinal {distr}] coefficients, cutpoints and probabilities "
+              f"within {ML_OPT_ATOL:g} of the golden, NLL within "
+              f"{ML_NLL_ATOL:g}")
+    part_s["ordinal"] = time.perf_counter() - t0
+
+    # -- regression --------------------------------------------------------
+    t0 = time.perf_counter()
+    P, yp = usa_panel(X, feats)
+    n_pred = meta["regression"]["n_pred"]
+
+    def near(tag, got, want):
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        check(err <= ML_REG_RTOL * scale, f"[regression] {tag} within "
+              f"{ML_REG_RTOL:g} of its scale ({err:.3e} of {scale:.3e})")
+
+    for tag, design in (("full", P), ("deficient",
+                                      np.hstack([P, P[:, :1] + P[:, 1:2]]))):
+        ols = OLS(add_constant=True, device=device).fit(design, yp)
+        near(f"OLS {tag} coefficients", ols.coef_, golden[f"reg/ols_{tag}"])
+        near(f"OLS {tag} predictions", ols.predict(design[:n_pred]),
+             golden[f"reg/ols_{tag}_pred"])
+    pca = PCA(meta["regression"]["n_components"], device=device).fit(P)
+    sign = np.sign(np.sum(pca.components_ * golden["reg/pca"], axis=1))
+    near("PCA components (up to sign)", sign[:, None] * pca.components_,
+         golden["reg/pca"])
+    near("PCA explained variance ratio", pca.explained_variance_ratio_,
+         golden["reg/pca_evr"])
+    pols = PCAOLS(meta["regression"]["n_components"], device=device).fit(
+        P, yp)
+    near("PCAOLS predictions", pols.predict(P[:n_pred]),
+         golden["reg/pcaols_pred"])
+    part_s["regression"] = time.perf_counter() - t0
+    print(f"phase 12: parts (s) "
+          f"{ {k: round(v, 2) for k, v in part_s.items()} }; in all "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return added
+
+
 def backtest_phase(rows, reset_counts):
     """The backtest on the card for both configs; returns the kernel
     rows it adds to ``rows`` (keyed like the tracking rows).
@@ -411,13 +1077,11 @@ def backtest_phase(rows, reset_counts):
     - status and iterations equal the golden on every date;
     - the config's kernel went through the form its shape chooses
       (``dense_form`` / ``factored_form``) and never the other;
-    - weights finite, of the golden's shape, inside the budget and the
-      box to eps_abs;
-    - the card's ADMM iterate (the same run with polish off) by the
-      twin rule above against the f64 iterate, on every date; where the
-      card's polish was rejected its weights are that iterate;
-    - each date's in-sample tracking error at most KERNEL_VS_PLAIN times
-      the golden's.
+    - ``usa_checks`` against the golden: weights on every asset, finite,
+      budget and box; the card's ADMM iterate (the same run with polish
+      off; where the card's polish was rejected its weights are that
+      iterate) by the twin rule against the f64 iterate; the in-sample
+      tracking error.
     Printed beside them, as the JAX package's numbers to compare: the
     dates whose polish was accepted (on the card, in the golden and in
     its f64 twin), max|dw| against the golden, and the simulated
@@ -449,15 +1113,9 @@ def backtest_phase(rows, reset_counts):
         return usa_service(X, bm, rebdates, meta)
 
     def weights(strategy):
-        return (strategy.get_weights_df().reindex(columns=X.columns)
-                .to_numpy(float))
+        return usa_weights(strategy, rebdates, X.columns)
 
-    # The in-sample objective ||X w - y||^2 per date, in f64 on the host.
-    obj_qp = tbatch.build_problems(service(), dtype=torch.float64).qp
-
-    def in_sample_te(w):
-        val = obj_qp.objective_value(torch.tensor(w)).numpy()
-        return np.sqrt(np.maximum(val, 0.0) / meta["width"])
+    problems64 = tbatch.build_problems(service(), dtype=torch.float64)
 
     # CUDA events around the solve's two device stages.
     spans = {"admm_solve": [], "_polish_iterate": []}
@@ -553,10 +1211,13 @@ def backtest_phase(rows, reset_counts):
             g_te = float(golden[f"{name}/tracking_error"])
             dw = float(np.abs(w - g_w).max())
             te_rel = abs(te - g_te) / g_te
-            d_gold = np.abs(g_iter - ref64).max(axis=1)
-            d_card = np.abs(w0 - ref64).max(axis=1)
-            floor = ULPS_PER_ITER * int(iters.max()) * F32_EPS * meta["upper"]
-            te_card, te_gold = in_sample_te(w), in_sample_te(g_w)
+            check(np.array_equal(status, golden[f"{name}/status"]),
+                  f"[{name}] status equals the JAX golden on every date")
+            check(np.array_equal(iters, golden[f"{name}/iters"]),
+                  f"[{name}] iterations equal the JAX golden on every date")
+            d_card, d_gold, te_card, te_gold = usa_checks(
+                name, "the golden", problems64, X.columns, meta, prm, iters,
+                w, np.ones(w.shape, bool), w0, g_w, g_iter, ref64)
             print(f"backtest [{name}]: host build of {B} problems "
                   f"{host_ms:.1f} ms; host-to-device copy {h2d_ms:.1f} ms; "
                   f"run_batch {times[1]:.1f} ms end to end (first run "
@@ -591,23 +1252,6 @@ def backtest_phase(rows, reset_counts):
                 "stream" if form == "cluster" else "cluster"] == 0,
                 f"[{name}] run_batch launched the {form} form its shape "
                 f"chooses, and never the other")
-            check(np.array_equal(status, golden[f"{name}/status"]),
-                  f"[{name}] status equals the JAX golden on every date")
-            check(np.array_equal(iters, golden[f"{name}/iters"]),
-                  f"[{name}] iterations equal the JAX golden on every date")
-            ok_shape = bool(np.isfinite(w).all()) and w.shape == g_w.shape
-            check(ok_shape and float(np.abs(w.sum(1) - 1).max()) <= prm.eps_abs
-                  and float(w.min()) >= -prm.eps_abs
-                  and float(w.max()) <= meta["upper"] + prm.eps_abs,
-                  f"[{name}] weights finite, shape {w.shape}, budget and "
-                  f"box hold to {prm.eps_abs:g}")
-            check(bool(np.all(d_card <= KERNEL_VS_PLAIN * d_gold + floor)),
-                  f"[{name}] ADMM iterate per date within "
-                  f"{KERNEL_VS_PLAIN:g}x the golden's distance to the f64 "
-                  f"iterate (+{floor:.2g})")
-            check(bool(np.all(te_card <= KERNEL_VS_PLAIN * te_gold)),
-                  f"[{name}] in-sample TE per date within "
-                  f"{KERNEL_VS_PLAIN:g}x the golden's")
 
             # The segment kernel at this shape against its plain twin.
             scaled = tsolve._prepare_impl(qp_dev, prm)[0]
@@ -1931,11 +2575,12 @@ def secondary_phase(rows, reset_counts, device="cuda"):
     return added
 
 
-def twin_rule(card, g32, g64, pooled=None):
+def twin_rule(card, g32, g64, pooled=None, floor=None):
     """Per row (a date) the twin rule of DIFF_PATH over the last axis:
     returns (passed per row, the card's distance to f64, the band).
     ``pooled`` (a row mask) takes XLA-CPU's f32 distance as its largest
-    over those rows, the configuration's f32 floor, for every row."""
+    over those rows, the configuration's f32 floor, for every row.
+    ``floor`` replaces the band's GRAD_ULPS ulps of each row's scale."""
     import numpy as np
 
     card, g32, g64 = (np.asarray(a, np.float64).reshape(len(a), -1)
@@ -1944,8 +2589,9 @@ def twin_rule(card, g32, g64, pooled=None):
     d_twin = np.abs(g32 - g64).max(axis=1)
     if pooled is not None:
         d_twin = np.full_like(d_twin, d_twin[pooled].max(initial=0.0))
-    band = (KERNEL_VS_PLAIN * d_twin
-            + GRAD_ULPS * F32_EPS * np.abs(g64).max(axis=1))
+    band = KERNEL_VS_PLAIN * d_twin + (
+        GRAD_ULPS * F32_EPS * np.abs(g64).max(axis=1) if floor is None
+        else floor)
     return np.isfinite(card).all(axis=1) & (d_card <= band), d_card, band
 
 
@@ -4049,6 +4695,9 @@ def main():
 
     # -- 11. the device-cost plane -----------------------------------------
     kernel_rows += cost_phase(rows, reset_counts)
+
+    # -- 12. the ML selection models ---------------------------------------
+    kernel_rows += ml_phase(rows, reset_counts)
 
     # -- report ----------------------------------------------------------
     if FAILURES:

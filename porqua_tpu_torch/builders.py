@@ -88,11 +88,12 @@ def bibfn_selection_min_volume(bs, rebdate: str, **kwargs) -> pd.Series:
 
 
 def bibfn_selection_ltr(bs, rebdate: str, **kwargs) -> pd.DataFrame:
-    """Learning-to-rank scoring filter. It needs the ranking models
-    (``porqua_tpu/models/``), which are not ported yet."""
-    raise NotImplementedError(
-        "bibfn_selection_ltr needs the learning-to-rank models, which are "
-        "not ported to PyTorch yet (ROADMAP queue A, item 20)")
+    """Learning-to-rank scoring filter (see
+    :func:`porqua_tpu_torch.models.ltr.ltr_selection_scores`; the
+    ranker trains on the builder's ``device``, the card by default)."""
+    from porqua_tpu_torch.models.ltr import ltr_selection_scores
+
+    return ltr_selection_scores(bs=bs, rebdate=rebdate, **kwargs)
 
 
 # --------------------------------------------------------------------------

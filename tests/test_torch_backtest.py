@@ -472,9 +472,25 @@ def test_unported_options_raise(call, rng, monkeypatch, tmp_path):
                      float)
         assert np.isfinite(w).all() and abs(w.sum() - 1.0) < 1e-9
         return
-    else:
+    elif call == "ltr_builder":
+        # Ported since the ML selection models (models/ltr.py): an LTR
+        # selection item on this market, with chip_smoke.usa_features'
+        # panel, scores every asset and selects top_k of them.
+        import chip_smoke
+
         data = make_market(rng)
-        fn = lambda: tb.bibfn_selection_ltr(None, "2020-06-01")
+        data["features"] = chip_smoke.usa_features(data["return_series"])
+        bs = service(pt, tb, data, rebdates_of(data, k=5)[-1:],
+                     pt.LeastSquares(), 120)
+        bs.selection_item_builders["ltr"] = pt.SelectionItemBuilder(
+            bibfn=tb.bibfn_selection_ltr, top_k=3, epochs=5, device="cpu")
+        bs.build_selection(bs.settings["rebdates"][0])
+        out = bs.selection.filtered["ltr"]
+        assert list(out.columns) == ["values", "binary"]
+        assert int(out["binary"].sum()) == 3
+        assert np.isfinite(out["values"]).all()
+        assert len(bs.selection.selected) == 3
+        return
     with pytest.raises(NotImplementedError, match="not ported") as err:
         fn()
     if call == "scan_grid_mesh":

@@ -267,14 +267,18 @@ def test_port_imports_no_jax():
     solve, PDHG and NAPG solves with rings, a sketch-fed tracking_step,
     a backward
     through solve_qp_diff and solve_qp_l1_diff, compare_solvers' ipm-f64
-    and native-cpp-admm rows and an Optimization with
-    solver_name="ipm" with JAX made unimportable, and pulls in no
+    and native-cpp-admm rows, an Optimization with solver_name="ipm",
+    one LTR selection, one LSTM training step and forward and one
+    ordinal fit (ML models) with JAX, flax, optax, sklearn, msgpack
+    and h5py made unimportable, and pulls in no
     module of the JAX package; the native core's build and load (every
     file opened, library loaded and process started after the solves
     begin) never touch a path under porqua_tpu/."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "sys.modules['jax'] = None\n"
+        "for blocked in ('jax', 'flax', 'optax', 'sklearn', 'msgpack', "
+        "'h5py'):\n"
+        "    sys.modules[blocked] = None\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "import porqua_tpu_torch as pt\n"
@@ -376,6 +380,25 @@ def test_port_imports_no_jax():
         "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
         "sketch_dim=8, sketch_seed=3), device='cpu')\n"
         "assert r.status.tolist() == [1, 1], r.status\n"
+        "import numpy as np, pandas as pd, types\n"
+        "from porqua_tpu_torch import models\n"
+        "import chip_smoke\n"
+        "mk = pd.bdate_range('2019-01-01', periods=420)\n"
+        "Rm = pd.DataFrame(np.random.default_rng(0).standard_normal((420, 6))"
+        " * 0.01, index=mk, columns=[f'a{i}' for i in range(6)])\n"
+        "sel = models.ltr_selection_scores(types.SimpleNamespace(data={"
+        "'return_series': Rm, 'features': chip_smoke.usa_features(Rm)}), "
+        "'2020-08-03', top_k=2, epochs=3, device='cpu')\n"
+        "assert int(sel['binary'].sum()) == 2, sel\n"
+        "Xw, yw = models.make_windows(Rm.to_numpy(np.float32), 10)\n"
+        "lm = models.train_lstm(Xw[:40], yw[:40], hidden=4, epochs=1, "
+        "batch_size=40, device='cpu')\n"
+        "assert lm.loss_history.shape == (1,) and lm.predict(Xw[:2]).shape "
+        "== (2, 6)\n"
+        "fit = models.OrdinalRegression(device='cpu').fit(Xw[:60, -1], "
+        "models.decile_rank_labels(pd.DataFrame(yw[:60]), n_bins=3).to_numpy()"
+        "[:, 0])\n"
+        "assert np.isfinite(fit.nll_), fit\n"
         "import os\n"
         "jax_pkg = os.path.join(os.getcwd(), 'porqua_tpu') + os.sep\n"
         "touched = []\n"
@@ -414,7 +437,8 @@ def test_port_imports_no_jax():
         "assert any('libporqua_qp' in t for t in touched), touched\n"
         "assert not [t for t in touched if jax_pkg in t], touched\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
-        "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu'))]\n"
+        "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu', 'flax', "
+        "'optax', 'sklearn', 'msgpack', 'h5py'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
