@@ -107,7 +107,16 @@ printed):
    kernel at refine 1); the shipped LSTM ranker, ``train_lstm`` from
    the golden's draws, the reference's Keras architecture, the ordinal
    regressions and OLS/PCA/PCAOLS on the USA monthly panel.
-13. One JSON line per kernel, then the card line, then the result line.
+13. The mesh, the process group and the transfer guard
+   (``mesh_phase``; checks listed there): the tracking batch through
+   ``solve_qp_sharded`` (K1 and K2) and phase 6's grid through
+   ``solve_scan_l1_grid(mesh=)``, bit-equal to the unsharded runs; a
+   one-process NCCL group and its (1, 1) multihost mesh;
+   ``solve_batch``, a compacted solve and a serving burst under
+   ``PORQUA_SANITIZE=1``, bit-equal to the unguarded runs, each with a
+   seeded control that the guard must catch; the op-trace contracts and
+   the op-trace harvest on the card.
+14. One JSON line per kernel, then the card line, then the result line.
 """
 
 import contextlib
@@ -4388,6 +4397,387 @@ def _fleet_cell(tag, params, reqs, tmp, device):
             stream.close()
 
 
+MESH_ROWS = ("woodbury", "trinv")
+SANITIZED_BURST = 256
+
+
+def mesh_phase(rows, reset_counts, device="cuda"):
+    """The mesh, the process group and the transfer guard on the card;
+    returns the kernel rows it adds to ``rows``. Checks:
+    - ``solve_qp_sharded`` over ``make_mesh()`` on the tracking headline
+      batch (252 x 252 x 500, seed 42, f32, eps 1e-3) through K1 at
+      refine 0 and through K2: bit-equal to the unsharded
+      ``solve_qp_batch`` with the same launches, and status, iterations
+      and |dw| <= W_ATOL against phase 4's golden;
+    - ``solve_scan_l1_grid(mesh=make_mesh())`` on phase 6's grid (8
+      columns, K2): bit-equal to the unsharded grid with the same
+      launches, status equal to the golden on every date;
+    - ``init_distributed(num_processes=1)`` on NCCL and
+      ``make_multihost_mesh()``: a (1, 1) mesh whose solve is bit-equal
+      to the unsharded one; the group is destroyed afterwards;
+    - under ``PORQUA_SANITIZE=1``: ``solve_batch`` on the tracking batch
+      (K1 refine 0), the compacted solve of phase 8's eps 1e-5 batch (K1
+      refine 0) and a burst of 256 requests of phase 7's stream through
+      ``SolveService`` (K2), each bit-equal to the same run with the
+      guard off, and a seeded control in each (a hidden ``.item()`` or a
+      CPU operand inside the guarded call) raising ``SanitizerError``;
+      the service's control fails its batch and leaves the breaker
+      closed;
+    - the op-trace contracts (GC101-GC111) on the card with no finding,
+      and the op-trace harvest: each program's peak, op count,
+      fingerprint and GC20x counts printed."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    import porqua_tpu_torch.qp.solve as solve_mod
+    from porqua_tpu_torch import batch as tbatch
+    from porqua_tpu_torch.analysis import sanitize
+    from porqua_tpu_torch.compaction import CompactingDriver
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.parallel import make_mesh, solve_qp_sharded
+    from porqua_tpu_torch.parallel.mesh import (init_distributed,
+                                                make_multihost_mesh)
+    from porqua_tpu_torch.qp.admm import admm_init, segment_kernel_call
+    from porqua_tpu_torch.serve import SolveService
+    from porqua_tpu_torch.serve.loadgen import build_tracking_requests
+    from porqua_tpu_torch.tracking import benchmark_grid_np
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device(device)
+    K1, K2 = admm_kernel.admm_segment_factored, admm_kernel.admm_segment
+    added = []
+
+    def counts():
+        return {name: {"cluster": f.cluster_launches,
+                       "stream": f.stream_launches}
+                for name, f in (("K1", K1), ("K2", K2))}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts(), (time.perf_counter() - t0) * 1e3
+
+    def first_segment(qp, prm):
+        scaled = solve_mod._prepare_impl(qp, prm)[0]
+        return segment_kernel_call(admm_init(scaled, prm), scaled, prm)
+
+    @contextlib.contextmanager
+    def sanitized(on):
+        old = os.environ.get("PORQUA_SANITIZE")
+        os.environ["PORQUA_SANITIZE"] = "1" if on else "0"
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop("PORQUA_SANITIZE", None)
+            else:
+                os.environ["PORQUA_SANITIZE"] = old
+
+    @contextlib.contextmanager
+    def hidden(kind):
+        """The seeded control: the solve's finalize does a hidden host
+        read (``item``) or takes a CPU operand (``cpu``)."""
+        real = solve_mod._finalize_impl
+
+        def bad(*a, **k):
+            sol = real(*a, **k)
+            if kind == "item":
+                sol.x.sum().item()
+                return sol
+            return sol._replace(x=sol.x + torch.zeros(sol.x.shape))
+        solve_mod._finalize_impl = bad
+        try:
+            yield
+        finally:
+            solve_mod._finalize_impl = real
+
+    def raises_sanitizer(fn):
+        try:
+            fn()
+        except sanitize.SanitizerError as exc:
+            return str(exc)
+        return None
+
+    golden = np.load(os.path.join(here, "porqua_tpu_torch", "testdata",
+                                  "tracking_golden.npz"))
+    meta = json.loads(str(golden["meta"]))
+    Xs_np, ys_np = pt.synthetic_universe_np(
+        meta["seed"], meta["n_dates"], meta["window"], meta["n_assets"])
+    pt.qp.canonical.HP.apply()
+    qp = pt.build_tracking_qp(torch.as_tensor(Xs_np, device=dev),
+                              torch.as_tensor(ys_np, device=dev))
+    mesh = make_mesh()
+    print(f"mesh: {mesh.shape} over {list(mesh.devices.flat)}", flush=True)
+
+    # -- 13a. the sharded solves ---------------------------------------
+    prms = {}
+    for name in MESH_ROWS:
+        p = json.loads(str(golden[f"{name}/params"]))
+        prm = prms[name] = pt.SolverParams(**{**p, "backend": "pallas"})
+        wrapper = K1 if name == "woodbury" else K2
+        ref, c_ref, ms_ref = counted(lambda: pt.solve_qp_batch(qp, prm))
+        sh, c_sh, ms_sh = counted(lambda: solve_qp_sharded(qp, mesh, prm))
+        tag = "K1" if wrapper is K1 else "K2"
+        status = sh.status.cpu().numpy()
+        iters = sh.iters.cpu().numpy()
+        w = sh.x.cpu().numpy()
+        dw = float(np.abs(w - golden[f"{name}/weights"]).max())
+        print(f"sharded [{name}]: {ms_sh:.1f} ms (unsharded "
+              f"{ms_ref:.1f} ms); launches {c_sh[tag]} (unsharded "
+              f"{c_ref[tag]}); solved {int((status == 1).sum())}/"
+              f"{len(status)}; max|dw| vs golden {dw:.3e}", flush=True)
+        check(same_bits(sh, ref), f"[sharded {name}] bit-equal to the "
+              "unsharded solve_qp_batch on the same batch")
+        check(c_sh == c_ref and c_sh[tag]["cluster"] > 0
+              and c_sh[tag]["stream"] == 0,
+              f"[sharded {name}] the same launches as the unsharded solve, "
+              f"through the {tag} cluster form ({c_sh[tag]})")
+        check(np.array_equal(status, golden[f"{name}/status"])
+              and np.array_equal(iters, golden[f"{name}/iters"])
+              and bool(np.isfinite(w).all()) and dw <= W_ATOL,
+              f"[sharded {name}] status and iterations equal phase 4's "
+              f"golden on every date, max|dw| {dw:.3e} <= {W_ATOL:g}")
+        fn, args, kw = first_segment(qp, prm)
+        check(fn is wrapper, f"[sharded {name}] its segment is {tag}")
+        key = (f"mesh_{name}", "cluster")
+        kernel_row(rows, key, f"{rows[(name, 'cluster')]['name']}@mesh",
+                   (name, "cluster"), fn, args, kw, c_sh[tag]["cluster"])
+        added.append(key)
+        if name == "trinv":
+            ref_trinv = ref
+
+    # -- 13b. the grid through the mesh --------------------------------
+    sg = np.load(os.path.join(here, SCAN_PATH))
+    smeta = json.loads(str(sg["meta"]))
+    T, n, B, tc = (smeta["n_dates"], smeta["n_assets"], smeta["n_columns"],
+                   smeta["tc"])
+    Xg_np, yg_np = pt.synthetic_universe_np(smeta["seed"], T,
+                                            smeta["window"], n)
+    Xg = torch.as_tensor(Xg_np, device=dev)
+    cols = [pt.build_tracking_qp(Xg, torch.as_tensor(y, device=dev))
+            for y in benchmark_grid_np(Xg_np, yg_np, B)]
+    grid = pt.CanonicalQP(*(None if f[0] is None else torch.stack(f)
+                            for f in zip(*cols)))
+    del cols
+    prm_g = pt.SolverParams(**{**json.loads(str(sg["scan_l1_grid/params"])),
+                               "backend": "pallas"})
+    w_grid = np.tile(np.full(n, 1.0 / n, np.float32), (B, 1))
+    fixed = pt.FIXED_UNIVERSE
+    g_ref, c_gref, ms_gref = counted(lambda: pt.solve_scan_l1_grid(
+        grid, n, w_grid, tc, prm_g, universes=fixed))
+    g_sh, c_gsh, ms_gsh = counted(lambda: pt.solve_scan_l1_grid(
+        grid, n, w_grid, tc, prm_g, mesh=mesh, universes=fixed))
+    g_status = g_sh.status.cpu().numpy()
+    g_x = g_sh.x.cpu().numpy()
+    print(f"grid through the mesh: {ms_gsh:.1f} ms for {T} dates x {B} "
+          f"columns (unsharded {ms_gref:.1f} ms); launches {c_gsh['K2']} "
+          f"(unsharded {c_gref['K2']})", flush=True)
+    check(same_bits(g_sh, g_ref), "[grid mesh] bit-equal to the unsharded "
+          "solve_scan_l1_grid")
+    check(c_gsh == c_gref and c_gsh["K2"]["cluster"] > 0
+          and c_gsh["K2"]["stream"] == 0 and c_gsh["K1"]["cluster"] == 0,
+          f"[grid mesh] the same launches, through the K2 cluster form "
+          f"({c_gsh['K2']})")
+    check(np.array_equal(g_status, sg["scan_l1_grid/status"])
+          and bool(np.isfinite(g_x).all())
+          and g_x.shape == sg["scan_l1_grid/x"].shape,
+          "[grid mesh] status equals phase 6's golden on every date, "
+          "weights finite, of its shape")
+    l1w = tbatch._l1_weight(n, n, tc, torch.float32, dev)
+    fn, args, kw = scan_kernel_call(grid, torch.as_tensor(w_grid, device=dev),
+                                    l1w, prm_g, 2)
+    kernel_row(rows, ("mesh_grid", "cluster"),
+               "admm_segment[triangular]_cluster@grid,mesh",
+               ("trinv", "cluster"), fn, args, kw, c_gsh["K2"]["cluster"])
+    added.append(("mesh_grid", "cluster"))
+    del grid, g_ref, g_sh
+
+    # -- 13c. the one-process NCCL group -------------------------------
+    import torch.distributed as dist
+
+    world = init_distributed(num_processes=1)
+    try:
+        hm = make_multihost_mesh()
+        nc, c_nc, ms_nc = counted(
+            lambda: solve_qp_sharded(qp, hm, prms["trinv"]))
+        print(f"nccl: world {world}, backend {dist.get_backend()}, mesh "
+              f"{hm.shape} {hm.axis_names}; solve {ms_nc:.1f} ms, launches "
+              f"{c_nc['K2']}", flush=True)
+        check(world == 1 and dist.get_backend() == "nccl"
+              and hm.shape == (1, 1) and hm.axis_names == ("hosts", "dates"),
+              "[nccl] init_distributed(num_processes=1) gives a world of 1 "
+              "on nccl and make_multihost_mesh() a (1, 1) hosts x dates mesh")
+        check(same_bits(nc, ref_trinv), "[nccl] the solve through the "
+              "multihost mesh is bit-equal to the unsharded one")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "[nccl] the group is destroyed")
+
+    # -- 13d. the sanitized runs ---------------------------------------
+    problems = tbatch.BatchProblems(
+        qp=qp.to("cpu"), rebdates=[str(i) for i in range(qp.q.shape[0])],
+        universes=[[]] * qp.q.shape[0], n_assets_max=meta["n_assets"])
+    prm = prms["woodbury"]
+    with sanitized(False):
+        bare, c_bare, _ = counted(lambda: tbatch.solve_batch(problems, prm))
+    with sanitized(True):
+        guarded, c_guard, ms_guard = counted(
+            lambda: tbatch.solve_batch(problems, prm))
+        with hidden("item"):
+            ctl = raises_sanitizer(lambda: tbatch.solve_batch(problems, prm))
+    print(f"sanitized solve_batch [woodbury]: {ms_guard:.1f} ms, launches "
+          f"{c_guard['K1']}; control: {ctl}", flush=True)
+    check(same_bits(guarded, bare) and c_guard == c_bare,
+          "[sanitized solve_batch] bit-equal to the unguarded run, with the "
+          "same launches")
+    check(ctl is not None, "[sanitized solve_batch] a hidden .item() in the "
+          "guarded solve raises SanitizerError")
+
+    sec = np.load(os.path.join(here, SECONDARY_PATH))
+    prm_c = pt.SolverParams(**{**json.loads(str(sec["compact_woodbury/params"])),
+                               "backend": "pallas"})
+    driver = CompactingDriver(prm_c)
+    driver.prewarm(qp.q.shape[0], qp.n, qp.m, dtype=qp.q.dtype,
+                   factor_rows=qp.Pf.shape[-2])
+    with sanitized(False):
+        (c_off, _), c_coff, _ = counted(lambda: driver.solve(qp))
+    with sanitized(True):
+        (c_on, rep), c_con, ms_con = counted(lambda: driver.solve(qp))
+        with hidden("cpu"):
+            ctl_c = raises_sanitizer(lambda: driver.solve(qp))
+    print(f"sanitized compaction [compact_woodbury, eps 1e-5]: {ms_con:.1f} "
+          f"ms, launches {c_con['K1']}, dispatch widths "
+          f"{sorted(set(rep.dispatch_sizes))[:8]}...; control: {ctl_c}",
+          flush=True)
+    check(same_bits(c_on, c_off) and c_con == c_coff
+          and c_con["K1"]["cluster"] > 0,
+          "[sanitized compaction] bit-equal to the unguarded compacted "
+          "solve, with the same K1 launches")
+    check(ctl_c is not None, "[sanitized compaction] a CPU operand in the "
+          "guarded finalize raises SanitizerError")
+    fn, args, kw = first_segment(qp, prm_c)
+    kernel_row(rows, ("sanitized_compact", "cluster"),
+               f"{rows[('woodbury', 'cluster')]['name']}@sanitized,compacted",
+               ("woodbury", "cluster"), fn, args, kw,
+               c_con["K1"]["cluster"])
+    added.append(("sanitized_compact", "cluster"))
+    del driver, problems
+
+    sv = np.load(os.path.join(here, SERVE_PATH))
+    smeta = json.loads(str(sv["meta"]))
+    prm_s = pt.SolverParams(**{**json.loads(str(sv["trinv/params"])),
+                               "backend": "pallas"})
+    reqs = build_tracking_requests(SANITIZED_BURST, smeta["n_assets"],
+                                   smeta["window"], smeta["seed"], False)
+    # One batch of the whole burst: the size trigger, never the age one.
+    svc = SolveService(prm_s, max_batch=SANITIZED_BURST, max_wait_ms=60000.0,
+                       warm_start=False, device=device)
+
+    def burst():
+        tickets = [svc.submit(q) for q in reqs]
+        out = []
+        for t in tickets:
+            try:
+                out.append(svc.result(t, timeout=600))
+            except Exception as exc:  # noqa: BLE001 - the control's
+                out.append(exc)
+        return out
+
+    svc.start()
+    try:
+        sanitize.reset()
+        svc.prewarm(reqs[0])
+        with sanitized(False):
+            off, c_soff, _ = counted(burst)
+        with sanitized(True):
+            on, c_son, ms_son = counted(burst)
+            with hidden("item"):
+                bad = burst()
+        snap = svc.snapshot()
+    finally:
+        svc.stop()
+    same = all(not isinstance(a, Exception) and not isinstance(b, Exception)
+               and np.array_equal(a.x, b.x) and a.status == b.status
+               and a.iters == b.iters for a, b in zip(on, off))
+    failed = sum(isinstance(r, Exception) and "sanitizer" in str(r)
+                 for r in bad)
+    print(f"sanitized serve [trinv, burst of {len(reqs)}]: {ms_son:.1f} ms, "
+          f"launches {c_son['K2']}; control: {failed}/{len(bad)} requests "
+          f"failed by the sanitizer; breaker: degraded {snap['degraded']}, "
+          f"switches {snap['device_switches']}, dispatch failures "
+          f"{snap['dispatch_failures']}", flush=True)
+    check(same and c_son == c_soff and c_son["K2"]["cluster"] > 0,
+          "[sanitized serve] every answer bit-equal to the unguarded burst, "
+          "with the same K2 launches")
+    check(failed == len(bad) and not snap["degraded"]
+          and snap["device_switches"] == 0
+          and snap["dispatch_failures"] == 0,
+          "[sanitized serve] the control (a hidden .item() in the guarded "
+          "dispatch) fails its batch with SanitizerError and leaves the "
+          "breaker closed")
+    fn, args, kw = serve_kernel_call(reqs, prm_s, dev)
+    kernel_row(rows, ("sanitized_serve", "cluster"),
+               f"{rows[('trinv', 'cluster')]['name']}@sanitized,serve",
+               ("trinv", "cluster"), fn, args, kw, c_son["K2"]["cluster"])
+    added.append(("sanitized_serve", "cluster"))
+
+    # -- 13e. contracts and the op-trace harvest on the card -----------
+    from porqua_tpu_torch.analysis import contracts, hlo
+    from porqua_tpu_torch.qp.canonical import stack_qps
+    from porqua_tpu_torch.serve.bucketing import BucketLadder
+
+    t0 = time.perf_counter()
+    found = contracts.check_entry_points(device=device)
+    print(f"contracts on {device}: {len(found)} finding(s) in "
+          f"{time.perf_counter() - t0:.1f} s"
+          + "".join(f"\n  {f.format()}" for f in found), flush=True)
+    check(not found, "[contracts] GC101-GC111 clean on the card")
+    t0 = time.perf_counter()
+    progs = hlo.harvest_entry_points(device=device)
+    # The serving entry at the stream's bucket (256 x 512 x 8, K2): the
+    # fusion misses (GC201) at a production shape.
+    qp_b = stack_qps([BucketLadder().pad(q)[1] for q in reqs]).to(dev)
+    progs.append(hlo.lower_program(
+        "serve_entry[256x512x8]",
+        lambda q, x, y: solve_mod._solve_impl(q, prm_s, x, y),
+        (qp_b, torch.zeros_like(qp_b.q), torch.zeros_like(qp_b.l))))
+    lint = hlo.lint_harvest(progs, include_padding=False)
+    by = {}
+    for f in lint:
+        prog = hlo.hlolint.path_program(f.path)
+        by.setdefault(prog, {}).setdefault(f.rule, 0)
+        by[prog][f.rule] += 1
+    print(f"op-trace harvest on {device}: {len(progs)} programs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for hp in progs:
+        print(f"  {hp.label}: peak {hp.peak_bytes:.0f} B, {hp.n_ops} ops, "
+              f"flops {hp.flops:.4g}, bytes {hp.bytes_accessed:.4g}, "
+              f"launches {hp.record.get('kernel_launches')}, fingerprint "
+              f"{hp.fingerprint}, findings {by.get(hp.label, {})}",
+              flush=True)
+    big = progs[-1].parse()
+    ranked = [f for f in lint if f.rule == "GC201"
+              and f.path == hlo.hlolint.hlo_path(progs[-1].label)]
+    print(f"GC201 ranking, serve_entry[256x512x8] ({len(ranked)} "
+          f"finding(s), widest first):", flush=True)
+    for f in ranked[:10]:
+        print(f"  line {f.line}: {f.message}", flush=True)
+    base = hlo.load_baseline()
+    check(set(base["programs"]) <= {hp.label for hp in progs} and all(
+        hp.peak_bytes is not None and hp.peak_bytes > 0 for hp in progs)
+        and any(i.op.startswith("kernel:") for i in big.ops),
+        f"[harvest] every program of the baseline recorded on the card "
+        f"with a measured peak, the serving entry through its kernel "
+        f"({len(progs)} programs)")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return added
+
+
 def shadow_rule(lanes, golden, check_interval):
     """SHADOW rule over ``lanes`` = ``(request, loser, status, iters)``:
     every lane's status equals the golden's answer on that loser; its
@@ -4698,6 +5088,9 @@ def main():
 
     # -- 12. the ML selection models ---------------------------------------
     kernel_rows += ml_phase(rows, reset_counts)
+
+    # -- 13. the mesh, the process group and the transfer guard ------------
+    kernel_rows += mesh_phase(rows, reset_counts)
 
     # -- report ----------------------------------------------------------
     if FAILURES:

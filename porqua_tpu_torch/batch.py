@@ -28,21 +28,22 @@ the serial engine produces, so accounting and reporting are shared.
   ladder.
 
 The telemetry ``harvest=`` sink of :mod:`porqua_tpu_torch.obs.harvest`
-gets one record per date. Not ported yet, and raising
-``NotImplementedError`` where reached: the device-mesh sharding of
-``solve_scan_l1_grid`` (``mesh=``) and the JAX package's
-``PORQUA_SANITIZE=1`` transfer guard.
+gets one record per date. Under ``PORQUA_SANITIZE=1`` the batched solve
+runs inside :func:`porqua_tpu_torch.analysis.sanitize.transfer_guard`
+after one explicit upload of the problems; ``solve_scan_l1_grid`` can
+split its benchmark columns over a device mesh (``mesh=``,
+:mod:`porqua_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from porqua_tpu_torch.analysis import sanitize
 from porqua_tpu_torch.backtest import Backtest, BacktestService
 from porqua_tpu_torch.portfolio import Portfolio, Strategy
 from porqua_tpu_torch.qp.canonical import (HP, CanonicalQP, as_torch_dtype,
@@ -74,11 +75,6 @@ class BatchProblems:
     @property
     def n_dates(self) -> int:
         return len(self.rebdates)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP queue A, {item})")
 
 
 def build_problems(bs: BacktestService,
@@ -154,6 +150,12 @@ def solve_batch(problems: BatchProblems,
     """Pass 2, independent dates: one batched solve on ``device``
     (default: the card). The results stay on the device.
 
+    Under ``PORQUA_SANITIZE=1`` the problems are uploaded explicitly
+    and the solve runs inside the transfer guard
+    (:func:`porqua_tpu_torch.analysis.sanitize.transfer_guard`): any
+    other host<->device copy or host read in the solve path raises,
+    apart from the segment loop's declared read per segment.
+
     ``harvest`` (a :class:`porqua_tpu_torch.obs.HarvestSink`) appends
     one telemetry-warehouse SolveRecord per date after the dispatch:
     host post-processing of the returned tensors, one host copy per
@@ -161,14 +163,18 @@ def solve_batch(problems: BatchProblems,
     are honest); ``None`` leaves the solve untouched."""
     import time as _time
 
-    if os.environ.get("PORQUA_SANITIZE") == "1":
-        raise _not_ported(
-            "the PORQUA_SANITIZE=1 transfer guard of the batched solve",
-            "item 23")
     t0 = _time.perf_counter()
-    sol = solve_qp_batch(problems.qp, params,
-                         l1_weight=problems.l1_weight,
-                         l1_center=problems.l1_center, device=device)
+    qp, l1w, l1c = problems.qp, problems.l1_weight, problems.l1_center
+    if sanitize.enabled():
+        # The one intentional upload, made explicit; the guarded solve
+        # below then finds everything on the device.
+        dev = resolve_device(device)
+        move = lambda t: None if t is None else t.to(dev)
+        with sanitize.explicit_transfer():
+            qp, l1w, l1c = qp.to(dev), move(l1w), move(l1c)
+    with sanitize.transfer_guard():
+        sol = solve_qp_batch(qp, params, l1_weight=l1w, l1_center=l1c,
+                             device=device)
     if harvest is not None:
         from porqua_tpu_torch.obs.harvest import (device_label_of,
                                                   harvest_solution)
@@ -198,8 +204,9 @@ def solve_batch_compacted(problems: BatchProblems,
     and must carry these ``params``; otherwise a new one runs on
     ``device`` (default: the card). ``harvest`` appends one
     SolveRecord per date with the compaction accounting and stage
-    profile attached (source ``batch.compacted``);
-    ``PORQUA_SANITIZE=1`` raises, as in :func:`solve_batch`."""
+    profile attached (source ``batch.compacted``). Under
+    ``PORQUA_SANITIZE=1`` the driver runs its dispatch loop inside the
+    transfer guard, as :func:`solve_batch` does."""
     from porqua_tpu_torch.compaction import solve_batch_compacted as _solve
 
     return _solve(problems.qp, params, segment_budget=segment_budget,
@@ -439,7 +446,11 @@ def solve_scan_l1_grid(qp_grid: CanonicalQP,
 
     ``qp_grid`` has leading ``(B, T)`` axes over one fixed asset
     universe per column (``universes`` checks it); ``w_init`` is
-    ``(B, n)``. The device-mesh sharding (``mesh=``) is not ported."""
+    ``(B, n)``. ``mesh``: a 1-D :class:`porqua_tpu_torch.parallel.mesh.
+    Mesh`; when given, the B columns are split evenly over its devices
+    (``device`` is then unused), each device runs the chain of its own
+    columns (each lane with its own carry) and the results are gathered
+    on the mesh's first device: no communication between columns."""
     _require_fixed_universe(universes)
     if qp_grid.P.dim() != 4:
         raise ValueError(
@@ -447,15 +458,46 @@ def solve_scan_l1_grid(qp_grid: CanonicalQP,
             f"shape (B, T, n, n), got {tuple(qp_grid.P.shape)}; for a "
             f"single column use solve_scan_l1")
     if mesh is not None:
-        raise _not_ported(
-            "the device-mesh sharding of solve_scan_l1_grid (mesh=)",
-            "item 21")
+        return _scan_l1_grid_mesh(qp_grid, n_assets, w_init,
+                                  transaction_cost, params, mesh)
     qp_grid = _on_device(qp_grid, device)
     dtype, dev = qp_grid.q.dtype, qp_grid.q.device
     B, nvar = qp_grid.q.shape[0], qp_grid.q.shape[-1]
     l1w = _l1_weight(nvar, n_assets, transaction_cost, dtype, dev)
     w0 = _holdings(w_init, n_assets, B, nvar, dtype, dev)
     return _scan_l1_core(qp_grid, w0, l1w, params)
+
+
+def _scan_l1_grid_mesh(qp_grid: CanonicalQP, n_assets: int, w_init,
+                       transaction_cost: float, params: SolverParams,
+                       mesh) -> QPSolution:
+    """:func:`solve_scan_l1_grid` with the benchmark axis split over
+    ``mesh``: each device runs :func:`_scan_l1_core` on its columns."""
+    from porqua_tpu_torch.parallel.mesh import gather, run_on_devices
+
+    B = qp_grid.q.shape[0]
+    if B % mesh.size:
+        raise ValueError(
+            f"benchmark axis ({B}) must divide evenly over the mesh "
+            f"({mesh.size} devices); pad the grid with repeated columns "
+            f"(their results are identical and can be dropped)")
+    HP.apply()
+    dtype, nvar = qp_grid.q.dtype, qp_grid.q.shape[-1]
+    w_all = torch.as_tensor(w_init, dtype=dtype).reshape(B, -1)
+    devices = mesh.local_devices
+    per = B // len(devices)
+
+    def column_chain(i, dev):
+        cols = slice(i * per, (i + 1) * per)
+        qp = CanonicalQP(*(None if f is None else f[cols].to(dev)
+                           for f in qp_grid))
+        l1w = _l1_weight(nvar, n_assets, transaction_cost, dtype, dev)
+        w0 = _holdings(w_all[cols], n_assets, per, nvar, dtype, dev)
+        return _scan_l1_core(qp, w0, l1w, params)
+
+    sols = run_on_devices(column_chain,
+                          [(i, d) for i, d in enumerate(devices)], devices)
+    return gather(sols, devices[0])
 
 
 def as_requests(problems: BatchProblems) -> List[CanonicalQP]:

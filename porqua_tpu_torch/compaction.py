@@ -383,8 +383,9 @@ class CompactingDriver:
                     buf, group, n_active = self._entry_step(skey, b)(
                         buf, group)
                     sizes.append(b)
-                    # The one host read per segment boundary.
-                    n_act = int(n_active)
+                    # The one declared host read per segment boundary.
+                    with sanitize.explicit_transfer():
+                        n_act = int(n_active)
                 stage_s["segment_step"] += prof["seconds"]
                 if n_act == 0:
                     break
@@ -401,7 +402,8 @@ class CompactingDriver:
                                          "finalize") as prof:
                 sol = self._entry_finalize(skey)(qp, scaled_full,
                                                  scaling_full, buf, *l1_args)
-                iters = sol.iters.cpu().numpy()
+                with sanitize.explicit_transfer():
+                    iters = sol.iters.cpu().numpy()
             stage_s["finalize"] += prof["seconds"]
         self._neutral.clear()
 

@@ -327,7 +327,8 @@ def _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w,
     return inputs
 
 
-def _dense_on_card(form, inputs, *, sigma, alpha, n_iters, triangular):
+def _dense_on_card(form, inputs, *, sigma: float, alpha: float,
+                   n_iters: int, triangular: bool):
     """Launch one dense kernel on validated inputs: the one ``form``
     names, or with ``form=None`` the one :func:`dense_form` picks."""
     x, z = inputs[11], inputs[12]
@@ -415,7 +416,8 @@ def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
     return inputs
 
 
-def _factored_on_card(form, inputs, *, sigma, alpha, n_iters, refine_steps):
+def _factored_on_card(form, inputs, *, sigma: float, alpha: float,
+                      n_iters: int, refine_steps: int):
     """Launch one factored kernel on validated inputs: the one ``form``
     names, or with ``form=None`` the one :func:`factored_form` picks."""
     W, x, z = inputs[0], inputs[16], inputs[17]

@@ -800,13 +800,17 @@ def run_segments(carry, segment, params: SolverParams) -> ADMMState:
     reference's vmapped while_loop leaves it. Returns the final state
     with RUNNING retired to MAX_ITER."""
     # Local imports: qp/solve.py and the obs package import this module.
+    from porqua_tpu_torch.analysis import sanitize
     from porqua_tpu_torch.obs import devprof
     from porqua_tpu_torch.qp.solve import select_lanes
 
     while True:
         state = carry.state
         active = (state.status == Status.RUNNING) & (state.iters < params.max_iter)
-        if not bool(active.any()):
+        # The one declared host read per segment.
+        with sanitize.explicit_transfer():
+            running = bool(active.any())
+        if not running:
             break
         carry = select_lanes(active, segment(carry), carry)
         devprof.note_segment()

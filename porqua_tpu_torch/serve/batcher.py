@@ -640,9 +640,9 @@ class MicroBatcher:
                         self._call_executable(exe, device, qp, x0, y0))
                 self.health.record_success()
                 return sol, device_label(device), prof["seconds"]
-            except (sanitize.SanitizerError, NotImplementedError) as exc:
+            except sanitize.SanitizerError as exc:
                 # A policy violation (a post-warmup compile demand, an
-                # option not ported) is not a device fault: fail this
+                # implicit transfer) is not a device fault: fail this
                 # batch loudly and leave the breaker alone.
                 if self.obs is not None:
                     self.obs.events.emit(
@@ -668,8 +668,10 @@ class MicroBatcher:
 
     @staticmethod
     def _call_executable(exe, device, qp, x0, y0):
-        """Run one compiled dispatch. Under ``PORQUA_SANITIZE=1`` the
-        JAX package runs it inside its transfer guard, which has no
-        torch counterpart yet: it raises."""
-        with sanitize.transfer_guard():
-            return exe(qp, x0, y0)
+        """Run one compiled dispatch; under ``PORQUA_SANITIZE=1`` the
+        one intentional host->device batch upload is made explicit and
+        the dispatch itself runs inside the transfer guard: any other
+        transfer the hot path picks up (a stray host operand, a hidden
+        host read) raises :class:`SanitizerError` instead of silently
+        serializing."""
+        return sanitize.guarded_call(exe, device, qp, x0, y0)

@@ -239,7 +239,7 @@ class ContinuousBatcher(MicroBatcher):
             cohort.method = method
             cohort.params = params
             self._cohorts[bucket] = cohort
-        except (sanitize.SanitizerError, NotImplementedError) as exc:
+        except sanitize.SanitizerError as exc:
             # A policy violation is not a device fault: fail these
             # requests loudly and leave the breaker closed.
             if self.obs is not None:
@@ -294,7 +294,7 @@ class ContinuousBatcher(MicroBatcher):
     def _tick_safe(self, bucket: Bucket, cohort: _Cohort) -> None:
         try:
             self._tick(bucket, cohort)
-        except (sanitize.SanitizerError, NotImplementedError) as exc:
+        except sanitize.SanitizerError as exc:
             # Policy violations never open the breaker: fail this
             # cohort loudly.
             if self.obs is not None:
@@ -319,10 +319,11 @@ class ContinuousBatcher(MicroBatcher):
 
     @staticmethod
     def _call(exe, device, *args):
-        """One compiled dispatch; under ``PORQUA_SANITIZE=1`` the JAX
-        package's transfer guard, not ported yet, raises."""
-        with sanitize.transfer_guard():
-            return exe(*args)
+        """One compiled dispatch with the sanitizer's transfer
+        discipline (as ``MicroBatcher._call_executable``): the upload
+        of the staged host tensors is explicit and the dispatch runs
+        inside the transfer guard."""
+        return sanitize.guarded_call(exe, device, *args)
 
     def _tick(self, bucket: Bucket, cohort: _Cohort) -> None:
         m = self.metrics

@@ -404,7 +404,8 @@ def test_canonical_parts_equal_the_reference(case, rng):
 
 
 # ---------------------------------------------------------------------
-# What is not ported raises; what needs the card raises without one
+# Options that raised until their slice was ported now run; what needs
+# the card raises without one
 # ---------------------------------------------------------------------
 
 def _small_problems(rng):
@@ -420,11 +421,22 @@ def _small_problems(rng):
 ])
 def test_unported_options_raise(call, rng, monkeypatch, tmp_path):
     if call == "scan_grid_mesh":
+        # Ported since the device mesh (parallel/mesh.py): the grid
+        # through a one-slot mesh is the unsharded grid, bit for bit
+        # (tests/test_torch_parallel.py holds wider meshes to JAX's).
+        from porqua_tpu_torch.parallel import make_mesh
+
         grid = tbatch._lanes(_small_problems(rng).qp)
-        fn = lambda: tbatch.solve_scan_l1_grid(
-            grid, 2, np.zeros((1, 2)), 0.01, mesh=object(),
-            universes=tbatch.FIXED_UNIVERSE, device="cpu")
-        item = "item 21"
+        n = grid.q.shape[-1]
+        args = (grid, n, np.zeros((1, n)), 0.01)
+        meshed = tbatch.solve_scan_l1_grid(
+            *args, mesh=make_mesh(1, device="cpu"),
+            universes=tbatch.FIXED_UNIVERSE)
+        plain = tbatch.solve_scan_l1_grid(
+            *args, universes=tbatch.FIXED_UNIVERSE, device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(meshed, plain)
+                   if a is not None)
+        return
     elif call in ("scan_checkpoint_harvest", "solve_batch_compacted",
                   "harvest"):
         # Ported since the telemetry warehouse (obs/harvest.py): the
@@ -456,8 +468,16 @@ def test_unported_options_raise(call, rng, monkeypatch, tmp_path):
         assert res.RetryPolicy().max_attempts == 3
         return
     elif call == "sanitize":
+        # Ported since the transfer guard (analysis/sanitize.py): the
+        # guarded solve answers the unguarded solve's bits
+        # (tests/test_torch_analysis.py seeds the violations it catches).
+        problems = _small_problems(rng)
+        plain = tbatch.solve_batch(problems, device="cpu")
         monkeypatch.setenv("PORQUA_SANITIZE", "1")
-        fn = lambda: tbatch.solve_batch(_small_problems(rng), device="cpu")
+        guarded = tbatch.solve_batch(problems, device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(guarded, plain)
+                   if a is not None)
+        return
     elif call == "named_backend":
         # Ported since the cross-solver harness (compare.py): a named
         # solver no longer raises; the serial backtest solves each date
@@ -491,10 +511,7 @@ def test_unported_options_raise(call, rng, monkeypatch, tmp_path):
         assert np.isfinite(out["values"]).all()
         assert len(bs.selection.selected) == 3
         return
-    with pytest.raises(NotImplementedError, match="not ported") as err:
-        fn()
-    if call == "scan_grid_mesh":
-        assert item in str(err.value)
+    raise AssertionError(f"unknown call {call!r}")
 
 
 def test_entry_points_need_a_device_without_cuda(rng, monkeypatch):

@@ -786,3 +786,58 @@ def test_native_core_builds_and_solves_on_the_cards_machine():
     f = solution_metrics(parts, sol.x)["objective_value"]
     f_ipm = solution_metrics(parts, ipm.x)["objective_value"]
     assert abs(f - f_ipm) <= 1e-6 * max(1.0, abs(f_ipm))
+
+
+@pytest.mark.gpu
+def test_transfer_guard_on_the_card(monkeypatch):
+    """The transfer guard on cuda:0: a hidden read, a copy from the host
+    and an operand on the host raise; a declared read passes; a guarded
+    solve answers the unguarded bits through its kernel."""
+    from porqua_tpu_torch.analysis import sanitize
+
+    need_card()
+    monkeypatch.setenv("PORQUA_SANITIZE", "1")
+    x = torch.ones(3, device="cuda")
+    host = torch.ones(3)
+    for fn in (lambda: x.sum().item(), lambda: host.to("cuda"),
+               lambda: x + host, lambda: x.cpu()):
+        with pytest.raises(sanitize.SanitizerError):
+            with sanitize.transfer_guard():
+                fn()
+    with sanitize.transfer_guard():
+        with sanitize.explicit_transfer():
+            assert bool((x + 1.0).all())
+    Xs, ys = pt.synthetic_universe_np(3, 8, 40, 16)
+    qp = pt.build_tracking_qp(torch.as_tensor(Xs, device="cuda"),
+                              torch.as_tensor(ys, device="cuda"))
+    params = pt.SolverParams(backend="pallas", linsolve="trinv")
+    monkeypatch.setenv("PORQUA_SANITIZE", "0")
+    plain = pt.solve_qp_batch(qp, params)
+    monkeypatch.setenv("PORQUA_SANITIZE", "1")
+    with sanitize.transfer_guard():
+        guarded = pt.solve_qp_batch(qp, params)
+    assert all(torch.equal(a, b) for a, b in zip(guarded, plain)
+               if a is not None)
+
+
+@pytest.mark.gpu
+def test_sharded_solve_on_cuda0():
+    """solve_qp_sharded over make_mesh() on the card equals the unsharded
+    solve bit for bit, results on the mesh's first device."""
+    from porqua_tpu_torch.parallel import make_mesh, solve_qp_sharded
+
+    need_card()
+    Xs, ys = pt.synthetic_universe_np(4, 12, 40, 16)
+    qp = pt.build_tracking_qp(torch.as_tensor(Xs, device="cuda"),
+                              torch.as_tensor(ys, device="cuda"))
+    params = pt.SolverParams(backend="pallas", linsolve="woodbury")
+    mesh = make_mesh()
+    assert mesh.devices.flat[0] == torch.device("cuda", 0)
+    sharded = solve_qp_sharded(qp, mesh, params)
+    plain = pt.solve_qp_batch(qp, params)
+    assert sharded.x.device == torch.device("cuda", 0)
+    if mesh.size == 1:
+        assert all(torch.equal(a, b) for a, b in zip(sharded, plain)
+                   if a is not None)
+    else:
+        torch.testing.assert_close(sharded.x, plain.x, rtol=0, atol=1e-5)

@@ -374,11 +374,14 @@ def test_scan_l1_grid_rejects_mesh_and_flat_batches():
                                   universes=tbatch.FIXED_UNIVERSE,
                                   device="cpu")
     grid = port_grid_qps(Xs, ys[None])
-    with pytest.raises(NotImplementedError, match="item 21"):
+    # One column cannot split over two slots (the mesh itself is ported:
+    # tests/test_torch_parallel.py).
+    from porqua_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="divide evenly"):
         tbatch.solve_scan_l1_grid(grid, 8, np.zeros((1, 8)), TC,
-                                  mesh=object(),
-                                  universes=tbatch.FIXED_UNIVERSE,
-                                  device="cpu")
+                                  mesh=make_mesh(2, device="cpu"),
+                                  universes=tbatch.FIXED_UNIVERSE)
 
 
 # ---------------------------------------------------------------------

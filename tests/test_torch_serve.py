@@ -276,15 +276,29 @@ def test_compile_storm_is_one_post_warmup_compile(serve, monkeypatch,
 
 def test_sanitized_dispatch_raises_for_the_transfer_guard(serve,
                                                           monkeypatch):
-    """Under PORQUA_SANITIZE=1 the JAX package runs each dispatch inside
-    its transfer guard, which the port does not have yet: the batch
-    fails naming the item, and the breaker stays closed."""
+    """Under PORQUA_SANITIZE=1 each dispatch runs inside the transfer
+    guard, as the JAX package's does: a clean dispatch answers the
+    unguarded bits; one that makes a hidden host read raises, the batch
+    fails as a sanitizer violation, and the breaker stays closed."""
+    import porqua_tpu_torch.qp.solve as solve_mod
+
     _, treq = grid_requests("dense", n=1)
     svc = serve(SolveService, port_params("dense"), max_batch=1,
                 max_wait_ms=1.0, device="cpu")
     svc.prewarm(treq[0])
+    plain = svc.solve(treq[0], timeout=TIMEOUT)
     monkeypatch.setenv("PORQUA_SANITIZE", "1")
-    with pytest.raises(SolveError, match="item 23"):
+    guarded = svc.solve(treq[0], timeout=TIMEOUT)
+    assert np.array_equal(guarded.x, plain.x)
+    real = solve_mod._finalize_impl
+
+    def hidden_read(*a, **k):
+        sol = real(*a, **k)
+        sol.x.sum().item()
+        return sol
+
+    monkeypatch.setattr(solve_mod, "_finalize_impl", hidden_read)
+    with pytest.raises(SolveError, match="sanitizer: implicit transfer"):
         svc.solve(treq[0], timeout=TIMEOUT)
     assert not svc.snapshot()["degraded"]
 
