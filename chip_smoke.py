@@ -116,7 +116,15 @@ printed):
    ``PORQUA_SANITIZE=1``, bit-equal to the unguarded runs, each with a
    seeded control that the guard must catch; the op-trace contracts and
    the op-trace harvest on the card.
-14. One JSON line per kernel, then the card line, then the result line.
+14. The examples (``examples_phase``): every example of
+   ``porqua_tpu_torch/examples/`` (the twins of ``examples/*.py``)
+   through its ``main`` at the JAX examples' own sizes, against the JAX
+   goldens (``porqua_tpu_torch/testdata/examples_golden.npz``; rules at
+   ``EXAMPLES_PATH``), each with its time and the kernels' launch
+   counts (backend "auto": none). Phase 3 also holds every kernel form,
+   the streaming ones included, at the ragged widths of the gpu tests
+   (``ragged_twin_checks``).
+15. One JSON line per kernel, then the card line, then the result line.
 """
 
 import contextlib
@@ -137,11 +145,22 @@ PEAK_BYTES_S = 3.35e12
 # clip or prox kink can amplify a last-bit difference, so neither is
 # "the" answer. Both are held against the plain version run in float64
 # on the same inputs: per output, the kernel's distance to it may be at
-# most KERNEL_VS_PLAIN times the f32 plain version's own distance, plus
-# ULPS_PER_ITER f32 ulps of the output's scale (the state vector it
-# belongs to) for every iteration of the segment.
+# most KERNEL_VS_PLAIN times the f32 rounding noise of the function,
+# plus ULPS_PER_ITER f32 ulps of the output's scale (the state vector
+# it belongs to) for every iteration of the segment. The noise is the
+# largest distance to float64 of the f32 twin over TWIN_ORDERS, four
+# summation orders of the same arithmetic on the same inputs: the batch
+# on the card, the batch on the CPU, the batch with its lanes reversed,
+# and lane by lane at B = 1 (every lane up to TWIN_LANES lanes, else
+# TWIN_LANES of them evenly spaced). One f32 run alone is a draw: on the
+# small duals (y, dy, mu, dmu) the twin's run on the card lands up to
+# 2,700x nearer float64 than its run on the CPU
+# (scripts/torch_twin_margins.py). This one rule holds every kernel
+# form here and in the gpu tests (tests/test_torch_cuda.py).
 KERNEL_VS_PLAIN = 4.0
 ULPS_PER_ITER = 2
+TWIN_ORDERS = ("card", "cpu", "reversed", "lanes")
+TWIN_LANES = 16
 F32_EPS = 2.0 ** -23
 OUT_NAMES = ("x", "z", "w", "y", "mu", "dx", "dy", "dmu")
 SCALE_OF = (0, 1, 2, 3, 4, 0, 3, 4)
@@ -370,35 +389,197 @@ def ptxas_lines(log):
             if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
-def check_twin(out_k, out_p, out_64, kw, out_cpu=None):
-    """The kernel against its plain twin by the rule above; returns
-    (passed, max |kernel - plain|, max relative). With ``out_cpu`` (the
-    same twin run on the CPU) the twin's distance to float64 is the
-    larger of its runs on the card and on the CPU: on the small duals
-    one f32 run of the twin can land far nearer the float64 answer than
-    rounding warrants (PERF.md section 6), as the dense cluster tests of
-    tests/test_torch_cuda.py also allow."""
+SMALL_FORMS = {
+    "factored_refine0": dict(linsolve="woodbury", woodbury_refine=0,
+                             check_interval=35, scaling_mode="factored"),
+    "factored_refine1": dict(linsolve="woodbury", woodbury_refine=1,
+                             check_interval=35, scaling_mode="factored"),
+    "triangular": dict(linsolve="trinv"),
+    "inverse": dict(linsolve="inverse"),
+}
+
+
+def small_kernel_call(form, dtype, l1=True, n=10, m=1, window=24, batch=3,
+                      refine=None):
+    """The kernel call of the second segment of a small tracking batch
+    in numpy ``dtype``, built by the port's pipeline on the CPU (with a
+    native L1 term so the prox's soft-threshold branch runs): ``n``
+    assets, a ``window`` of returns (the factored form's k), and
+    ``m - 1`` seeded random rows in [-1, 1] beside the budget row.
+    ``refine`` overrides the factored forms' refinement rounds."""
+    import numpy as np
     import torch
 
-    errs, rels, ok = [], [], True
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.qp import admm as tadmm
+    from porqua_tpu_torch.qp.solve import _prepare_impl
+
+    opts = dict(SMALL_FORMS[form])
+    if refine is not None:
+        opts["woodbury_refine"] = refine
+    params = pt.SolverParams(eps_abs=1e-12, eps_rel=1e-12, polish=False,
+                             scaling_iters=2, backend="pallas", **opts)
+    Xs, ys = pt.synthetic_universe_np(11, batch, window, n)
+    qp = pt.build_tracking_qp(torch.as_tensor(Xs.astype(dtype)),
+                              torch.as_tensor(ys.astype(dtype)))
+    if m > 1:
+        rows = np.random.default_rng(m).standard_normal((batch, m - 1, n))
+        bound = torch.ones((batch, m - 1), dtype=qp.l.dtype)
+        qp = qp._replace(
+            C=torch.cat([qp.C, torch.as_tensor(rows.astype(dtype))], dim=-2),
+            l=torch.cat([qp.l, -bound], dim=-1),
+            u=torch.cat([qp.u, bound], dim=-1),
+            row_mask=torch.ones((batch, m), dtype=qp.row_mask.dtype))
+    scaled, scaling = _prepare_impl(qp, params)[:2]
+    l1w = torch.full_like(scaled.q, 1e-3) if l1 else None
+    l1c = torch.full_like(scaled.q, 0.1) if l1 else None
+    carry = tadmm.admm_init(scaled, params)
+    carry, _ = tadmm.admm_segment_step(carry, scaled, scaling, params,
+                                       l1w, l1c)
+    return tadmm.segment_kernel_call(carry, scaled, params, l1w, l1c)
+
+
+def _lane(a, lanes, batch):
+    """``a`` cut to ``lanes`` of its leading batch axis where it has one."""
+    if a is None or a.dim() == 0 or a.shape[0] != batch:
+        return a
+    return a[lanes]
+
+
+def twin_reference(plain, args, kw):
+    """The plain twin on a kernel's inputs: its float64 answer
+    (``f64``), its f32 run on the inputs' device (``f32``) and, per
+    output, each summation order's distance to the float64 answer
+    (``orders``: name -> list) and their largest (``noise``)."""
+    import torch
+
+    batch = args[-1].shape[0]
+    out_64 = plain(*(None if a is None else a.double() for a in args), **kw)
+    out_p = plain(*args, **kw)
+    rev = torch.arange(batch - 1, -1, -1, device=args[-1].device)
+    reversed_out = plain(*(_lane(a, rev, batch) for a in args), **kw)
+    picked = (list(range(batch)) if batch <= TWIN_LANES else
+              sorted({int(round(v)) for v in
+                      torch.linspace(0, batch - 1, TWIN_LANES).tolist()}))
+    per_lane = [plain(*(_lane(a, slice(i, i + 1), batch) for a in args),
+                      **kw) for i in picked]
+    runs = {
+        "card": (out_p, None),
+        "cpu": (plain(*(None if a is None else a.cpu() for a in args),
+                      **kw), None),
+        "reversed": (tuple(o[rev] for o in reversed_out), None),
+        "lanes": (tuple(torch.cat(o) for o in zip(*per_lane)), picked),
+    }
+    orders = {}
+    for name in TWIN_ORDERS:
+        out, lanes = runs[name]
+        dists = []
+        for o, e in zip(out, out_64):
+            ref = e if lanes is None else e[lanes]
+            dists.append(float((o.double().to(ref.device) - ref)
+                               .abs().max()))
+        orders[name] = dists
+    noise = [max(orders[name][i] for name in TWIN_ORDERS)
+             for i in range(len(out_64))]
+    return {"f32": out_p, "f64": out_64, "orders": orders, "noise": noise}
+
+
+def twin_margins(out_k, ref, kw, beside=None):
+    """Per output, (passed, |kernel - f64|, noise, scale) by the rule
+    above; ``beside`` (another f32 implementation's outputs on the same
+    inputs) joins the noise."""
+    import torch
+
     floor = ULPS_PER_ITER * kw["n_iters"] * F32_EPS
-    for i, (a, b, c) in enumerate(zip(out_k, out_p, out_64)):
-        scale = float(out_64[SCALE_OF[i]].abs().max())
-        err = float((a - b).abs().max())
-        e_k = float((a.double() - c).abs().max())
-        e_p = float((b.double() - c).abs().max())
-        note = f"|plain-f64| {e_p:.3e}"
-        if out_cpu is not None:
-            e_cpu = float((out_cpu[i].double() - c.cpu()).abs().max())
-            note += f"  |cpu plain-f64| {e_cpu:.3e}"
-            e_p = max(e_p, e_cpu)
-        ok &= bool(torch.isfinite(a).all()) and (
-            e_k <= KERNEL_VS_PLAIN * e_p + floor * scale)
+    res = []
+    for i, (a, c) in enumerate(zip(out_k, ref["f64"])):
+        scale = float(ref["f64"][SCALE_OF[i]].abs().max())
+        e_k = float((a.double().to(c.device) - c).abs().max())
+        noise = ref["noise"][i]
+        if beside is not None:
+            noise = max(noise, float((beside[i].double().to(c.device) - c)
+                                     .abs().max()))
+        ok = bool(torch.isfinite(a).all()) and (
+            e_k <= KERNEL_VS_PLAIN * noise + floor * scale)
+        res.append((ok, e_k, noise, scale))
+    return res, floor
+
+
+def check_twin(out_k, ref, kw):
+    """The kernel against its plain twin by the rule above (``ref`` from
+    :func:`twin_reference`); returns (passed, max |kernel - plain|, max
+    relative, the floor in ulps of the scale)."""
+    margins, floor = twin_margins(out_k, ref, kw)
+    errs, rels = [], []
+    for i, (ok, e_k, noise, scale) in enumerate(margins):
+        err = float((out_k[i] - ref["f32"][i]).abs().max())
         errs.append(err)
         rels.append(err / scale if scale > 0 else err)
+        orders = "  ".join(f"{name} {ref['orders'][name][i]:.3e}"
+                           for name in TWIN_ORDERS)
         print(f"  {OUT_NAMES[i]:>3}: |kernel-plain| {err:.3e}  "
-              f"|kernel-f64| {e_k:.3e}  {note}  scale {scale:.3e}")
-    return ok, max(errs), max(rels), floor
+              f"|kernel-f64| {e_k:.3e}  |plain-f64| by order: {orders}  "
+              f"scale {scale:.3e}{'' if ok else '  FAIL'}")
+    return all(m[0] for m in margins), max(errs), max(rels), floor
+
+
+def ragged_twin_checks():
+    """Both forms of every kernel family, the streaming form included
+    where the router would not pick it, at the ragged widths of the gpu
+    tests (n = 5, 13, 37; one and three rows; one iteration and a whole
+    segment), held by the twin rule. Prints per case the worst output's
+    margin (|kernel - f64| over the rule's bound; above 1 fails) under
+    the noise model and, beside it, under the card run of the twin
+    alone (the rule before the noise model)."""
+    import numpy as np
+    import torch
+
+    from porqua_tpu_torch.ops import admm_kernel as tk
+
+    named = {tk.admm_segment: tk._admm_segment_form,
+             tk.admm_segment_factored: tk._admm_segment_factored_form}
+    twin = {tk.admm_segment: tk.admm_segment_ref,
+            tk.admm_segment_factored: tk.admm_segment_factored_ref}
+    families = [("triangular", None), ("inverse", None),
+                ("factored_refine0", 0), ("factored_refine0", 1),
+                ("factored_refine0", 2)]
+    worst = {"stream": 0.0, "cluster": 0.0}
+    worst_card = {"stream": 0.0, "cluster": 0.0}
+    for family, refine in families:
+        for n in (5, 13, 37):
+            for m in (1, 3):
+                fn, args, kw0 = small_kernel_call(family, np.float32, n=n,
+                                                  m=m, refine=refine)
+                args = tuple(a.cuda() for a in args)
+                for n_iters in (1, 25):
+                    kw = dict(kw0, n_iters=n_iters)
+                    ref = twin_reference(twin[fn], args, kw)
+                    for form in ("stream", "cluster"):
+                        out = named[fn](form, *args, **kw)
+                        torch.cuda.synchronize()
+                        margins, floor = twin_margins(out, ref, kw)
+                        rule, card = [], []
+                        for i, (ok, e_k, noise, scale) in enumerate(margins):
+                            rule.append(e_k / (KERNEL_VS_PLAIN * noise
+                                               + floor * scale))
+                            card.append(e_k / (KERNEL_VS_PLAIN
+                                               * ref["orders"]["card"][i]
+                                               + floor * scale))
+                        i = int(np.argmax(rule))
+                        label = (f"{family if refine is None else 'factored'}"
+                                 f"{'' if refine is None else f' r{refine}'}"
+                                 f" n={n} m={m} iters={n_iters} {form}")
+                        worst[form] = max(worst[form], rule[i])
+                        worst_card[form] = max(worst_card[form], max(card))
+                        print(f"ragged {label}: worst {OUT_NAMES[i]} margin "
+                              f"{rule[i]:.3f} (card-only rule "
+                              f"{max(card):.3f})", flush=True)
+                        check(all(mg[0] for mg in margins),
+                              f"ragged {label} agrees with its plain twin")
+    for form in ("stream", "cluster"):
+        print(f"ragged widths, {form} form: worst margin {worst[form]:.3f} "
+              f"under the noise model, {worst_card[form]:.3f} under the "
+              f"card run alone", flush=True)
 
 
 def usa_service(X, bm, rebdates, meta, features=None, selection=None):
@@ -1269,18 +1450,13 @@ def backtest_phase(rows, reset_counts):
             plain = (admm_kernel.admm_segment_ref if dense
                      else admm_kernel.admm_segment_factored_ref)
             out_k = fn(*args, **kw)
-            out_p = plain(*args, **kw)
-            out_64 = plain(*(a.double() for a in args), **kw)
-            out_cpu = plain(*(a.cpu() for a in args), **kw)
             base = rows[(ref_row, "cluster")]["name"]
             rname = f"{base}@usa"
-            print(f"kernel {rname} against its plain twin (its distance "
-                  f"the larger of its runs on the card and the CPU):",
-                  flush=True)
-            ok, err, rel, tfloor = check_twin(out_k, out_p, out_64, kw,
-                                              out_cpu)
+            print(f"kernel {rname} against its plain twin:", flush=True)
+            ok, err, rel, tfloor = check_twin(
+                out_k, twin_reference(plain, args, kw), kw)
             check(ok, f"{rname} agrees with its plain twin: per output "
-                  f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} |plain-f64| + "
+                  f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} noise + "
                   f"{tfloor:.3g} scale")
             flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
@@ -1327,14 +1503,11 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches):
              else admm_kernel.admm_segment_factored_ref)
     out_k = fn(*args, **kw)
     torch.cuda.synchronize()
-    out_p = plain(*args, **kw)
-    out_64 = plain(*(a.double() for a in args), **kw)
-    out_cpu = plain(*(a.cpu() for a in args), **kw)
-    print(f"kernel {rname} against its plain twin (its distance the larger "
-          f"of its runs on the card and the CPU):", flush=True)
-    ok, err, rel, tfloor = check_twin(out_k, out_p, out_64, kw, out_cpu)
+    print(f"kernel {rname} against its plain twin:", flush=True)
+    ok, err, rel, tfloor = check_twin(out_k, twin_reference(plain, args, kw),
+                                      kw)
     check(ok, f"{rname} agrees with its plain twin: per output |kernel-f64| "
-          f"<= {KERNEL_VS_PLAIN:g} |plain-f64| + {tfloor:.3g} scale")
+          f"<= {KERNEL_VS_PLAIN:g} noise + {tfloor:.3g} scale")
     flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
@@ -4778,6 +4951,371 @@ def mesh_phase(rows, reset_counts, device="cuda"):
     return added
 
 
+# Phase 14 runs the port's examples (porqua_tpu_torch/examples/, the
+# twins of the JAX package's examples/*.py) through their ``main`` on
+# the card at the JAX examples' own sizes, against the JAX goldens
+# (XLA-CPU; scripts/torch_examples_golden.py writes EXAMPLES_PATH;
+# backtest_usa's configuration 1 is BT_PATH's usa_trinv run). The
+# examples run backend "auto", as the JAX examples do: that reaches no
+# Pallas call there and no hand kernel here, so every wrapper's launch
+# counter must stay at 0. The rules, by quantity (an earlier phase's
+# where it holds the same one):
+# - status and iterations equal the golden's wherever an example
+#   reports them;
+# - weights of an f64 run whose optimum is a point (24 assets under a
+#   252-day window): |dw| <= W_ATOL;
+# - backtest_usa configuration 1 (f32, its optimum a face, ROADMAP
+#   section C): status and iterations equal, the weights per date by
+#   the twin rule against BT_PATH's f64 run (KERNEL_VS_PLAIN times
+#   XLA-CPU's f32 distance plus ULPS_PER_ITER f32 ulps of the box per
+#   iteration); configuration 2 (f64, phase 6's rule): every date
+#   solved, serial and scan weights within USA_W_ATOL;
+# - scalars of f64 runs (cumulative returns, tracking errors, net
+#   values, Sharpe ratios, turnover) within EX_F64_ATOL, relative to
+#   max(1, |golden|); quickstart's per-date turnover on the dates whose
+#   previous weights hold no negative entry in either run (a weight
+#   that is zero to rounding, -1e-24 in one run, sends the reference's
+#   drift through its long/short rescaling and moves that date by a
+#   whole unit; kept for parity);
+# - gradients of the f64 tuning examples within EX_GRAD_RTOL of the
+#   golden's, and at the end point against central differences of the
+#   port's own objective within EX_FD_RTOL (net_sharpe_tuning's own
+#   check);
+# - the cross-solver table by phase 9's COMPARE_OBJ / COMPARE_HOST;
+# - lstm_selection from the golden's draws (the JAX run's initial
+#   parameters, minibatch order and dropout masks): losses and held-out
+#   predictions by the twin rule against the same training in f64
+#   (KERNEL_VS_PLAIN times XLA-CPU's f32 distance plus ULPS_PER_ITER
+#   f32 ulps of the scale per Adam step), the top-10 names printed;
+# - ordinal fits: cutpoints within ML_OPT_ATOL and the NLL within
+#   ML_NLL_ATOL (phase 12's rule); the coefficient through the NLL
+#   only: the example's one feature (a monthly return, scale 0.05)
+#   leaves the NLL flat in it (2.5e-6 over beta in [-0.063, -0.002]),
+#   and f32 fits stop anywhere on that stretch (XLA-CPU's probit fit
+#   at -0.062, its logit fit at -0.0015, the f64 optimum about -0.06
+#   for both; the port's probit fit at -0.0025 on the CPU and the card);
+# - OLS/PCA fits within ML_OPT_ATOL (phase 12), the rank labels and
+#   the top asset equal; ml_prediction's boosting step is a
+#   host sklearn estimator and sklearn is not installed beside the
+#   card, so the phase runs it with boosting=False (the CPU tests hold
+#   the boosting step).
+EXAMPLES_PATH = os.path.join("porqua_tpu_torch", "testdata",
+                             "examples_golden.npz")
+EX_F64_ATOL = 1e-6
+EX_GRAD_RTOL = 1e-4
+EX_FD_RTOL = 1e-3
+
+
+def turnover_held(got, want, atol):
+    """quickstart's per-date turnover of each strategy against the
+    golden's within ``atol`` (relative to max(1, |golden|)), on the dates
+    whose previous weights hold no negative entry in either run (the
+    rule above); returns (passed, dates held, dates left out)."""
+    import numpy as np
+
+    ok, held, out = True, 0, 0
+    for name in ("qeqw", "ls", "wls", "lad"):
+        if got[f"{name}/weights"].shape != want[f"{name}/weights"].shape:
+            return False, 0, 0
+        neg = np.minimum(got[f"{name}/weights"],
+                         want[f"{name}/weights"]).min(axis=1) < 0
+        for d, (a, b) in enumerate(zip(got[f"{name}/turnover_series"],
+                                       want[f"{name}/turnover_series"])):
+            if d > 0 and neg[d - 1]:
+                out += 1
+                continue
+            ok &= bool(abs(a - b) <= atol * max(1.0, abs(b)))
+            held += 1
+    return ok, held, out
+
+
+def central_difference(fn, x, h):
+    """(fn(x + h) - fn(x - h)) / 2h of a scalar function of a float."""
+    return (fn(x + h) - fn(x - h)) / (2 * h)
+
+
+def examples_phase(reset_counts, device="cuda"):
+    """Phase 14: the port's examples on ``device`` against the JAX
+    goldens, by the rules at EXAMPLES_PATH. Prints each example's own
+    output, its time and the kernel wrappers' launches; returns the
+    seconds per example."""
+    import importlib
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from porqua_tpu_torch.examples import EXAMPLES
+    from porqua_tpu_torch.examples._common import unpack_golden
+    from porqua_tpu_torch.ops import admm_kernel
+
+    dev = torch.device(device)
+    here = os.path.dirname(os.path.abspath(__file__))
+    arrays = np.load(os.path.join(here, EXAMPLES_PATH))
+    meta = json.loads(str(arrays["meta"]))
+    print(f"phase 14: golden from commit {meta['commit']} ({meta['command']})",
+          flush=True)
+    usa = np.load(os.path.join(here, BT_PATH))
+    wrappers = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
+    seconds = {}
+
+    def run(name, **kw):
+        module = importlib.import_module(f"porqua_tpu_torch.examples.{name}")
+        reset_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module.main(device, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in wrappers}
+        print(f"[{name}] {seconds[name]:.2f} s on {device}; kernel "
+              f"launches {launches}", flush=True)
+        check(not any(launches.values()), f"[{name}] backend 'auto' "
+              f"launched no hand kernel, as the JAX example reaches no "
+              f"Pallas call")
+        return out, unpack_golden(arrays, f"{name}/full")
+
+    def near(tag, got, want, atol=EX_F64_ATOL):
+        got, want = np.asarray(got, float), np.asarray(want, float)
+        same = got.shape == want.shape
+        err = float(np.abs(got - want).max()) if same and got.size else 0.0
+        bound = atol * max(1.0, float(np.abs(want).max()))
+        ok = same and bool(np.isfinite(got).all()) and err <= bound
+        check(ok, f"{tag} within {bound:.3g} of the golden (max |d| "
+              f"{err:.3e})")
+
+    def equal(tag, got, want):
+        check(np.array_equal(np.asarray(got), np.asarray(want)),
+              f"{tag} equal to the golden")
+
+    def grads(tag, got, want, rtol=EX_GRAD_RTOL):
+        got, want = np.asarray(got, float), np.asarray(want, float)
+        same = got.shape == want.shape
+        rel = float(np.max(np.abs(got - want) / np.maximum(
+            np.abs(want), 1e-300))) if same else float("inf")
+        check(same and rel <= rtol,
+              f"{tag} within {rtol:g} relative of the golden's (max "
+              f"{rel:.3e})")
+
+    # -- quickstart ----------------------------------------------------------
+    out, ref = run("quickstart")
+    check(out["rebdates"] == ref["rebdates"], "[quickstart] the golden's dates")
+    for name in ("qeqw", "ls", "wls", "lad", "batched"):
+        near(f"[quickstart] {name} weights", out[f"{name}/weights"],
+             ref[f"{name}/weights"], W_ATOL)
+    for k in [k for k in ref if k.endswith("/cum") or k.startswith(
+            "percentile/") or k == "batched/drift"]:
+        near(f"[quickstart] {k}", out[k], ref[k])
+    ok, held, left = turnover_held(out, ref, EX_F64_ATOL)
+    check(ok and held >= 4, f"[quickstart] per-date turnover on {held} "
+          f"strategy-dates ({left} left out by the rule)")
+
+    # -- index_replication ------------------------------------------------------
+    out, ref = run("index_replication")
+    for k in ("status", "iters"):
+        equal(f"[index_replication] {k}", out[k], ref[k])
+    near("[index_replication] weights", out["weights"], ref["weights"],
+         W_ATOL)
+    for k in ("tracking_error", "cum", "cum_bm"):
+        near(f"[index_replication] {k}", out[k], ref[k])
+
+    # -- backtest_usa --------------------------------------------------------------
+    out, ref = run("backtest_usa")
+    for k in ("status", "iters"):
+        equal(f"[backtest_usa config 1] {k}", out[f"config1/{k}"],
+              usa[f"usa_trinv/{k}"])
+    floor = (ULPS_PER_ITER * int(usa["usa_trinv/iters"].max()) * F32_EPS
+             * 0.05)
+    w64 = usa["usa_trinv/weights_f64"]
+    d_card = np.abs(out["config1/weights"] - w64).max(axis=1)
+    d_gold = np.abs(usa["usa_trinv/weights"] - w64).max(axis=1)
+    check(bool(np.all(d_card <= KERNEL_VS_PLAIN * d_gold + floor)),
+          f"[backtest_usa config 1] weights per date within "
+          f"{KERNEL_VS_PLAIN:g}x XLA-CPU's f32 distance to the f64 run "
+          f"(+{floor:.2g}; max {d_card.max():.3e}, golden's "
+          f"{d_gold.max():.3e})")
+    print(f"[backtest_usa config 1] Sharpe {out['config1/sharpe']:.6f} "
+          f"(golden {ref['config1/sharpe']:.6f}), tracking error "
+          f"{out['config1/tracking_error']:.6e} (golden "
+          f"{ref['config1/tracking_error']:.6e})", flush=True)
+    equal("[backtest_usa config 2] universe", out["config2/universe"],
+          ref["config2/universe"])
+    check(bool((out["config2/status"] == 1).all()),
+          "[backtest_usa config 2] every date solved")
+    for k in ("serial_weights", "scan_weights"):
+        near(f"[backtest_usa config 2] {k}", out[f"config2/{k}"],
+             ref[f"config2/{k}"], USA_W_ATOL)
+    print(f"[backtest_usa config 2] max |dw| serial-vs-scan "
+          f"{out['config2/max_dw']:.3e} (golden {ref['config2/max_dw']:.3e});"
+          f" realized turnover median {out['config2/realized_median']:.6f} "
+          f"(golden {ref['config2/realized_median']:.6f})", flush=True)
+
+    # -- compare_solver -------------------------------------------------------------
+    out, ref = run("compare_solver")
+    df = out["table"]
+    check(list(df.index) == ref["rows"]
+          and bool(df["solution_found"].astype(bool).all()),
+          "[compare_solver] the golden's rows, every one found")
+    ipm = float(df.loc["ipm-f64", "objective_value"])
+    for row in df.index:
+        obj = float(df.loc[row, "objective_value"])
+        check(abs(obj - ipm) <= COMPARE_OBJ * max(1.0, abs(ipm)),
+              f"[compare_solver] {row} objective within {COMPARE_OBJ:g} "
+              f"of ipm-f64's ({obj:.10e})")
+    for row in ("ipm-f64", "native-cpp-admm", "scipy-slsqp"):
+        i = ref["rows"].index(row)
+        for col in ("objective_value", "primal_residual", "dual_residual",
+                    "duality_gap"):
+            got, want = float(df.loc[row, col]), float(ref[f"table/{col}"][i])
+            ok = (np.isnan(got) if np.isnan(want) else
+                  abs(got - want) <= COMPARE_HOST * max(1.0, abs(want)))
+            check(ok, f"[compare_solver] {row} {col} within {COMPARE_HOST:g}"
+                  f" of the golden's ({got:.6e}, golden {want:.6e})")
+
+    # -- cost_aware_backtest ------------------------------------------------------------
+    out, ref = run("cost_aware_backtest")
+    for k in ("status_native", "iters_native", "status_chain", "iters_chain"):
+        equal(f"[cost_aware_backtest] {k}", out[k], ref[k])
+    for k in ("w_lift", "w_native", "x_chain"):
+        near(f"[cost_aware_backtest] {k}", out[k], ref[k], W_ATOL)
+    for k in ("chain_turnover", "static_turnover"):
+        near(f"[cost_aware_backtest] {k}", out[k], ref[k])
+    check(out["dgrid"] <= W_ATOL, f"[cost_aware_backtest] the grid through "
+          f"the mesh ({out['n_dev']} slot(s)) within {W_ATOL:g} of the "
+          f"single chain ({out['dgrid']:.3e})")
+    check(out["dw_checkpoint"] == 0.0 and out["resume"]["resumed_chunks"]
+          == out["resume"]["total_chunks"] == ref["resume"]["total_chunks"],
+          "[cost_aware_backtest] the resumed run reads every chunk back, "
+          "bit-identical")
+
+    # -- differentiable_tuning ------------------------------------------------------------
+    from porqua_tpu_torch.examples import differentiable_tuning as dt
+
+    out, ref = run("differentiable_tuning")
+    grads("[differentiable_tuning] gradient per step", out["grads"],
+          ref["grads"])
+    near("[differentiable_tuning] log-ridge path", out["path"], ref["path"])
+    for k in ("te_start", "te_tuned", "grid_te"):
+        near(f"[differentiable_tuning] {k}", out[k], ref[k])
+    oos_te = dt.objective(dev)
+
+    def te_of(x):
+        with torch.no_grad():
+            return float(oos_te(torch.tensor(x, dtype=torch.float64,
+                                             device=dev)))
+
+    fd = central_difference(te_of, out["log_ridge"], 1e-4)
+    print(f"[differentiable_tuning] at the tuned log-ridge "
+          f"{out['log_ridge']:.6f}: last gradient {out['grads'][-1]:+.6e}, "
+          f"central difference there {fd:+.6e}", flush=True)
+    th = torch.tensor(out["log_ridge"], dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    oos_te(th).backward()
+    g_end = float(th.grad)
+    check(abs(g_end - fd) <= EX_FD_RTOL * abs(fd),
+          f"[differentiable_tuning] gradient at the tuned point "
+          f"{g_end:+.6e} within {EX_FD_RTOL:g} of central differences")
+
+    # -- cost_penalty_tuning ---------------------------------------------------------------
+    from porqua_tpu_torch.examples import cost_penalty_tuning as cp
+
+    out, ref = run("cost_penalty_tuning")
+    grads("[cost_penalty_tuning] gradient per step", out["grads"],
+          ref["grads"])
+    grads("[cost_penalty_tuning] lifted and native gradients at 1e-3.2",
+          [out["g_lift"], out["g_native"]], [ref["g_lift"], ref["g_native"]])
+    for k in ("path", "values", "start", "net_tuned", "best_log", "grid_net"):
+        near(f"[cost_penalty_tuning] {k}", out[k], ref[k])
+    net_loss = cp.objectives(dev)[0]
+
+    def net_of(x):
+        with torch.no_grad():
+            return float(net_loss(torch.tensor(x, dtype=torch.float64,
+                                               device=dev)))
+
+    fd = central_difference(net_of, -3.2, 1e-4)
+    check(abs(out["g_lift"] - fd) <= EX_FD_RTOL * abs(fd),
+          f"[cost_penalty_tuning] lifted gradient at 1e-3.2 "
+          f"{out['g_lift']:+.6e} within {EX_FD_RTOL:g} of central "
+          f"differences ({fd:+.6e})")
+
+    # -- net_sharpe_tuning ------------------------------------------------------------------
+    out, ref = run("net_sharpe_tuning")
+    grads("[net_sharpe_tuning] dS/dtheta per iteration", out["grad"],
+          ref["grad"])
+    for k in ("lambda", "sharpe", "turnover", "sharpe_final", "sharpe_zero",
+              "sharpe_frozen", "lambda_final"):
+        near(f"[net_sharpe_tuning] {k}", out[k], ref[k])
+    grads("[net_sharpe_tuning] dS/dlambda at the end point",
+          out["grad_final"], ref["grad_final"])
+    check(abs(out["grad_final"] - out["fd_final"])
+          <= EX_FD_RTOL * abs(out["fd_final"]),
+          f"[net_sharpe_tuning] the example's FD check: gradient "
+          f"{out['grad_final']:+.6f} within {EX_FD_RTOL:g} of central "
+          f"differences ({out['fd_final']:+.6f})")
+
+    # -- ordinal_regression -------------------------------------------------------------------
+    out, ref = run("ordinal_regression")
+    for distr in ("probit", "logit"):
+        near(f"[ordinal_regression] {distr} cutpoints",
+             out[f"{distr}/cutpoints"], ref[f"{distr}/cutpoints"],
+             ML_OPT_ATOL)
+        near(f"[ordinal_regression] {distr} NLL", out[f"{distr}/nll"],
+             ref[f"{distr}/nll"], ML_NLL_ATOL)
+        print(f"[ordinal_regression] {distr} beta {out[f'{distr}/beta']} "
+              f"(golden {ref[f'{distr}/beta']}, held through the NLL)",
+              flush=True)
+        print(f"[ordinal_regression] {distr} accuracy train / test "
+              f"{out[f'{distr}/acc_train']:.4f} / {out[f'{distr}/acc_test']:.4f}"
+              f" (golden {ref[f'{distr}/acc_train']:.4f} / "
+              f"{ref[f'{distr}/acc_test']:.4f})", flush=True)
+
+    # -- lstm_selection -------------------------------------------------------------------------
+    lstm_ref = unpack_golden(arrays, "lstm_selection/full")
+    draws = {"init_params": tree_of(arrays, "lstm_selection/full/draws/"
+                                            "init_params/"),
+             "batch_indices": lstm_ref["draws/batch_indices"].astype(
+                 np.int64),
+             "dropout_masks": lstm_ref["draws/dropout_masks"]}
+    out, ref = run("lstm_selection", draws=draws)
+    steps = draws["batch_indices"].shape[0]
+    for key in ("loss", "pred"):
+        g64 = lstm_ref[f"{key}_f64"]
+        ok, d, band = twin_rule(np.asarray(out[key])[None], ref[key][None],
+                                g64[None], floor=ULPS_PER_ITER * steps
+                                * F32_EPS * float(np.abs(g64).max()))
+        check(bool(ok.all()), f"[lstm_selection] {key} by the twin rule "
+              f"against the f64 training ({float(d.max()):.3e} against a "
+              f"band of {float(band.max()):.3e}; XLA-CPU's f32 "
+              f"{float(np.abs(ref[key] - g64).max()):.3e})")
+    print(f"[lstm_selection] top-10 {out['top10']} (golden {ref['top10']}); "
+          f"RMSE {out['rmse']:.6e} (golden {ref['rmse']:.6e}); NDCG "
+          f"{out['ndcg']:.6f} (golden {ref['ndcg']:.6f})", flush=True)
+
+    # -- ml_prediction -----------------------------------------------------------------------------
+    boosting = importlib.util.find_spec("sklearn") is not None
+    if not boosting:
+        print("[ml_prediction] sklearn is not installed here: the example "
+              "runs with boosting=False (the CPU tests hold the boosting "
+              "step)", flush=True)
+    out, ref = run("ml_prediction", boosting=boosting)
+    for k in ("evr", "OLS/coef", "OLS/pred", "PCA+OLS/pred", "OLS/rmse",
+              "PCA+OLS/rmse"):
+        near(f"[ml_prediction] {k}", out[k], ref[k], ML_OPT_ATOL)
+    equal("[ml_prediction] rank labels", out["labels"], ref["labels"])
+    check(out["top"] == ref["top"], f"[ml_prediction] last month's top "
+          f"asset {out['top']} is the golden's")
+
+    missing = sorted(set(EXAMPLES) - set(seconds))
+    check(not missing, f"phase 14 ran every example (missing: {missing})")
+    print(f"phase 14: {sum(seconds.values()):.1f} s in the examples: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()),
+          flush=True)
+    return seconds
+
+
 def shadow_rule(lanes, golden, check_interval):
     """SHADOW rule over ``lanes`` = ``(request, loser, status, iters)``:
     every lane's status equals the golden's answer on that loser; its
@@ -4928,9 +5466,9 @@ def main():
         scaled = _prepare_impl(qp, prm)[0]
         carry = admm_init(scaled, prm)
         fn, args, kw = segment_kernel_call(carry, scaled, prm)
-        out_p = plain[fn](*args, **kw)
-        # The function's answer on these inputs, to f32 rounding.
-        out_64 = plain[fn](*(a.double() for a in args), **kw)
+        # The function's answer on these inputs, to f32 rounding, and
+        # the twin's f32 noise over its summation orders.
+        ref = twin_reference(plain[fn], args, kw)
         plain_ms = cuda_ms(lambda: plain[fn](*args, **kw), 1, 5)
         forms = ("stream", "cluster")
         launch = {f: (lambda kw=kw, f=f: named[fn](f, *args, **kw))
@@ -4940,7 +5478,7 @@ def main():
             torch.cuda.synchronize()
             rname = row_name(name, form)
             print(f"kernel {rname} against its plain twin:", flush=True)
-            ok, err, rel, floor = check_twin(out_k, out_p, out_64, kw)
+            ok, err, rel, floor = check_twin(out_k, ref, kw)
             flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
             rows[(name, form)] = {
@@ -4964,7 +5502,7 @@ def main():
                   f"({rows[(name, form)]['bound_by']}; {flops:.4g} flop, "
                   f"{nbytes:.4g} B)", flush=True)
             check(ok, f"{rname} agrees with its plain twin: per output "
-                  f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} |plain-f64| + "
+                  f"|kernel-f64| <= {KERNEL_VS_PLAIN:g} noise + "
                   f"{floor:.3g} scale")
         # Times in turns: each form first and last in turn (stream,
         # cluster, cluster, stream), median of all its single launches.
@@ -4995,6 +5533,9 @@ def main():
             print(f"  {row['name']}: 1 iteration {one:.4f} ms; "
                   f"{per_iter * 1e3:.2f} us per further iteration "
                   f"for the batch", flush=True)
+
+    # -- 3b. every form at the ragged widths -------------------------------
+    ragged_twin_checks()
 
     # -- 4. the main path ------------------------------------------------
     wrappers = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
@@ -5091,6 +5632,11 @@ def main():
 
     # -- 13. the mesh, the process group and the transfer guard ------------
     kernel_rows += mesh_phase(rows, reset_counts)
+
+    # -- 14. the examples ------------------------------------------------------
+    t0 = time.perf_counter()
+    examples_phase(reset_counts)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- report ----------------------------------------------------------
     if FAILURES:

@@ -300,8 +300,10 @@ class Optimization(ABC):
         parts["constant"] = float(constant)
         return parts
 
-    def model_canonical(self, device="cpu") -> CanonicalQP:
-        """Lower to a padded :class:`CanonicalQP` on ``device``."""
+    def model_canonical(self, device=None) -> CanonicalQP:
+        """Lower to a padded :class:`CanonicalQP` on ``device`` (default:
+        the card; raises without one, as every entry point does)."""
+        device = resolve_device(device)
         parts = self.canonical_parts()
         self.model = CanonicalQP.build(
             parts["P"], parts["q"], C=parts["C"], l=parts["l"], u=parts["u"],
@@ -631,7 +633,10 @@ class LAD(Optimization):
         parts["constant"] = 0.0
         return parts
 
-    def model_canonical(self, device="cpu") -> CanonicalQP:
+    def model_canonical(self, device=None) -> CanonicalQP:
+        """Lower to a padded :class:`CanonicalQP` on ``device`` (default:
+        the card)."""
+        device = resolve_device(device)
         parts = self.canonical_parts()
         self.model = CanonicalQP.build(
             parts["P"], parts["q"], C=parts["C"], l=parts["l"], u=parts["u"],

@@ -75,6 +75,25 @@ def test_every_jax_module_has_a_port_counterpart():
     assert missing == []
 
 
+def test_every_jax_example_has_a_port_counterpart():
+    """Each of the JAX package's ``examples/*.py`` scripts has its twin
+    under ``porqua_tpu_torch/examples/`` with a ``main``, listed in the
+    runner's ``EXAMPLES``; ``_common.py`` has its own."""
+    from porqua_tpu_torch.examples import EXAMPLES
+
+    examples = os.path.join(os.path.dirname(JAX_PKG), "examples")
+    ported = os.path.join(PORT, "examples")
+    names = sorted(n[:-3] for n in os.listdir(examples)
+                   if n.endswith(".py"))
+    missing = [n for n in names
+               if not os.path.exists(os.path.join(ported, f"{n}.py"))]
+    assert missing == []
+    assert sorted(EXAMPLES) == [n for n in names if n != "_common"]
+    for name in EXAMPLES:
+        with open(os.path.join(ported, f"{name}.py")) as f:
+            assert re.search(r"^def main\(device=None", f.read(), re.M), name
+
+
 def test_nothing_left_unported():
     for root, _, names in os.walk(PORT):
         for name in names:

@@ -16,55 +16,17 @@ import torch
 import chip_smoke
 import porqua_tpu_torch as pt
 from porqua_tpu_torch.ops import admm_kernel as tk
-from porqua_tpu_torch.qp import admm as tadmm
-from porqua_tpu_torch.qp.solve import _prepare_impl
 
-FORMS = {
-    "factored_refine0": dict(linsolve="woodbury", woodbury_refine=0,
-                             check_interval=35, scaling_mode="factored"),
-    "factored_refine1": dict(linsolve="woodbury", woodbury_refine=1,
-                             check_interval=35, scaling_mode="factored"),
-    "triangular": dict(linsolve="trinv"),
-    "inverse": dict(linsolve="inverse"),
-}
+# The kernel forms of the small inputs, and the inputs themselves: the
+# kernel call of a small tracking batch (chip_smoke.py holds the same
+# calls at the ragged widths in its phase 3).
+FORMS = chip_smoke.SMALL_FORMS
+kernel_inputs = chip_smoke.small_kernel_call
 # Each output's scale: the state vector it belongs to
 # (x, z, w, y, mu, dx, dy, dmu).
 SCALE_OF = (0, 1, 2, 3, 4, 0, 3, 4)
 TWIN = {tk.admm_segment: tk.admm_segment_ref,
         tk.admm_segment_factored: tk.admm_segment_factored_ref}
-
-
-def kernel_inputs(form, dtype, l1=True, n=10, m=1, window=24, batch=3,
-                  refine=None):
-    """The kernel call of the second segment of a small tracking batch
-    in numpy ``dtype``, built by the port's pipeline on the CPU (with a
-    native L1 term so the prox's soft-threshold branch runs): ``n``
-    assets, a ``window`` of returns (the factored form's k), and
-    ``m - 1`` seeded random rows in [-1, 1] beside the budget row.
-    ``refine`` overrides the factored forms' refinement rounds."""
-    opts = dict(FORMS[form])
-    if refine is not None:
-        opts["woodbury_refine"] = refine
-    params = pt.SolverParams(eps_abs=1e-12, eps_rel=1e-12, polish=False,
-                             scaling_iters=2, backend="pallas", **opts)
-    Xs, ys = pt.synthetic_universe_np(11, batch, window, n)
-    qp = pt.build_tracking_qp(torch.as_tensor(Xs.astype(dtype)),
-                              torch.as_tensor(ys.astype(dtype)))
-    if m > 1:
-        rows = np.random.default_rng(m).standard_normal((batch, m - 1, n))
-        bound = torch.ones((batch, m - 1), dtype=qp.l.dtype)
-        qp = qp._replace(
-            C=torch.cat([qp.C, torch.as_tensor(rows.astype(dtype))], dim=-2),
-            l=torch.cat([qp.l, -bound], dim=-1),
-            u=torch.cat([qp.u, bound], dim=-1),
-            row_mask=torch.ones((batch, m), dtype=qp.row_mask.dtype))
-    scaled, scaling = _prepare_impl(qp, params)[:2]
-    l1w = torch.full_like(scaled.q, 1e-3) if l1 else None
-    l1c = torch.full_like(scaled.q, 0.1) if l1 else None
-    carry = tadmm.admm_init(scaled, params)
-    carry, _ = tadmm.admm_segment_step(carry, scaled, scaling, params,
-                                       l1w, l1c)
-    return tadmm.segment_kernel_call(carry, scaled, params, l1w, l1c)
 
 
 def f32_floor(kw):
@@ -127,29 +89,19 @@ def counts_of(wrapper):
     return wrapper.launches, wrapper.cluster_launches, wrapper.stream_launches
 
 
-def assert_matches_twin(fn, out, args, kw, beside=None, cpu_twin=False):
-    """Per output, the kernel's distance to the twin run in f64 is at
-    most 4x the f32 twin's own, plus two f32 ulps of the output's scale
-    per iteration (chip_smoke.py's rule). ``beside``: the outputs of
-    another f32 implementation on the same inputs; the 4x then applies
-    to the larger of its distance and the twin's. ``cpu_twin``: the 4x
-    applies to the larger of the f32 twin's distance on the card and on
-    the CPU, two summation orders of the same function: a model of f32
-    rounding noise measured from the twin alone."""
-    plain = TWIN[fn](*args, **kw)
-    exact = TWIN[fn](*(a.double() for a in args), **kw)
-    others = [] if beside is None else [beside]
-    if cpu_twin:
-        others.append(TWIN[fn](*(a.cpu() for a in args), **kw))
-    for i, (a, p, e) in enumerate(zip(out, plain, exact)):
-        assert torch.isfinite(a).all(), i
-        scale = float(exact[SCALE_OF[i]].abs().max())
-        e_k = float((a.double() - e).abs().max())
-        e_p = float((p.double() - e).abs().max())
-        for other in others:
-            e_p = max(e_p, float((other[i].double().to(e.device) - e)
-                                 .abs().max()))
-        assert e_k <= 4.0 * e_p + f32_floor(kw) * scale, (i, e_k, e_p)
+def assert_matches_twin(fn, out, args, kw, beside=None):
+    """chip_smoke.py's twin rule: per output, the kernel's distance to
+    the twin run in f64 is at most 4x the twin's f32 rounding noise
+    (its largest distance over chip_smoke.TWIN_ORDERS: the batch on the
+    card and on the CPU, the lanes reversed, lane by lane), plus two f32
+    ulps of the output's scale per iteration. ``beside``: the outputs
+    of another f32 implementation on the same inputs, which joins the
+    noise."""
+    ref = chip_smoke.twin_reference(TWIN[fn], args, kw)
+    margins, _ = chip_smoke.twin_margins(out, ref, kw, beside=beside)
+    for i, (ok, e_k, noise, scale) in enumerate(margins):
+        assert ok, (chip_smoke.OUT_NAMES[i], e_k, noise, scale,
+                    {k: v[i] for k, v in ref["orders"].items()})
 
 
 @pytest.mark.gpu
@@ -255,13 +207,11 @@ def test_dense_cluster_kernel_matches_plain_twin(triangular, n, m, n_iters):
     shapes that stress their column partitions: n=5 and 13 leave ranks
     without a column, 37 leaves the last ranks ragged, 500 is the
     headline width. Each launch moves the cluster counter by one and
-    the streaming counter not at all. Held by the twin rule with the
-    twin's noise measured on the card and on the CPU: on the duals (y,
-    dy, mu, dmu) at small n the twin's one run on the card came up to
-    2,700x nearer the f64 answer than its run on the CPU, and the
-    streaming form (PR 1's arithmetic) failed the rule against the card
-    run alone at n=13 and 37 too (scripts/torch_twin_margins.py prints
-    both distances)."""
+    the streaming counter not at all. Held by the twin rule over the
+    twin's summation orders: on the duals (y, dy, mu, dmu) at small n
+    the twin's one run on the card came up to 2,700x nearer the f64
+    answer than its run on the CPU (scripts/torch_twin_margins.py prints
+    each order's distance)."""
     need_card()
     fn, args, kw = dense_call(triangular, n, m, n_iters)
     assert tk.dense_form(n, m, triangular) == "cluster"
@@ -269,7 +219,49 @@ def test_dense_cluster_kernel_matches_plain_twin(triangular, n, m, n_iters):
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert counts_of(fn) == (launches + 1, cluster + 1, stream)
-    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37])
+@pytest.mark.parametrize("triangular", [True, False])
+def test_dense_stream_kernel_matches_plain_twin(triangular, n, m, n_iters):
+    """The streaming dense form (segment_kernel<false>) at the ragged
+    widths where the router sends nothing to it but where it is the
+    fallback of a shape whose cluster form does not fit: n=5, 13 and
+    37, one and three rows, one iteration and a whole segment. Each
+    launch moves the streaming counter by one and the cluster counter
+    not at all; held by the twin rule."""
+    need_card()
+    fn, args, kw = dense_call(triangular, n, m, n_iters)
+    launches, cluster, stream = counts_of(fn)
+    out = tk._admm_segment_form("stream", *args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (launches + 1, cluster, stream + 1)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37])
+def test_factored_stream_kernel_matches_plain_twin(n, m, refine, n_iters):
+    """The streaming factored form (segment_kernel<true>) at the
+    cluster tests' shapes, through the private entry, with one
+    iteration and a whole segment; held by the twin rule."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 refine=refine)
+    args = tuple(a.cuda() for a in args)
+    kw = dict(kw, n_iters=n_iters)
+    launches, cluster, stream = factored_counts()
+    out = tk._admm_segment_factored_form("stream", *args, **kw)
+    torch.cuda.synchronize()
+    assert factored_counts() == (launches + 1, cluster, stream + 1)
+    assert_matches_twin(fn, out, args, kw)
 
 
 @pytest.mark.gpu
@@ -293,9 +285,7 @@ def test_dense_shape_beyond_cluster_goes_to_stream(triangular):
 @pytest.mark.parametrize("triangular", [True, False])
 def test_named_dense_form_matches_plain_twin(triangular, form):
     """Both dense forms at one shape through the private entry that
-    chip_smoke.py times them with, each held by the twin rule with the
-    twin's noise measured on the card and on the CPU (as the dense
-    cluster tests are)."""
+    chip_smoke.py times them with, each held by the twin rule."""
     need_card()
     fn, args, kw = dense_call(triangular, 37, 1, 25)
     launches, cluster, stream = counts_of(fn)
@@ -303,7 +293,7 @@ def test_named_dense_form_matches_plain_twin(triangular, form):
     torch.cuda.synchronize()
     assert counts_of(fn) == (launches + 1, cluster + (form == "cluster"),
                              stream + (form == "stream"))
-    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
+    assert_matches_twin(fn, out, args, kw)
 
 
 @pytest.mark.gpu
@@ -401,8 +391,7 @@ def test_scan_kernel_call_matches_plain_twin(form, lanes):
     form at one lane (solve_scan_l1), K2 in its cluster form at 8 lanes
     (solve_scan_l1_grid), each with the L1 term on and the warm carry
     of the chain. One launch of the cluster form each, held by the
-    twin rule with the twin's noise measured on the card and on the
-    CPU."""
+    twin rule."""
     need_card()
     fn, args, kw = scan_kernel_inputs(form, lanes, "cuda")
     n, m = args[-1].shape[-1], args[-4].shape[-1]
@@ -417,7 +406,7 @@ def test_scan_kernel_call_matches_plain_twin(form, lanes):
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert counts_of(fn) == (launches + 1, cluster + 1, stream)
-    assert_matches_twin(fn, out, args, kw, cpu_twin=True)
+    assert_matches_twin(fn, out, args, kw)
 
 
 @pytest.mark.gpu

@@ -269,7 +269,8 @@ def test_port_imports_no_jax():
     through solve_qp_diff and solve_qp_l1_diff, compare_solvers' ipm-f64
     and native-cpp-admm rows, an Optimization with solver_name="ipm",
     one LTR selection, one LSTM training step and forward and one
-    ordinal fit (ML models) with JAX, flax, optax, sklearn, msgpack
+    ordinal fit (ML models), and one example of the port
+    (``examples.index_replication`` on two dates) with JAX, flax, optax, sklearn, msgpack
     and h5py made unimportable, and pulls in no
     module of the JAX package; the native core's build and load (every
     file opened, library loaded and process started after the solves
@@ -399,6 +400,11 @@ def test_port_imports_no_jax():
         "models.decile_rank_labels(pd.DataFrame(yw[:60]), n_bins=3).to_numpy()"
         "[:, 0])\n"
         "assert np.isfinite(fit.nll_), fit\n"
+        "import contextlib, io\n"
+        "from porqua_tpu_torch.examples import index_replication\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    ex = index_replication.main(device='cpu', n_rebdates=2)\n"
+        "assert ex['solved'] == 2 and ex['weights'].shape == (2, 24), ex\n"
         "import os\n"
         "jax_pkg = os.path.join(os.getcwd(), 'porqua_tpu') + os.sep\n"
         "touched = []\n"
