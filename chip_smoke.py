@@ -18,7 +18,13 @@ printed):
    and the streaming form; both run on the same inputs, timed in turns
    (stream, cluster, cluster, stream), beside the device-memory bytes
    each design moves, the shared memory and resident clusters of the
-   cluster form, and the time of a launch with one iteration.
+   cluster form, and the time of a launch with one iteration. Then
+   every form, the factored device-memory one included, at the ragged
+   widths (``ragged_twin_checks``), and the forms that serve the shapes
+   the cluster forms do not fit (``GAP_SHAPES``: the service's 1,024 x
+   128 and 512 x 512 rungs through the dense streaming form, 2,048 x 8
+   and the 5,000-asset sketch shape through the factored device-memory
+   form), each a kernel row.
 4. The main path: ``tracking_step`` on that batch with
    ``backend="pallas"`` for every config of the JAX golden
    (``porqua_tpu_torch/testdata/tracking_golden.npz``), with the launch
@@ -73,8 +79,13 @@ printed):
    NAPG, each against the fused solve; the PDHG and NAPG backends
    beside ADMM; the 5,000-asset north star through the count-sketch on
    all three backends, with the golden's draws and with the port's own;
-   the sketch's passthrough at 2,048 assets; one profiled compacted
-   solve. Each kernel is held against its plain twin at a narrow rung.
+   the sketch's passthrough at 2,048 assets; the north star's two
+   woodbury arms again with ``backend="pallas"`` (the factored
+   device-memory form at B = 1); ``solve_qp_batch`` on 8 problems of
+   1,000 assets and 101 rows at the (1024, 128) rung through the dense
+   streaming form (trinv and inverse) against the plain path; one
+   profiled compacted solve. Each kernel is held against its plain twin
+   at a narrow rung.
 9. The differentiable solve, against the JAX golden
    (``porqua_tpu_torch/testdata/diff_golden.npz``; rules at
    ``DIFF_PATH``, checks listed at ``diff_phase``): gradients of
@@ -524,10 +535,11 @@ def check_twin(out_k, ref, kw):
 
 
 def ragged_twin_checks():
-    """Both forms of every kernel family, the streaming form included
-    where the router would not pick it, at the ragged widths of the gpu
-    tests (n = 5, 13, 37; one and three rows; one iteration and a whole
-    segment), held by the twin rule. Prints per case the worst output's
+    """Every form of every kernel family (cluster, streaming and, for
+    the factored one, device-memory), each called by name where the
+    router would pick the cluster form, at the ragged widths of the gpu tests (n = 5, 13, 37;
+    one and three rows; one iteration and a whole segment), held by the
+    twin rule. Prints per case the worst output's
     margin (|kernel - f64| over the rule's bound; above 1 fails) under
     the noise model and, beside it, under the card run of the twin
     alone (the rule before the noise model)."""
@@ -543,8 +555,11 @@ def ragged_twin_checks():
     families = [("triangular", None), ("inverse", None),
                 ("factored_refine0", 0), ("factored_refine0", 1),
                 ("factored_refine0", 2)]
-    worst = {"stream": 0.0, "cluster": 0.0}
-    worst_card = {"stream": 0.0, "cluster": 0.0}
+    forms_of = {tk.admm_segment: ("stream", "cluster"),
+                tk.admm_segment_factored: ("stream", "cluster", "global")}
+    forms = forms_of[tk.admm_segment_factored]
+    worst = dict.fromkeys(forms, 0.0)
+    worst_card = dict.fromkeys(forms, 0.0)
     for family, refine in families:
         for n in (5, 13, 37):
             for m in (1, 3):
@@ -554,7 +569,7 @@ def ragged_twin_checks():
                 for n_iters in (1, 25):
                     kw = dict(kw0, n_iters=n_iters)
                     ref = twin_reference(twin[fn], args, kw)
-                    for form in ("stream", "cluster"):
+                    for form in forms_of[fn]:
                         out = named[fn](form, *args, **kw)
                         torch.cuda.synchronize()
                         margins, floor = twin_margins(out, ref, kw)
@@ -576,10 +591,63 @@ def ragged_twin_checks():
                               f"{max(card):.3f})", flush=True)
                         check(all(mg[0] for mg in margins),
                               f"ragged {label} agrees with its plain twin")
-    for form in ("stream", "cluster"):
+    for form in forms:
         print(f"ragged widths, {form} form: worst margin {worst[form]:.3f} "
               f"under the noise model, {worst_card[form]:.3f} under the "
               f"card run alone", flush=True)
+
+
+# The shapes where the JAX package's Pallas kernels run and no cluster
+# form fits (tests/test_torch_cluster_route.py holds the whole domain):
+# (family, n, m, window k, refine, batch). The service's ladder rungs
+# 1,024 x 128 and 512 x 512 for the dense kinds (the streaming form, C
+# in device memory); for the factored one (the device-memory form) the
+# 2,048 x 8 rung at a year's window with and without refinement,
+# 1,024 x 128, and the sketch-fed 5,000-asset north star at B = 1.
+GAP_SHAPES = [("triangular", 1024, 128, 24, None, 3),
+              ("triangular", 512, 512, 24, None, 3),
+              ("inverse", 1024, 128, 24, None, 3),
+              ("inverse", 512, 512, 24, None, 3),
+              ("factored_refine0", 2048, 8, 252, 0, 1),
+              ("factored_refine0", 2048, 8, 252, 1, 1),
+              ("factored_refine0", 1024, 128, 252, 0, 1),
+              ("factored_refine0", 5000, 1, 256, 0, 1)]
+
+
+def gap_rows(rows):
+    """The form that serves each of GAP_SHAPES, called by name, on the
+    kernel call of a small tracking batch's second segment: held by the
+    twin rule, timed (CUDA events, median of 20) beside its twin, its
+    bound and the bytes it moves. No run of the main path launches these
+    shapes, so the rows' launches are 0. Returns the rows' keys."""
+    import numpy as np
+    import torch
+
+    from porqua_tpu_torch.ops import admm_kernel as tk
+
+    keys = []
+    for family, n, m, k, refine, batch in GAP_SHAPES:
+        fn, args, kw = small_kernel_call(family, np.float32, n=n, m=m,
+                                         window=k, batch=batch,
+                                         refine=refine)
+        args = tuple(a.cuda() for a in args)
+        if fn is tk.admm_segment:
+            form = "stream"
+            rname = (f"admm_segment[{family}]_stream, gap {n}x{m} "
+                     f"B={batch}")
+            base = ("trinv" if kw["triangular"] else "inverse", "stream")
+            chosen = tk.dense_form(n, m, kw["triangular"])
+        else:
+            form = "global"
+            rname = (f"admm_segment_factored_global[refine={refine}], gap "
+                     f"{n}x{m} k={k} B={batch}")
+            base = ("woodbury", "cluster")
+            chosen = tk.factored_form(n, m, k, refine)
+        print(f"gap {n}x{m}: the router picks the {chosen} form", flush=True)
+        key = ("gap",) + (family, n, m, k, refine)
+        kernel_row(rows, key, rname, base, fn, args, kw, 0, form=form)
+        keys.append(key)
+    return keys
 
 
 def usa_service(X, bm, rebdates, meta, features=None, selection=None):
@@ -1462,7 +1530,7 @@ def backtest_phase(rows, reset_counts):
             t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
             ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, 5)
-            moved = admm_kernel.launch_traffic(rname, args, kw)
+            moved = admm_kernel.launch_traffic(rname, args, kw, form)
             smem, active = cluster_shape(dense, args, kw)
             rows[(name, form)] = {
                 "name": rname,
@@ -1491,17 +1559,24 @@ def backtest_phase(rows, reset_counts):
     return added
 
 
-def kernel_row(rows, key, rname, base, fn, args, kw, launches):
+def kernel_row(rows, key, rname, base, fn, args, kw, launches, form=None):
     """Hold one kernel call against its plain twin (its distance the
     larger of its runs on the card and the CPU), time it and its twin,
-    and add its row to ``rows`` under ``key``."""
+    and add its row to ``rows`` under ``key``. ``form`` names the kernel
+    form to launch; by default the wrapper picks it by shape."""
     import torch
 
     from porqua_tpu_torch.ops import admm_kernel
 
-    plain = (admm_kernel.admm_segment_ref if fn is admm_kernel.admm_segment
+    dense = fn is admm_kernel.admm_segment
+    shown = form or form_of(dense, args, kw)
+    plain = (admm_kernel.admm_segment_ref if dense
              else admm_kernel.admm_segment_factored_ref)
-    out_k = fn(*args, **kw)
+    named = (admm_kernel._admm_segment_form if dense
+             else admm_kernel._admm_segment_factored_form)
+    call = ((lambda: fn(*args, **kw)) if form is None
+            else (lambda: named(form, *args, **kw)))
+    out_k = call()
     torch.cuda.synchronize()
     print(f"kernel {rname} against its plain twin:", flush=True)
     ok, err, rel, tfloor = check_twin(out_k, twin_reference(plain, args, kw),
@@ -1510,11 +1585,12 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches):
           f"<= {KERNEL_VS_PLAIN:g} noise + {tfloor:.3g} scale")
     flops, nbytes = admm_kernel.launch_cost(rname, args, kw)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
-    ms = statistics.median(cuda_times(lambda: fn(*args, **kw), 2, 20))
+    ms = statistics.median(cuda_times(call, 2, 20))
     plain_ms = cuda_ms(lambda: plain(*args, **kw), 1, 5)
-    moved = admm_kernel.launch_traffic(rname, args, kw)
-    dense = fn is admm_kernel.admm_segment
-    smem, active = cluster_shape(dense, args, kw)
+    moved = admm_kernel.launch_traffic(rname, args, kw, shown)
+    through_l2 = admm_kernel.launch_traffic(rname, args, kw, shown,
+                                            level="l2")
+    smem, active = SHAPE_OF[shown](dense, args, kw)
     rows[key] = {
         "name": rname,
         "route": "cuda",
@@ -1531,9 +1607,12 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches):
     print(f"time {rname}: B={args[-1].shape[0]} n_iters={kw['n_iters']}; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{rows[key]['bound_ms']:.4f} ms ({rows[key]['bound_by']}; "
-          f"{flops:.4g} flop, {nbytes:.4g} B); design moves "
-          f"{moved / 1e9:.4f} GB per launch; {smem} B of shared memory per "
-          f"block, {active} clusters resident at once; max_abs_err "
+          f"{flops:.4g} flop, {nbytes:.4g} B); the {shown} form's design "
+          f"model moves {moved / 1e9:.4f} GB per launch from device memory"
+          f" (a launch's matrices read again counted once where they fit "
+          f"the card's L2), {through_l2 / 1e9:.4f} GB through L2; {smem} B "
+          f"of shared memory per block, {active} clusters resident at "
+          f"once; max_abs_err "
           f"{err:.3e} (max_rel {rel:.3e})", flush=True)
 
 
@@ -2406,6 +2485,13 @@ def secondary_phase(rows, reset_counts, device="cuda"):
     TE_RTOL relative. Then the port's own seeded draws: solved, the same
     bits on a second call. At 2,048 x 504: sketch_dim=0 and the sketch
     path's passthrough bit-exact against the plain tracking_step.
+    8c'. The dense and admm arms (woodbury at k = 504 and at the
+    sketch's k = 256, refine 0) with the golden's params and
+    ``backend="pallas"``: held by 8c's rules, each launching the
+    factored device-memory form (and no other form) at B = 1; its kernel
+    call held against its twin.
+    8e. ``rung_solves``: the dense streaming form, C in device memory,
+    on the (1024, 128) rung.
     8d. One profiled compacted ``compact_woodbury`` solve."""
     import numpy as np
     import torch
@@ -2442,10 +2528,12 @@ def secondary_phase(rows, reset_counts, device="cuda"):
         return out, (time.perf_counter() - t0) * 1e3
 
     def counts():
-        return {name: {"cluster": f.cluster_launches,
-                       "stream": f.stream_launches,
-                       "widths": dict(sorted(f.widths.items()))}
-                for name, f in (("K1", K1), ("K2", K2))}
+        c = {name: {"cluster": f.cluster_launches,
+                    "stream": f.stream_launches,
+                    "widths": dict(sorted(f.widths.items()))}
+             for name, f in (("K1", K1), ("K2", K2))}
+        c["K1"]["global"] = K1.global_launches
+        return c
 
     def host(sol):
         return {k: getattr(sol, k).cpu().numpy()
@@ -2654,36 +2742,33 @@ def secondary_phase(rows, reset_counts, device="cuda"):
     draws = SketchDraws(*(torch.as_tensor(golden[f"northstar/{key}"])
                           for key in ("bucket", "sign", "probes")))
     arms, te5 = {}, {}
-    for arm in ("dense", "admm", "pdhg", "napg"):
-        prm = pt.SolverParams(**json.loads(str(
-            golden[f"northstar/{arm}/params"])))
-        for _ in range(2):
-            res, ms = synced(lambda: pt.tracking_step(X5, y5, prm,
-                                                      draws=draws))
-        arms[arm] = res
+
+    def northstar_checks(arm, label, res, ms):
+        """The arm's rules (the docstring's 8c) on ``res``; returns its
+        TE."""
         gk = lambda key: golden[f"northstar/{arm}/{key}"]
         st, it = int(res.status[0]), int(res.iters[0])
         w = res.weights.cpu().numpy()
-        te5[arm] = float(res.tracking_error[0])
+        te = float(res.tracking_error[0])
         at_f32 = it == int(gk("iters")[0])
         d_card = float(np.abs(w - gk("weights_f64")).max())
         d_gold = float(np.abs(gk("weights") - gk("weights_f64")).max())
-        t_card = abs(te5[arm] - float(gk("tracking_error_f64")[0]))
+        t_card = abs(te - float(gk("tracking_error_f64")[0]))
         t_gold = abs(float(gk("tracking_error")[0])
                      - float(gk("tracking_error_f64")[0]))
         floor = ULPS_PER_ITER * it * F32_EPS * float(np.abs(w).max())
-        te_rel = abs(te5[arm] / float(gk("tracking_error")[0]) - 1)
-        print(f"northstar [{arm}]: {ms:.1f} ms; status {st} (golden "
+        te_rel = abs(te / float(gk("tracking_error")[0]) - 1)
+        print(f"northstar [{label}]: {ms:.1f} ms; status {st} (golden "
               f"{int(gk('status')[0])}), iters {it} (golden "
               f"{int(gk('iters')[0])}, its f64 run {int(gk('iters_f64')[0])}"
-              f"); TE {te5[arm]:.9e} (golden "
+              f"); TE {te:.9e} (golden "
               f"{float(gk('tracking_error')[0]):.9e}, rel {te_rel:.3e}; f64 "
               f"{float(gk('tracking_error_f64')[0]):.9e}); weights to the f64"
               f" run {d_card:.3e} (golden's {d_gold:.3e})", flush=True)
         check(st == int(gk("status")[0]) == 1,
-              f"[northstar {arm}] SOLVED as in the golden")
+              f"[northstar {label}] SOLVED as in the golden")
         if at_f32:
-            check(te_rel <= TE_RTOL, f"[northstar {arm}] iterations equal "
+            check(te_rel <= TE_RTOL, f"[northstar {label}] iterations equal "
                   f"the golden's; TE within {TE_RTOL:g} relative")
         else:
             dense_w = arms["dense"].weights.cpu().numpy()
@@ -2691,13 +2776,23 @@ def secondary_phase(rows, reset_counts, device="cuda"):
             check(it == int(gk("iters_f64")[0])
                   and d_card <= KERNEL_VS_PLAIN * d_gold + floor
                   and t_card <= KERNEL_VS_PLAIN * t_gold,
-                  f"[northstar {arm}] crosses eps at the f64 run's check "
+                  f"[northstar {label}] crosses eps at the f64 run's check "
                   f"({it}); weights {d_card:.3e} <= {KERNEL_VS_PLAIN:g} x "
                   f"{d_gold:.3e} + {floor:.2g} and TE {t_card:.3e} <= "
                   f"{KERNEL_VS_PLAIN:g} x {t_gold:.3e} from the f64 run")
             check(ctl > KERNEL_VS_PLAIN * d_gold + floor,
-                  f"[northstar {arm}] control: the dense arm's weights fail "
-                  f"that rule ({ctl:.3e})")
+                  f"[northstar {label}] control: the dense arm's weights "
+                  f"fail that rule ({ctl:.3e})")
+        return te
+
+    for arm in ("dense", "admm", "pdhg", "napg"):
+        prm = pt.SolverParams(**json.loads(str(
+            golden[f"northstar/{arm}/params"])))
+        for _ in range(2):
+            res, ms = synced(lambda: pt.tracking_step(X5, y5, prm,
+                                                      draws=draws))
+        arms[arm] = res
+        te5[arm] = northstar_checks(arm, arm, res, ms)
     drift5 = {a: abs(te5[a] - te5["dense"]) / te5["dense"]
               for a in ("admm", "pdhg", "napg")}
     g_dense = float(golden["northstar/dense/tracking_error"][0])
@@ -2751,9 +2846,195 @@ def secondary_phase(rows, reset_counts, device="cuda"):
           "[sketch 2048] sketch_dim=0 and SketchParams() bit-exact against "
           "the plain tracking_step")
 
+    # -- 8c'. the two woodbury arms through the kernel ---------------------
+    for arm in ("dense", "admm"):
+        prm = dataclasses.replace(pt.SolverParams(**json.loads(str(
+            golden[f"northstar/{arm}/params"]))), backend="pallas")
+        for _ in range(2):        # the first run includes the warm-up
+            reset_counts()
+            res, ms = synced(lambda: pt.tracking_step(X5, y5, prm,
+                                                      draws=draws))
+            c = counts()
+        print(f"northstar [{arm} pallas]: launches {c}", flush=True)
+        northstar_checks(arm, f"{arm} pallas", res, ms)
+        check(c["K1"]["global"] > 0 and c["K1"]["cluster"] == 0
+              and c["K1"]["stream"] == 0
+              and not any(c["K2"][f] for f in ("cluster", "stream")),
+              f"[northstar {arm} pallas] launched the factored device-memory"
+              f" form ({c['K1']['global']}) and no other form")
+        # Its kernel call, from the first segment, against the twin.
+        qp5 = pt.build_tracking_qp(X5d, y5d, sketch_dim=prm.sketch_dim,
+                                   sketch_seed=prm.sketch_seed, draws=draws)
+        scaled, _, carry, _, _ = prepare_batch(qp5, prm)
+        fn, args, kw = segment_kernel_call(carry, scaled, prm)
+        n5, k5 = args[0].shape[-1], args[0].shape[-2]
+        check(fn is K1 and admm_kernel.factored_form(
+            n5, args[6].shape[-2], k5, kw["refine_steps"]) == "global",
+              f"[northstar {arm} pallas] its kernel call goes to the "
+              f"device-memory form")
+        key = f"northstar_{arm}_k1"
+        kernel_row(rows, key, f"admm_segment_factored_global[refine="
+                   f"{kw['refine_steps']}], northstar {arm} k={k5}",
+                   ("woodbury", "cluster"), fn, args, kw, c["K1"]["global"])
+        added.append(key)
+
+    # -- 8e. the (1024, 128) rung through the dense streaming form -------
+    added += rung_solves(rows, reset_counts, counts, synced, device)
+
     # -- 8d. where the time goes -------------------------------------------
     profile_run(lambda: driver_wb.solve(qps),
                 "profile [compact_woodbury, compacted]")
+    return added
+
+
+# Phase 8e: RUNG_PROBLEMS tracking problems of RUNG_ASSETS assets
+# (seeded) with RUNG_ROWS - 1 seeded rows drawn uniformly from [-1, 1]
+# beside the budget row, each held within +-RUNG_BOUND (so that 43 to
+# 69 of the 100 bind at the optimum), padded to the service's
+# (1024, 128) ladder rung and solved at eps RUNG_EPS: 50 to 100
+# iterations, two to four segments chained through the kernel. The
+# window (five years of days) is longer than the universe, so each
+# optimum is a point; with a year's window it is a face (ROADMAP §C).
+RUNG_PROBLEMS, RUNG_ASSETS, RUNG_ROWS, RUNG = 8, 1000, 101, (1024, 128)
+RUNG_WINDOW, RUNG_EPS, RUNG_BOUND, RUNG_SEED = 1260, 1e-4, 0.02, 15
+
+
+def rung_problems(dtype, device):
+    """The batch of phase 8e in torch ``dtype`` on ``device``: each
+    problem built by ``build_tracking_qp``, the rows added, then padded
+    to RUNG. Returns the batch and the rows (numpy)."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.qp.canonical import pad_qp
+
+    Xs, ys = pt.synthetic_universe_np(RUNG_SEED, RUNG_PROBLEMS, RUNG_WINDOW,
+                                      RUNG_ASSETS)
+    rows = np.random.default_rng(RUNG_SEED).uniform(
+        -1.0, 1.0, (RUNG_PROBLEMS, RUNG_ROWS - 1, RUNG_ASSETS))
+    on = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    qp = pt.build_tracking_qp(on(Xs), on(ys))
+    bound = torch.full((RUNG_PROBLEMS, RUNG_ROWS - 1), RUNG_BOUND,
+                       dtype=dtype, device=device)
+    qp = qp._replace(
+        C=torch.cat([qp.C, on(rows)], dim=-2),
+        l=torch.cat([qp.l, -bound], dim=-1),
+        u=torch.cat([qp.u, bound], dim=-1),
+        row_mask=torch.ones((RUNG_PROBLEMS, RUNG_ROWS),
+                            dtype=qp.row_mask.dtype, device=device))
+    lanes = [pad_qp(type(qp)(*(None if f is None else f[i] for f in qp)),
+                    *RUNG) for i in range(RUNG_PROBLEMS)]
+    return type(qp)(*(None if f[0] is None else torch.stack(f)
+                      for f in zip(*lanes))), rows
+
+
+def rung_solves(rows, reset_counts, counts, synced, device="cuda"):
+    """Phase 8e: ``solve_qp_batch`` with ``backend="pallas"`` on
+    rung_problems at the (1024, 128) rung, once with ``linsolve="trinv"``
+    and once with ``"inverse"``: each must launch the dense streaming
+    form (C in device memory) in two or more chained segments, and no
+    other form, and end in the plain path's (``backend="xla"``) status
+    on every problem, with rows binding on every problem. Its weights
+    are held by the twin rule at the iteration each problem stopped at:
+    the plain path run with no tolerance for exactly that many
+    iterations in f64 gives the reference, and in f32 the noise, the
+    largest distance to f64 over four summation orders (the batch on
+    the card, on the CPU, the lanes reversed, and the kernel's plain
+    twin on the CPU: ``backend="pallas"`` on CPU tensors), as
+    ``twin_reference`` takes it for a kernel call. (A problem that
+    crosses eps one check later than another run ends elsewhere, and
+    that is not rounding.) Each kernel call is held against its twin.
+    Returns the kernel rows it adds."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp.admm import segment_kernel_call
+    from porqua_tpu_torch.qp.solve import prepare_batch
+
+    added = []
+    qp32, C_rows = rung_problems(torch.float32, device)
+    qp64 = rung_problems(torch.float64, device)[0]
+    w = lambda x: x[:, :RUNG_ASSETS].cpu().numpy()
+    rev = np.arange(RUNG_PROBLEMS)[::-1].copy()
+    pick = lambda qp, idx, dev: type(qp)(*(
+        None if f is None else f[torch.as_tensor(idx, device=f.device)].to(dev)
+        for f in qp))
+    qp_cpu = pick(qp32, np.arange(RUNG_PROBLEMS), "cpu")
+    # summation order -> (batch, device, lane order, backend)
+    orders = {"card": (qp32, device, None, "xla"),
+              "cpu": (qp_cpu, "cpu", None, "xla"),
+              "reversed": (pick(qp32, rev, device), device, rev, "xla"),
+              "twin": (qp_cpu, "cpu", None, "pallas")}
+    for kind in ("trinv", "inverse"):
+        prm = pt.SolverParams(linsolve=kind, backend="pallas",
+                              eps_abs=RUNG_EPS, eps_rel=RUNG_EPS,
+                              polish=False, max_iter=4000)
+        plain = dataclasses.replace(prm, backend="xla")
+        for _ in range(2):        # the first run includes the warm-up
+            reset_counts()
+            sol, ms = synced(lambda: pt.solve_qp_batch(qp32, prm))
+            c = counts()
+        sol32, plain_ms = synced(lambda: pt.solve_qp_batch(qp32, plain))
+        status, iters = sol.status.cpu().numpy(), sol.iters.cpu().numpy()
+        # The plain path for exactly each stopping count: in f64, and in
+        # f32 in each summation order.
+        at64 = np.zeros((RUNG_PROBLEMS, RUNG_ASSETS))
+        at32 = {name: np.zeros_like(at64) for name in orders}
+        for t in sorted(set(iters.tolist())):
+            fixed = dataclasses.replace(plain, eps_abs=0.0, eps_rel=0.0,
+                                        max_iter=int(t))
+            lanes = iters == t
+            at64[lanes] = w(pt.solve_qp_batch(qp64, fixed).x)[lanes]
+            for name, (qp, dev, order, backend) in orders.items():
+                x = w(pt.solve_qp_batch(
+                    qp, dataclasses.replace(fixed, backend=backend),
+                    device=dev).x)
+                at32[name][lanes] = (x if order is None
+                                     else x[np.argsort(order)])[lanes]
+        dist = {name: np.abs(a - at64).max(axis=1)
+                for name, a in at32.items()}
+        noisiest = np.stack([at32[name] for name in orders])[
+            np.argmax(np.stack([dist[name] for name in orders]), axis=0),
+            np.arange(RUNG_PROBLEMS)]
+        ok, d_card, band = twin_rule(w(sol.x), noisiest, at64)
+        binding = (np.abs(np.einsum("prn,pn->pr", C_rows, at64))
+                   >= RUNG_BOUND * (1 - 1e-3)).sum(axis=1)
+        print(f"rung {kind} {RUNG}: B={RUNG_PROBLEMS}, {RUNG_ASSETS} assets, "
+              f"{RUNG_ROWS} rows (binding {binding.tolist()}), eps "
+              f"{RUNG_EPS:g}; {ms:.1f} ms (plain path {plain_ms:.1f} ms); "
+              f"launches {c}; status {status.tolist()} (plain "
+              f"{sol32.status.tolist()}); iters {iters.tolist()} (plain "
+              f"{sol32.iters.tolist()}); weights at the same iteration: "
+              f"to the f64 run {np.array2string(d_card, precision=3)}, "
+              f"band {np.array2string(band, precision=3)}; f32 plain to "
+              f"f64 by order: " + "; ".join(
+                  f"{name} {np.array2string(d, precision=3)}"
+                  for name, d in dist.items()), flush=True)
+        check(c["K2"]["stream"] >= 2 and c["K2"]["cluster"] == 0
+              and not any(c["K1"][f] for f in ("cluster", "stream", "global")),
+              f"[rung {kind}] chained {c['K2']['stream']} launches of the "
+              f"dense streaming form (two or more) and no other form")
+        check(np.array_equal(status, sol32.status.cpu().numpy()),
+              f"[rung {kind}] status equals the plain path's on every "
+              f"problem")
+        check(bool((binding > 0).all()), f"[rung {kind}] rows bind on every "
+              f"problem")
+        check(bool(ok.all()), f"[rung {kind}] weights within the twin rule "
+              f"of the f64 run at the same iteration on every problem")
+        scaled, _, carry, _, _ = prepare_batch(qp32, prm)
+        fn, args, kw = segment_kernel_call(carry, scaled, prm)
+        check(fn is admm_kernel.admm_segment and admm_kernel.dense_form(
+            *RUNG, kw["triangular"]) == "stream",
+              f"[rung {kind}] its kernel call goes to the streaming form")
+        key = f"rung_{kind}"
+        family = "triangular" if kind == "trinv" else "inverse"
+        kernel_row(rows, key, f"admm_segment[{family}]_stream, rung "
+                   f"{RUNG[0]}x{RUNG[1]} B={RUNG_PROBLEMS}", (kind, "stream"),
+                   fn, args, kw, c["K2"]["stream"])
+        added.append(key)
     return added
 
 
@@ -5380,9 +5661,52 @@ def cluster_shape(dense, args, kw):
             lib.porqua_admm_cluster_max_active(*shape))
 
 
+def stream_shape(dense, args, kw):
+    """(shared bytes per block, None) of the streaming form (a single
+    block per problem) at this call's shape."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    lib = admm_kernel._library(admm_kernel._LIB)
+    if dense:
+        return lib.porqua_admm_segment_smem_bytes(
+            0, args[0].shape[-1], args[1].shape[-2], 0), None
+    B, k, n = args[0].shape
+    return lib.porqua_admm_segment_smem_bytes(1, n, args[6].shape[-2],
+                                              k), None
+
+
+def global_shape(dense, args, kw):
+    """(shared bytes per block, resident clusters) of the factored
+    device-memory form at this call's shape."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    lib = admm_kernel._library(admm_kernel._CLUSTER_LIB)
+    B, k, n = args[0].shape
+    shape = (n, args[6].shape[-2], k, kw["refine_steps"])
+    return (lib.porqua_admm_cluster_global_smem_bytes(*shape),
+            lib.porqua_admm_cluster_global_max_active(*shape))
+
+
+SHAPE_OF = {"cluster": cluster_shape, "stream": stream_shape,
+            "global": global_shape}
+
+
+def form_of(dense, args, kw):
+    """The form the router picks for this kernel call."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    if dense:
+        return admm_kernel.dense_form(args[0].shape[-1], args[1].shape[-2],
+                                      kw["triangular"])
+    B, k, n = args[0].shape
+    return admm_kernel.factored_form(n, args[6].shape[-2], k,
+                                     kw["refine_steps"])
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5513,7 +5837,7 @@ def main():
         for form in forms:
             row = rows[(name, form)]
             row["ms"] = statistics.median(samples[form])
-            moved = admm_kernel.launch_traffic(row["name"], args, kw)
+            moved = admm_kernel.launch_traffic(row["name"], args, kw, form)
             print(f"time {row['name']}: kernel {row['ms']:.4f} ms "
                   f"(turn medians "
                   f"{statistics.median(samples[form][:10]):.4f}, "
@@ -5534,8 +5858,12 @@ def main():
                   f"{per_iter * 1e3:.2f} us per further iteration "
                   f"for the batch", flush=True)
 
-    # -- 3b. every form at the ragged widths -------------------------------
+    # -- 3b. every form at the ragged widths, the device-memory forms at
+    # the gap shapes -------------------------------------------------------
+    t0 = time.perf_counter()
     ragged_twin_checks()
+    kernel_rows += gap_rows(rows)
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 4. the main path ------------------------------------------------
     wrappers = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
@@ -5544,6 +5872,7 @@ def main():
         for f in wrappers:
             f.launches = f.cluster_launches = f.stream_launches = 0
             f.widths = {}
+        admm_kernel.admm_segment_factored.global_launches = 0
 
     def timed(prm):
         torch.cuda.synchronize()
@@ -5639,6 +5968,7 @@ def main():
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- report ----------------------------------------------------------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1

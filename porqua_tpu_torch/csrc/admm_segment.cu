@@ -7,13 +7,18 @@
 // problems, one thread block per problem, and writes the final state
 // plus the last-iteration increments (x, z, w, y, mu, dx, dy, dmu).
 //
-// Design: the n- and m-vectors of the state, the small matrices (C,
-// and for the factored form Y0 and Ginv) and every temporary live in
-// dynamic shared memory for the whole segment. The large operator
+// Design: the n- and m-vectors of the state and every temporary live
+// in dynamic shared memory for the whole segment. The large operator
 // (L^-1, K^-1, or W and V) is read from device memory on every
 // iteration: at n = 500 it is 1 MB (dense) or 0.5 MB (W) per problem,
-// more than one SM's shared memory. The matvecs are f32 FMA on the
-// CUDA cores (no tensor cores, hence no TF32): v M' is a warp per row
+// more than one SM's shared memory. The dense form reads C from device
+// memory beside it, so its shared memory holds only the O(n + m)
+// vectors, 4 (14 n + 10 m) bytes: it serves every dense shape up to
+// n = 1,664 at m = 2,048 (175 KB), the service's (1024, 128) rung
+// included, where C alone would be 512 KB. The factored form keeps the
+// m-wide matrices of its Schur step (C, Y0 and Ginv) in shared memory.
+// The matvecs are f32 FMA on the CUDA cores (no tensor cores, hence no
+// TF32): v M' is a warp per row
 // with a shuffle reduction, v M a thread per column with the loop over
 // rows coalesced across threads and summed in blocks of rows. The
 // ragged edge is masked by the loop bounds; nothing is padded. One
@@ -24,7 +29,9 @@
 // thread-block cluster with the operator in shared memory
 // (admm_segment_cluster.cu, admm_segment_dense_cluster.cu), for the
 // shapes where it fits; this one serves every shape whose state fits
-// one block.
+// one block. The factored kind has a third, the cluster kernel with
+// every matrix left in device memory (cluster_kernel<true>), for the
+// shapes where neither fits.
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -136,11 +143,14 @@ constexpr int kVecN = 14;      // x w mu q lb ub rho_b l1w l1c rhs xt xprev mupr
 constexpr int kVecNFact = 5;   // inv_d Dv x0 r tmp2
 constexpr int kVecM = 8;       // z y l u rho zt yprev tm
 
-__host__ __device__ inline size_t smem_floats(bool factored, int n, int m, int k) {
+// The dense form reads C from device memory; the factored one holds it.
+__host__ __device__ inline size_t smem_floats(bool factored, int n, int m,
+                                              int k) {
   size_t f = 2 * (size_t)m  // C x0 in f64, first
-             + (size_t)kVecN * n + (size_t)kVecM * m + (size_t)m * n;  // + C
+             + (size_t)kVecN * n + (size_t)kVecM * m;
   if (factored)
-    f += (size_t)kVecNFact * n + (size_t)k + (size_t)n * m + (size_t)m * m;
+    f += (size_t)m * n + (size_t)kVecNFact * n + (size_t)k + (size_t)n * m +
+         (size_t)m * m;  // C, then the factored vectors, t, Y0, Ginv
   return f;
 }
 
@@ -149,7 +159,7 @@ struct Smem {
   float *x, *w, *mu, *q, *lb, *ub, *rho_b, *l1w, *l1c, *rhs, *xt, *xprev,
       *muprev, *tmp;
   float *z, *y, *l, *u, *rho, *zt, *yprev, *tm;
-  float* C;
+  const float* C;  // dense: in device memory; factored: in shared memory
   // factored only
   float *inv_d, *Dv, *x0, *r, *tmp2, *t, *Y0, *Ginv;
 };
@@ -165,9 +175,10 @@ __device__ Smem carve(float* base, bool factored, int n, int m, int k) {
   float** vm[kVecM] = {&s.z, &s.y, &s.l, &s.u, &s.rho, &s.zt, &s.yprev,
                        &s.tm};
   for (int i = 0; i < kVecM; ++i) { *vm[i] = p; p += m; }
-  s.C = p; p += (size_t)m * n;
+  s.C = nullptr;
   s.inv_d = s.Dv = s.x0 = s.r = s.tmp2 = s.t = s.Y0 = s.Ginv = nullptr;
   if (factored) {
+    s.C = p; p += (size_t)m * n;
     float** vf[kVecNFact] = {&s.inv_d, &s.Dv, &s.x0, &s.r, &s.tmp2};
     for (int i = 0; i < kVecNFact; ++i) { *vf[i] = p; p += n; }
     s.t = p; p += k;
@@ -285,7 +296,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_kernel(Inputs a) {
   extern __shared__ __align__(16) float smem[];
   const int n = a.n, m = a.m, k = a.k;
   const size_t b = blockIdx.x;
-  const Smem s = carve(smem, kFactored, n, m, k);
+  Smem s = carve(smem, kFactored, n, m, k);
+  if (!kFactored) s.C = a.C + b * m * n;
 
   load(s.x, a.x + b * n, n);
   load(s.w, a.w + b * n, n);
@@ -301,8 +313,8 @@ __global__ void __launch_bounds__(kThreads, 2) segment_kernel(Inputs a) {
   load(s.l, a.l + b * m, m);
   load(s.u, a.u + b * m, m);
   load(s.rho, a.rho + b * m, m);
-  load(s.C, a.C + b * m * n, (size_t)m * n);
   if (kFactored) {
+    load(const_cast<float*>(s.C), a.C + b * m * n, (size_t)m * n);
     load(s.inv_d, a.inv_d + b * n, n);
     if (a.refine_steps > 0) load(s.Dv, a.Dv + b * n, n);
     load(s.Y0, a.Y0 + b * n * m, (size_t)n * m);

@@ -10,37 +10,49 @@ refinement). Each runs ``n_iters`` OSQP iterations for every problem of
 a batch in one launch and returns ``(x, z, w, y, mu, dx, dy, dmu)``:
 the final state and the increments between the last two iterates.
 
-Two designs, three sources:
+Two forms for the dense family and three for the factored one, in
+three sources:
 
-- ``csrc/admm_segment.cu``, the streaming form: one block per problem,
-  everything but the operator in shared memory, the operator (L^-1's
-  lower half twice, K^-1 once, W twice; V twice more per refinement
-  round) streamed from device memory on every iteration. It is bound by
-  device-memory bandwidth. Every form uses it where its cluster form
-  does not fit.
-- ``csrc/admm_segment_cluster.cu``, the factored form on a cluster of
-  8 blocks per problem: the columns of W (and V) are split across the
-  blocks' shared memory, read from device memory once per launch, and
-  the three reductions of an iteration go through distributed shared
-  memory.
-- ``csrc/admm_segment_dense_cluster.cu``, the dense forms on a cluster
-  per problem: L^-1's lower columns interleaved across 8 blocks, or
-  K^-1's columns across 16, held in shared memory and read once per
-  launch; one n-long and one m-long exchange per iteration.
+- ``"cluster"``: ``csrc/admm_segment_cluster.cu`` (the factored form on
+  a cluster of 8 blocks per problem: the columns of W, and V, C and Y0,
+  split across the blocks' shared memory, read from device memory once
+  per launch; the three reductions of an iteration go through
+  distributed shared memory) and ``csrc/admm_segment_dense_cluster.cu``
+  (the dense forms on a cluster per problem: L^-1's lower columns
+  interleaved across 8 blocks, or K^-1's columns across 16, held in
+  shared memory and read once per launch; one n-long and one m-long
+  exchange per iteration).
+- ``"stream"``: ``csrc/admm_segment.cu``, one block per problem, the
+  operator (L^-1's lower half twice, K^-1 once, W twice; V twice more
+  per refinement round) streamed from device memory on every
+  iteration. The dense form reads C from device memory beside it and
+  keeps only O(n + m) floats in shared memory; the factored form keeps
+  C, Y0 and Ginv there too.
+- ``"global"``, the factored device-memory form, for the shapes where
+  neither of the others fits a block: the cluster kernel with W, V, C,
+  Y0 and Ginv read from device memory on every iteration
+  (``admm_segment_cluster.cu``, ``cluster_kernel<true>``), a block's
+  slices of the vectors alone in shared memory.
 
 :func:`factored_form` and :func:`dense_form` choose a kernel by shape,
-before the launch: the cluster form where its shared memory fits a
-block and the card can hold such a cluster, else the streaming form
-where that fits, else they raise.
+before the launch, in that order: the cluster form where its shared
+memory fits a block and the card can hold such a cluster, else the
+streaming form where that fits, else (factored) the device-memory form
+where it fits and its cluster can be held, else they raise. The dense
+streaming form and the factored device-memory form cover every shape
+at which the JAX package's ``_segment_plan`` takes its Pallas kernel
+without a VMEM footprint warning (tests/test_torch_cluster_route.py).
 
 Each is built by :mod:`porqua_tpu_torch.ops._build` on first use. The
 wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
 in a plain int attribute, ``launches``, and each form's own
-(``cluster_launches``, ``stream_launches``), and keeps them by batch
-width in a dict, ``widths`` (width -> launches). Each launch also
-reports its :func:`launch_cost` to the device-cost counter that
-``obs/devprof.py`` has active on the calling thread, if any.
+(``cluster_launches``, ``stream_launches``, and the factored
+wrapper's ``global_launches``), and
+keeps them by batch width in a dict, ``widths`` (width -> launches).
+Each launch also reports its :func:`launch_cost` to the device-cost
+counter that ``obs/devprof.py`` has active on the calling thread, if
+any.
 """
 
 from __future__ import annotations
@@ -133,8 +145,11 @@ _SIGNATURES = {
     },
     _CLUSTER_LIB: {
         "porqua_admm_segment_factored_cluster": _FACTORED_ARGS,
+        "porqua_admm_segment_factored_global": _FACTORED_ARGS,
         "porqua_admm_cluster_smem_bytes": [ctypes.c_int] * 4,
         "porqua_admm_cluster_max_active": [ctypes.c_int] * 4,
+        "porqua_admm_cluster_global_smem_bytes": [ctypes.c_int] * 4,
+        "porqua_admm_cluster_global_max_active": [ctypes.c_int] * 4,
     },
     _DENSE_LIB: {
         "porqua_admm_segment_dense_cluster": _DENSE_ARGS,
@@ -146,6 +161,7 @@ _SIGNATURES = {
 _FACTORED_LAUNCHER = {
     "cluster": (_CLUSTER_LIB, "porqua_admm_segment_factored_cluster"),
     "stream": (_LIB, "porqua_admm_segment_factored"),
+    "global": (_CLUSTER_LIB, "porqua_admm_segment_factored_global"),
 }
 _DENSE_LAUNCHER = {
     "cluster": (_DENSE_LIB, "porqua_admm_segment_dense_cluster"),
@@ -208,22 +224,25 @@ def _smem_refusal(form, need, limit, n, m, k):
             f"per block (n={n}, m={m}, k={k}); the card allows {limit}")
 
 
-def _choose_form(kind, need_cluster, active_clusters, need_stream, n, m, k):
-    """``"cluster"`` where ``need_cluster`` bytes of shared memory fit a
-    block of the card and ``active_clusters()`` (the card's occupancy
-    query) is above 0, else ``"stream"`` where ``need_stream`` fits;
-    raises ValueError where neither fits."""
+def _choose_form(kind, candidates, n, m, k):
+    """The first of ``candidates``, ``(form, bytes of shared memory per
+    block, occupancy query or None)`` in order of preference, whose
+    bytes fit a block of the card and whose query (the clusters the
+    card can hold at once) is above 0; raises ValueError where none
+    fits."""
     limit = _library(_LIB).porqua_max_smem_optin()
-    if need_cluster <= limit:
-        active = active_clusters()
-        if active < 0:
-            raise RuntimeError("cluster occupancy query failed: "
-                               f"{_cuda_error(-active)}")
-        if active > 0:
-            return "cluster"
-    if need_stream <= limit:
-        return "stream"
-    raise ValueError(_smem_refusal(kind, min(need_cluster, need_stream),
+    for form, need, active_clusters in candidates:
+        if need > limit:
+            continue
+        if active_clusters is not None:
+            active = active_clusters()
+            if active < 0:
+                raise RuntimeError("cluster occupancy query failed: "
+                                   f"{_cuda_error(-active)}")
+            if active == 0:
+                continue
+        return form
+    raise ValueError(_smem_refusal(kind, min(c[1] for c in candidates),
                                    limit, n, m, k))
 
 
@@ -259,26 +278,44 @@ def launch_cost(name, args, kw):
     return B * kw["n_iters"] * per_iter, nbytes
 
 
-def launch_traffic(name, args, kw):
-    """Device-memory bytes a kernel design moves per launch, from its
-    access pattern: the streaming forms (``name`` without ``_cluster``)
-    read their operator on every iteration (W twice, V twice more per
-    refinement round, L^-1's lower triangle twice, K^-1 once); the
-    cluster forms read each input once. All write each output once."""
+def launch_traffic(name, args, kw, form, level="device"):
+    """Bytes the kernel ``form`` moves per launch by a model of its
+    access pattern (not a measurement), through device memory
+    (``level="device"``) or through L2 (``"l2"``). The cluster forms
+    read each input once. The other forms read their operator on every
+    iteration (W twice, V twice more per refinement round, L^-1's lower
+    triangle twice, K^-1 once) and, where it is not in shared memory,
+    C: twice in the dense streaming form; three times in the factored
+    device-memory form, with Y0 once and Ginv once per block. Through
+    L2 all of that counts. From device memory the model counts the
+    matrices read again once where they fit together in the L2 of the
+    inputs' card (its ``L2_cache_size``), else as through L2. All write
+    each output once."""
     once = launch_cost(name, args, kw)[1]
-    if "_cluster" in name:
+    if form == "cluster":
         return once
-    op = args[0]
+    op, n_iters = args[0], kw["n_iters"]
     if name.startswith("admm_segment_factored"):
+        Y0, Ginv, C = args[2], args[3], args[6]
         r = kw["refine_steps"]
         per_iter = (2 + 4 * r) * op.numel() * 4
-        counted = op.numel() * 4 * (1 + (r > 0))     # W (and V) once
-        return once + kw["n_iters"] * per_iter - counted
-    B, n, _ = op.shape
-    op_bytes = (B * n * (n + 1) // 2 * 4 if kw["triangular"]
-                else op.numel() * 4)
-    reads = 2 if kw["triangular"] else 1
-    return once + (reads * kw["n_iters"] - 1) * op_bytes
+        mats = [op] + ([args[4]] if r else [])       # W (and V)
+        if form == "global":
+            per_iter += (3 * C.numel() + Y0.numel() + 8 * Ginv.numel()) * 4
+            mats += [Y0, Ginv, C]
+        again = sum(a.numel() for a in mats) * 4
+    else:
+        C = args[1]
+        B, n, _ = op.shape
+        op_bytes = (B * n * (n + 1) // 2 * 4 if kw["triangular"]
+                    else op.numel() * 4)
+        per_iter = ((2 if kw["triangular"] else 1) * op_bytes
+                    + 2 * C.numel() * 4)
+        again = op_bytes + C.numel() * 4
+    if (level == "device" and again
+            <= torch.cuda.get_device_properties(op.device).L2_cache_size):
+        return once
+    return once + n_iters * per_iter - again
 
 
 def _count(wrapper, form, width, inputs, kw):
@@ -286,8 +323,10 @@ def _count(wrapper, form, width, inputs, kw):
     wrapper.widths[width] = wrapper.widths.get(width, 0) + 1
     if form == "cluster":
         wrapper.cluster_launches += 1
-    else:
+    elif form == "stream":
         wrapper.stream_launches += 1
+    else:
+        wrapper.global_launches += 1
     # Local import: the obs package imports the solver, which imports
     # this module.
     from porqua_tpu_torch.obs import devprof
@@ -303,14 +342,15 @@ def dense_form(n: int, m: int, triangular: bool) -> str:
     the current card: ``"cluster"`` where one problem's operator slice
     (L^-1's packed lower columns over 8 blocks, or K^-1's columns over
     16) fits the shared memory of a block and the card can hold such a
-    cluster, else ``"stream"`` where the streaming form's state fits one
-    block. Raises ValueError where neither fits."""
-    lib = _library(_DENSE_LIB)
+    cluster, else ``"stream"`` where the streaming form's vectors fit
+    one block. Raises ValueError where neither fits."""
+    lib, stream_lib = _library(_DENSE_LIB), _library(_LIB)
     tri = int(triangular)
-    return _choose_form(
-        "dense", lib.porqua_admm_dense_cluster_smem_bytes(n, m, tri),
-        lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri),
-        _library(_LIB).porqua_admm_segment_smem_bytes(0, n, m, 0), n, m, 0)
+    return _choose_form("dense", [
+        ("cluster", lib.porqua_admm_dense_cluster_smem_bytes(n, m, tri),
+         lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri)),
+        ("stream", stream_lib.porqua_admm_segment_smem_bytes(0, n, m, 0),
+         None)], n, m, 0)
 
 
 def _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w,
@@ -374,9 +414,9 @@ admm_segment.stream_launches = 0
 def _admm_segment_form(form: str, *args, sigma: float, alpha: float,
                        n_iters: int, triangular: bool = False):
     """:func:`admm_segment` on the card through the kernel ``form``
-    names ("cluster" or "stream") instead of the one chosen by shape, so
-    that both forms can be held against the plain twin and timed on the
-    same inputs."""
+    names ("cluster" or "stream") instead of the one chosen by
+    shape, so that every form can be held against the plain twin and
+    timed on the same inputs."""
     if form not in _DENSE_LAUNCHER:
         raise ValueError(f"no dense kernel form {form!r}")
     inputs = _dense_inputs(*args, n_iters)
@@ -391,12 +431,19 @@ def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:
     on the current card: ``"cluster"`` where one problem's column slices
     fit the shared memory of a block and the card can hold such an
     8-block cluster, else ``"stream"`` where the streaming form's state
-    fits one block. Raises ValueError where neither fits."""
+    fits one block, else ``"global"`` where a block's slices of the
+    vectors alone fit and the card can hold its cluster. Raises
+    ValueError where none fits."""
     lib = _library(_CLUSTER_LIB)
-    return _choose_form(
-        "factored", lib.porqua_admm_cluster_smem_bytes(n, m, k, refine_steps),
-        lambda: lib.porqua_admm_cluster_max_active(n, m, k, refine_steps),
-        _library(_LIB).porqua_admm_segment_smem_bytes(1, n, m, k), n, m, k)
+    shape = (n, m, k, refine_steps)
+    return _choose_form("factored", [
+        ("cluster", lib.porqua_admm_cluster_smem_bytes(*shape),
+         lambda: lib.porqua_admm_cluster_max_active(*shape)),
+        ("stream", _library(_LIB).porqua_admm_segment_smem_bytes(1, n, m, k),
+         None),
+        ("global", lib.porqua_admm_cluster_global_smem_bytes(*shape),
+         lambda: lib.porqua_admm_cluster_global_max_active(*shape))],
+        n, m, k)
 
 
 def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
@@ -457,18 +504,19 @@ def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
     return _factored_on_card(None, inputs, **kw)
 
 
-admm_segment_factored.launches = 0          # both forms
+admm_segment_factored.launches = 0          # every form
 admm_segment_factored.widths = {}           # batch width -> launches
 admm_segment_factored.cluster_launches = 0
 admm_segment_factored.stream_launches = 0
+admm_segment_factored.global_launches = 0
 
 
 def _admm_segment_factored_form(form: str, *args, sigma: float, alpha: float,
                                 n_iters: int, refine_steps: int = 0):
     """:func:`admm_segment_factored` on the card through the kernel
-    ``form`` names ("cluster" or "stream") instead of the one chosen by
-    shape, so that both forms can be held against the plain twin and
-    timed on the same inputs."""
+    ``form`` names ("cluster", "stream" or "global") instead of the one
+    chosen by shape, so that every form can be held against the plain
+    twin and timed on the same inputs."""
     if form not in _FACTORED_LAUNCHER:
         raise ValueError(f"no factored kernel form {form!r}")
     inputs = _factored_inputs(*args, n_iters, refine_steps)

@@ -45,14 +45,30 @@ def cluster_bytes(n, m, k, refine):
     return 4 * floats
 
 
+def cluster_global_bytes(n, m, k, refine):
+    """admm_segment_cluster.cu's smem_floats<true>, the device-memory
+    form's shared memory per block, in bytes: a block's slices of the
+    n-vectors and of the warps' partials, the partial buffers, the
+    replicated m-vectors and receive slots, and C x0 and its Ginv
+    product in f64. No operator slice, so ``refine`` does not enter."""
+    def round4(v):
+        return (v + 3) // 4 * 4
+    ld = (-(-n // 8) + 3) // 4 * 4
+    floats = (17 * ld + 8 * ld + 4 + round4(k) + 2 * round4(max(k, 2 * m))
+              + 16 * m + 8 * m)
+    return 4 * (floats + floats % 2 + 4 * m)
+
+
 def stream_bytes(n, m, k):
-    """admm_segment.cu's smem_floats(factored=true), in bytes."""
-    return dense_stream_bytes(n, m) + 4 * (5 * n + k + n * m + m * m)
+    """admm_segment.cu's smem_floats(factored=true), in bytes: the
+    dense form's vectors, then C, the factored vectors, t, Y0, Ginv."""
+    return dense_stream_bytes(n, m) + 4 * (m * n + 5 * n + k + n * m + m * m)
 
 
 def dense_stream_bytes(n, m):
-    """admm_segment.cu's smem_floats(factored=false), in bytes."""
-    return 4 * (14 * n + 10 * m + m * n)
+    """admm_segment.cu's smem_floats(factored=false), in bytes: the
+    vectors alone (C stays in device memory)."""
+    return 4 * (14 * n + 10 * m)
 
 
 def dense_cluster_bytes(n, m, triangular):
@@ -324,6 +340,94 @@ def test_cluster_smem_size_is_the_one_the_router_reads():
                 n, m, k, refine) == cluster_bytes(n, m, k, refine)
         assert stream_lib.porqua_admm_segment_smem_bytes(
             1, n, m, k) == stream_bytes(n, m, k)
+
+
+@pytest.mark.gpu
+def test_gap_smem_sizes_are_the_ones_the_router_reads():
+    """The sizes the CPU routing tests assume for the forms that serve
+    the shapes no cluster form fits (cluster_global_bytes,
+    dense_stream_bytes) are the C functions' own, at the ragged widths,
+    the ladder's rungs and the sketch shape."""
+    need_card()
+    stream_lib = tk._library(tk._LIB)
+    cluster_lib = tk._library(tk._CLUSTER_LIB)
+    for n, m, k in [(5, 1, 24), (37, 3, 24), (500, 1, 252), (1024, 128, 252),
+                    (2048, 512, 252), (5000, 1, 256), (5888, 1, 252)]:
+        for refine in (0, 1):
+            assert cluster_lib.porqua_admm_cluster_global_smem_bytes(
+                n, m, k, refine) == cluster_global_bytes(n, m, k, refine)
+    for n, m in [(5, 1), (37, 3), (512, 512), (1024, 128), (1664, 2048)]:
+        assert stream_lib.porqua_admm_segment_smem_bytes(
+            0, n, m, 0) == dense_stream_bytes(n, m)
+
+
+def global_counts(wrapper):
+    return wrapper.launches, wrapper.global_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37])
+def test_factored_global_kernel_matches_plain_twin(n, m, refine, n_iters):
+    """The factored device-memory form (cluster_kernel<true>) at the
+    cluster tests' shapes, through the private entry, with one
+    iteration and a whole segment; each launch moves its counter by
+    one. Held by the twin rule, with the cluster form's outputs on the
+    same inputs beside the twin's (as the cluster test holds it)."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 refine=refine)
+    args = tuple(a.cuda() for a in args)
+    kw = dict(kw, n_iters=n_iters)
+    launches, held = global_counts(fn)
+    out = tk._admm_segment_factored_form("global", *args, **kw)
+    torch.cuda.synchronize()
+    assert global_counts(fn) == (launches + 1, held + 1)
+    clustered = tk._admm_segment_factored_form("cluster", *args, **kw)
+    assert_matches_twin(fn, out, args, kw, beside=clustered)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine, n, m, k", [(0, 5000, 1, 256),
+                                             (1, 2048, 8, 252)])
+def test_factored_gap_shape_goes_to_global(refine, n, m, k):
+    """The sketch-fed 5,000-asset north star (k = 256, B = 1) and the
+    ladder's 2,048 x 8 rung at a year's window with refinement: no
+    cluster slice and no streaming block fits, so the router picks the
+    device-memory form, which matches the twin."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 window=k, batch=1, refine=refine)
+    args = tuple(a.cuda() for a in args)
+    assert tk.factored_form(n, m, k, refine) == "global"
+    launches, held = global_counts(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert global_counts(fn) == (launches + 1, held + 1)
+    assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m", [(1024, 128), (512, 512)])
+@pytest.mark.parametrize("triangular", [True, False])
+def test_dense_gap_shape_matches_plain_twin(triangular, n, m):
+    """The ladder's 1,024 x 128 rung (both kinds go to the streaming
+    form, C in device memory) and 512 x 512 (L^-1 goes to it; K^-1's
+    16-block cluster fits): the routed form matches the twin."""
+    need_card()
+    fn, args, kw = dense_call(triangular, n, m, 25)
+    form = tk.dense_form(n, m, triangular)
+    assert form == ("cluster" if (n, m, triangular) == (512, 512, False)
+                    else "stream")
+    before = counts_of(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert counts_of(fn) == (before[0] + 1,
+                             before[1] + (form == "cluster"),
+                             before[2] + (form == "stream"))
+    assert_matches_twin(fn, out, args, kw)
 
 
 @pytest.mark.gpu

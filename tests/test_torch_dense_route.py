@@ -4,7 +4,8 @@
 before it launches: the cluster form (L^-1's packed lower columns over
 8 blocks, or K^-1's columns over 16) where a block's slice fits the
 card's shared memory and the card can hold such a cluster, else the
-streaming form where its block fits, else it raises. ``_library`` is
+streaming form (C read from device memory beside the operator) where
+its block of vectors fits, else it raises. ``_library`` is
 replaced by the stub of tests/test_torch_cluster_route.py, which
 answers the size, limit and occupancy queries from the C layouts
 (mirrored in tests/test_torch_cuda.py, which holds the mirror to the C
@@ -18,13 +19,14 @@ import torch
 
 from porqua_tpu_torch.ops import admm_kernel as tk
 
-from tests.test_torch_cluster_route import H100_SMEM, stub  # noqa: F401
+from tests.test_torch_cluster_route import (DENSE_FORMS,  # noqa: F401
+                                             H100_SMEM, counts_of,
+                                             one_launch_of, stub)
 from tests.test_torch_cuda import dense_cluster_bytes, dense_stream_bytes
 
 
 def counts():
-    f = tk.admm_segment
-    return f.launches, f.cluster_launches, f.stream_launches
+    return counts_of(tk.admm_segment)
 
 
 def zero_inputs(n, m, B=1):
@@ -50,6 +52,17 @@ ROUTES = [
                  id="inverse-no-resident-cluster"),
     pytest.param(1024, 1, True, 45, "stream", id="trinv-1024"),
     pytest.param(1024, 1, False, 24, "stream", id="inverse-1024"),
+    # The service's ladder rungs where C (m x n) would outgrow a block:
+    # it stays in device memory, only the vectors in shared memory.
+    pytest.param(1024, 128, True, 45, "stream", id="trinv-rung-1024x128"),
+    pytest.param(1024, 128, False, 24, "stream", id="inverse-rung-1024x128"),
+    pytest.param(512, 512, True, 45, "stream", id="trinv-rung-512x512"),
+    pytest.param(512, 512, False, 24, "cluster", id="inverse-rung-512x512"),
+    # The corner of the JAX package's dense domain: 1,664 assets (its
+    # VMEM estimate's limit) at the ladder's widest 2,048 rows, 175 KB.
+    pytest.param(1664, 2048, True, 45, "stream", id="trinv-corner-1664x2048"),
+    pytest.param(1664, 2048, False, 24, "stream",
+                 id="inverse-corner-1664x2048"),
 ]
 
 
@@ -57,9 +70,10 @@ ROUTES = [
 def test_dense_form_by_shape(stub, n, m, triangular, active, form):
     stub.active = active
     assert tk.dense_form(n, m, triangular) == form
-    fits = dense_cluster_bytes(n, m, triangular) <= H100_SMEM
-    assert (form == "cluster") == (fits and active > 0)
-    assert dense_stream_bytes(n, m) <= H100_SMEM
+    cluster = dense_cluster_bytes(n, m, triangular) <= H100_SMEM
+    stream = dense_stream_bytes(n, m) <= H100_SMEM
+    assert (form == "cluster") == (cluster and active > 0)
+    assert (form == "stream") == (stream and form != "cluster")
 
 
 @pytest.mark.parametrize("n, m, triangular, active, form", ROUTES)
@@ -75,7 +89,7 @@ def test_card_path_launches_the_chosen_dense_form(stub, n, m, triangular,
     args = stub.calls[0][1]
     assert args[24:28] == (1, n, m, KW["n_iters"])
     assert args[31] == int(triangular)
-    assert counts() == (1, int(form == "cluster"), int(form == "stream"))
+    assert counts() == one_launch_of(form, DENSE_FORMS)
     shapes = [tuple(t.shape) for t in out]
     assert shapes == [(1, n), (1, m), (1, n), (1, m), (1, n), (1, n), (1, m),
                       (1, n)]
@@ -97,14 +111,15 @@ def test_no_dense_form_fits_raises(stub, n, limit, triangular):
 
 
 @pytest.mark.parametrize("triangular", [True, False])
-@pytest.mark.parametrize("form", ["cluster", "stream"])
+@pytest.mark.parametrize("form", DENSE_FORMS)
 def test_failed_dense_launch_raises_and_counts_nothing(stub, form,
                                                        triangular):
-    """A launch the card refuses raises; the other form is not tried."""
+    """A launch the card refuses raises; no other form is tried."""
     stub.rc = 1
     stub.active = 40 if form == "cluster" else 0
+    n, m = 500, 1
     with pytest.raises(RuntimeError, match="launch failed"):
-        tk._dense_on_card(None, zero_inputs(500, 1), triangular=triangular,
+        tk._dense_on_card(None, zero_inputs(n, m), triangular=triangular,
                           **KW)
     assert [c[0] for c in stub.calls] == [form]
     assert counts() == (0, 0, 0)
@@ -121,7 +136,7 @@ def test_failed_dense_occupancy_query_raises(stub, triangular):
     assert stub.calls == [] and counts() == (0, 0, 0)
 
 
-@pytest.mark.parametrize("form", ["cluster", "stream"])
+@pytest.mark.parametrize("form", DENSE_FORMS)
 def test_named_dense_form_is_launched_as_named(stub, form):
     """The private entry launches the form it is given, whatever the
     shape would choose."""
@@ -130,9 +145,11 @@ def test_named_dense_form_is_launched_as_named(stub, form):
         tk._admm_segment_form(form, *inputs, triangular=True, **KW)
     tk._dense_on_card(form, inputs, triangular=True, **KW)
     assert [c[0] for c in stub.calls] == [form]
-    assert counts() == (1, int(form == "cluster"), int(form == "stream"))
+    assert counts() == one_launch_of(form, DENSE_FORMS)
     with pytest.raises(ValueError, match="no dense kernel form"):
         tk._admm_segment_form("factored", *inputs, **KW)
+    with pytest.raises(ValueError, match="no dense kernel form"):
+        tk._admm_segment_form("global", *inputs, **KW)
 
 
 @pytest.mark.parametrize("triangular", [True, False])
