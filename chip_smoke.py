@@ -536,13 +536,16 @@ def check_twin(out_k, ref, kw):
 
 def ragged_twin_checks():
     """Every form of every kernel family (cluster, streaming and, for
-    the factored one, device-memory), each called by name where the
-    router would pick the cluster form, at the ragged widths of the gpu tests (n = 5, 13, 37;
-    one and three rows; one iteration and a whole segment), held by the
-    twin rule. Prints per case the worst output's
-    margin (|kernel - f64| over the rule's bound; above 1 fails) under
-    the noise model and, beside it, under the card run of the twin
-    alone (the rule before the noise model)."""
+    the factored one, device-memory; for the dense one also L^-1 on 16
+    ranks and K^-1 with a streamed tail holding none or half of each
+    rank's rows in shared memory, the instances of the wide rungs),
+    each called by name where the router would pick the cluster form,
+    at the ragged widths of the gpu tests (n = 5, 13, 37, where 16
+    ranks leave some without a column; one and three rows; one
+    iteration and a whole segment), held by the twin rule. Prints per
+    case the worst output's margin (|kernel - f64| over the rule's
+    bound; above 1 fails) under the noise model and, beside it, under
+    the card run of the twin alone (the rule before the noise model)."""
     import numpy as np
     import torch
 
@@ -555,9 +558,17 @@ def ragged_twin_checks():
     families = [("triangular", None), ("inverse", None),
                 ("factored_refine0", 0), ("factored_refine0", 1),
                 ("factored_refine0", 2)]
-    forms_of = {tk.admm_segment: ("stream", "cluster"),
-                tk.admm_segment_factored: ("stream", "cluster", "global")}
-    forms = forms_of[tk.admm_segment_factored]
+    # (form, forced layout) of each family
+    forms_of = {"triangular": [("stream", {}), ("cluster", {}),
+                               ("cluster", {"ranks": 16})],
+                "inverse": [("stream", {}), ("cluster", {}),
+                            ("tail", {"rows": 0}), ("tail", {"rows": "half"})],
+                "factored": [("stream", {}), ("cluster", {}),
+                             ("global", {})]}
+    label_of = lambda form, layout: form + "".join(
+        f" {k}={v}" for k, v in layout.items())
+    forms = list(dict.fromkeys(label_of(f, lay) for v in forms_of.values()
+                               for f, lay in v))
     worst = dict.fromkeys(forms, 0.0)
     worst_card = dict.fromkeys(forms, 0.0)
     for family, refine in families:
@@ -569,8 +580,11 @@ def ragged_twin_checks():
                 for n_iters in (1, 25):
                     kw = dict(kw0, n_iters=n_iters)
                     ref = twin_reference(twin[fn], args, kw)
-                    for form in forms_of[fn]:
-                        out = named[fn](form, *args, **kw)
+                    for form, layout in forms_of[
+                            family if refine is None else "factored"]:
+                        forced = {k: n // 2 if v == "half" else v
+                                  for k, v in layout.items()}
+                        out = named[fn](form, *args, **kw, **forced)
                         torch.cuda.synchronize()
                         margins, floor = twin_margins(out, ref, kw)
                         rule, card = [], []
@@ -581,11 +595,12 @@ def ragged_twin_checks():
                                                * ref["orders"]["card"][i]
                                                + floor * scale))
                         i = int(np.argmax(rule))
+                        shown = label_of(form, layout)
                         label = (f"{family if refine is None else 'factored'}"
                                  f"{'' if refine is None else f' r{refine}'}"
-                                 f" n={n} m={m} iters={n_iters} {form}")
-                        worst[form] = max(worst[form], rule[i])
-                        worst_card[form] = max(worst_card[form], max(card))
+                                 f" n={n} m={m} iters={n_iters} {shown}")
+                        worst[shown] = max(worst[shown], rule[i])
+                        worst_card[shown] = max(worst_card[shown], max(card))
                         print(f"ragged {label}: worst {OUT_NAMES[i]} margin "
                               f"{rule[i]:.3f} (card-only rule "
                               f"{max(card):.3f})", flush=True)
@@ -597,11 +612,12 @@ def ragged_twin_checks():
               f"card run alone", flush=True)
 
 
-# The shapes where the JAX package's Pallas kernels run and no cluster
-# form fits (tests/test_torch_cluster_route.py holds the whole domain):
-# (family, n, m, window k, refine, batch). The service's ladder rungs
-# 1,024 x 128 and 512 x 512 for the dense kinds (the streaming form, C
-# in device memory); for the factored one (the device-memory form) the
+# The shapes where the JAX package's Pallas kernels run and no 8-rank
+# cluster form fits (tests/test_torch_cluster_route.py holds the whole
+# domain): (family, n, m, window k, refine, batch). The service's
+# ladder rungs 1,024 x 128 and 512 x 512 for the dense kinds (L^-1 on
+# 16 ranks, K^-1 with a streamed tail or on its 16 ranks, beside the
+# one-block form); for the factored one (the device-memory form) the
 # 2,048 x 8 rung at a year's window with and without refinement,
 # 1,024 x 128, and the sketch-fed 5,000-asset north star at B = 1.
 GAP_SHAPES = [("triangular", 1024, 128, 24, None, 3),
@@ -618,8 +634,10 @@ def gap_rows(rows):
     """The form that serves each of GAP_SHAPES, called by name, on the
     kernel call of a small tracking batch's second segment: held by the
     twin rule, timed (CUDA events, median of 20) beside its twin, its
-    bound and the bytes it moves. No run of the main path launches these
-    shapes, so the rows' launches are 0. Returns the rows' keys."""
+    bound and the bytes it moves. For the dense shapes, the one-block
+    streaming form keeps its row beside the routed form's, as the
+    yardstick. No run of the main path launches these calls, so the
+    rows' launches are 0. Returns the rows' keys."""
     import numpy as np
     import torch
 
@@ -631,22 +649,27 @@ def gap_rows(rows):
                                          window=k, batch=batch,
                                          refine=refine)
         args = tuple(a.cuda() for a in args)
+        key = ("gap",) + (family, n, m, k, refine)
         if fn is tk.admm_segment:
-            form = "stream"
-            rname = (f"admm_segment[{family}]_stream, gap {n}x{m} "
-                     f"B={batch}")
-            base = ("trinv" if kw["triangular"] else "inverse", "stream")
             chosen = tk.dense_form(n, m, kw["triangular"])
+            kind = "trinv" if kw["triangular"] else "inverse"
+            shown = ["stream"] + ([chosen] if chosen != "stream" else [])
+            for form in shown:
+                rname = (f"admm_segment[{family}]_{form}, gap {n}x{m} "
+                         f"B={batch}")
+                kernel_row(rows, key if form == "stream" else key + (form,),
+                           rname, (kind, "stream" if form == "stream"
+                                   else "cluster"), fn, args, kw, 0,
+                           form=form)
+                keys.append(key if form == "stream" else key + (form,))
         else:
-            form = "global"
+            chosen = tk.factored_form(n, m, k, refine)
             rname = (f"admm_segment_factored_global[refine={refine}], gap "
                      f"{n}x{m} k={k} B={batch}")
-            base = ("woodbury", "cluster")
-            chosen = tk.factored_form(n, m, k, refine)
+            kernel_row(rows, key, rname, ("woodbury", "cluster"), fn, args,
+                       kw, 0, form="global")
+            keys.append(key)
         print(f"gap {n}x{m}: the router picks the {chosen} form", flush=True)
-        key = ("gap",) + (family, n, m, k, refine)
-        kernel_row(rows, key, rname, base, fn, args, kw, 0, form=form)
-        keys.append(key)
     return keys
 
 
@@ -1591,6 +1614,8 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches, form=None):
     through_l2 = admm_kernel.launch_traffic(rname, args, kw, shown,
                                             level="l2")
     smem, active = SHAPE_OF[shown](dense, args, kw)
+    layout = (f"; {dense_layout(args, kw, shown)}"
+              if dense and shown in ("cluster", "tail") else "")
     rows[key] = {
         "name": rname,
         "route": "cuda",
@@ -1612,7 +1637,7 @@ def kernel_row(rows, key, rname, base, fn, args, kw, launches, form=None):
           f" (a launch's matrices read again counted once where they fit "
           f"the card's L2), {through_l2 / 1e9:.4f} GB through L2; {smem} B "
           f"of shared memory per block, {active} clusters resident at "
-          f"once; max_abs_err "
+          f"once{layout}; max_abs_err "
           f"{err:.3e} (max_rel {rel:.3e})", flush=True)
 
 
@@ -2533,6 +2558,7 @@ def secondary_phase(rows, reset_counts, device="cuda"):
                     "widths": dict(sorted(f.widths.items()))}
              for name, f in (("K1", K1), ("K2", K2))}
         c["K1"]["global"] = K1.global_launches
+        c["K2"]["tail"] = K2.tail_launches
         return c
 
     def host(sol):
@@ -2859,7 +2885,7 @@ def secondary_phase(rows, reset_counts, device="cuda"):
         northstar_checks(arm, f"{arm} pallas", res, ms)
         check(c["K1"]["global"] > 0 and c["K1"]["cluster"] == 0
               and c["K1"]["stream"] == 0
-              and not any(c["K2"][f] for f in ("cluster", "stream")),
+              and not any(c["K2"][f] for f in ("cluster", "tail", "stream")),
               f"[northstar {arm} pallas] launched the factored device-memory"
               f" form ({c['K1']['global']}) and no other form")
         # Its kernel call, from the first segment, against the twin.
@@ -2897,6 +2923,9 @@ def secondary_phase(rows, reset_counts, device="cuda"):
 # optimum is a point; with a year's window it is a face (ROADMAP §C).
 RUNG_PROBLEMS, RUNG_ASSETS, RUNG_ROWS, RUNG = 8, 1000, 101, (1024, 128)
 RUNG_WINDOW, RUNG_EPS, RUNG_BOUND, RUNG_SEED = 1260, 1e-4, 0.02, 15
+# The form each kind takes at the rung: L^-1 on a 16-block cluster,
+# K^-1 on one with a streamed tail.
+RUNG_FORM = {"trinv": "cluster", "inverse": "tail"}
 
 
 def rung_problems(dtype, device):
@@ -2932,9 +2961,11 @@ def rung_problems(dtype, device):
 def rung_solves(rows, reset_counts, counts, synced, device="cuda"):
     """Phase 8e: ``solve_qp_batch`` with ``backend="pallas"`` on
     rung_problems at the (1024, 128) rung, once with ``linsolve="trinv"``
-    and once with ``"inverse"``: each must launch the dense streaming
-    form (C in device memory) in two or more chained segments, and no
-    other form, and end in the plain path's (``backend="xla"``) status
+    and once with ``"inverse"``: each must launch the form RUNG_FORM
+    names (L^-1 on a 16-block cluster, K^-1 on one with a streamed
+    tail) in two or more chained segments, and no other form (the
+    one-block streaming form is timed beside it on the same kernel call
+    as the yardstick), and end in the plain path's (``backend="xla"``) status
     on every problem, with rows binding on every problem. Its weights
     are held by the twin rule at the iteration each problem stopped at:
     the plain path run with no tolerance for exactly that many
@@ -3013,10 +3044,12 @@ def rung_solves(rows, reset_counts, counts, synced, device="cuda"):
               f"f64 by order: " + "; ".join(
                   f"{name} {np.array2string(d, precision=3)}"
                   for name, d in dist.items()), flush=True)
-        check(c["K2"]["stream"] >= 2 and c["K2"]["cluster"] == 0
+        form = admm_kernel.dense_form(*RUNG, kind == "trinv")
+        others = [f for f in ("cluster", "tail", "stream") if f != form]
+        check(c["K2"][form] >= 2 and not any(c["K2"][f] for f in others)
               and not any(c["K1"][f] for f in ("cluster", "stream", "global")),
-              f"[rung {kind}] chained {c['K2']['stream']} launches of the "
-              f"dense streaming form (two or more) and no other form")
+              f"[rung {kind}] chained {c['K2'][form]} launches of the dense "
+              f"{form} form (two or more) and no other form")
         check(np.array_equal(status, sol32.status.cpu().numpy()),
               f"[rung {kind}] status equals the plain path's on every "
               f"problem")
@@ -3026,15 +3059,20 @@ def rung_solves(rows, reset_counts, counts, synced, device="cuda"):
               f"of the f64 run at the same iteration on every problem")
         scaled, _, carry, _, _ = prepare_batch(qp32, prm)
         fn, args, kw = segment_kernel_call(carry, scaled, prm)
-        check(fn is admm_kernel.admm_segment and admm_kernel.dense_form(
-            *RUNG, kw["triangular"]) == "stream",
-              f"[rung {kind}] its kernel call goes to the streaming form")
-        key = f"rung_{kind}"
+        check(fn is admm_kernel.admm_segment
+              and form == RUNG_FORM[kind],
+              f"[rung {kind}] its kernel call goes to the {RUNG_FORM[kind]} "
+              f"form (the router picks {form})")
         family = "triangular" if kind == "trinv" else "inverse"
-        kernel_row(rows, key, f"admm_segment[{family}]_stream, rung "
-                   f"{RUNG[0]}x{RUNG[1]} B={RUNG_PROBLEMS}", (kind, "stream"),
-                   fn, args, kw, c["K2"]["stream"])
-        added.append(key)
+        # The form the rung runs, and the one-block form beside it on the
+        # same call as the yardstick (no launch on the path).
+        for shown, launched in ((form, c["K2"][form]), ("stream", 0)):
+            key = f"rung_{kind}" if shown == form else f"rung_{kind}_stream"
+            kernel_row(rows, key, f"admm_segment[{family}]_{shown}, rung "
+                       f"{RUNG[0]}x{RUNG[1]} B={RUNG_PROBLEMS}",
+                       (kind, "cluster" if shown != "stream" else "stream"),
+                       fn, args, kw, launched, form=shown)
+            added.append(key)
     return added
 
 
@@ -5687,8 +5725,42 @@ def global_shape(dense, args, kw):
             lib.porqua_admm_cluster_global_max_active(*shape))
 
 
+def tail_shape(dense, args, kw):
+    """(shared bytes per block, resident clusters) of the dense cluster
+    with a streamed tail at this call's shape."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    lib = admm_kernel._library(admm_kernel._DENSE_LIB)
+    shape = (args[0].shape[-1], args[1].shape[-2], int(kw["triangular"]))
+    return (lib.porqua_admm_dense_tail_smem_bytes(*shape),
+            lib.porqua_admm_dense_tail_max_active(*shape))
+
+
+def dense_layout(args, kw, form):
+    """What a dense cluster form keeps where at this call's shape: its
+    rank count, and per block the operator bytes resident in shared
+    memory and (the tail) those streamed on every iteration."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    lib = admm_kernel._library(admm_kernel._DENSE_LIB)
+    n, m, tri = args[0].shape[-1], args[1].shape[-2], int(kw["triangular"])
+    if form == "tail":
+        ranks, rows = 16, lib.porqua_admm_dense_tail_rows(n, m, tri)
+    else:
+        ranks, rows = lib.porqua_admm_dense_cluster_ranks(n, m, tri), n
+    nc = -(-n // ranks)
+    ld = (nc + 3) // 4 * 4
+    if tri:
+        resident = 4 * (nc * n - ranks * nc * (nc - 1) // 2)
+    else:
+        resident = 4 * rows * ld
+    return (f"{ranks} ranks; operator per block {resident} B resident, "
+            f"{4 * (n - rows) * nc} B streamed per iteration ({rows} of "
+            f"{n} rows resident)")
+
+
 SHAPE_OF = {"cluster": cluster_shape, "stream": stream_shape,
-            "global": global_shape}
+            "global": global_shape, "tail": tail_shape}
 
 
 def form_of(dense, args, kw):
@@ -5873,6 +5945,7 @@ def main():
             f.launches = f.cluster_launches = f.stream_launches = 0
             f.widths = {}
         admm_kernel.admm_segment_factored.global_launches = 0
+        admm_kernel.admm_segment.tail_launches = 0
 
     def timed(prm):
         torch.cuda.synchronize()

@@ -50,10 +50,12 @@ def save_solution(path: str, sol: QPSolution) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def load_solution(path: str, device) -> QPSolution:
-    """Load :func:`save_solution`'s file onto ``device``."""
+def load_solution(path: str, *, device=None) -> QPSolution:
+    """Load :func:`save_solution`'s file onto ``device`` (default: the
+    card)."""
+    dev = resolve_device(device)
     with np.load(path) as data:
-        return QPSolution(**{f: torch.as_tensor(data[f]).to(device)
+        return QPSolution(**{f: torch.as_tensor(data[f]).to(dev)
                              for f in _SOLUTION_FIELDS if f in data})
 
 
@@ -172,14 +174,16 @@ class CheckpointManager:
         with np.load(self.carry_path(idx)) as data:
             return {k: np.array(data[k]) for k in data.files}
 
-    def load_all(self, device, upto: Optional[int] = None
+    def load_all(self, upto: Optional[int] = None, *, device=None
                  ) -> Optional[QPSolution]:
+        """The first ``upto`` chunks' solutions (default: every completed
+        chunk), concatenated on ``device`` (default: the card)."""
         upto = self.completed_chunks() if upto is None else upto
         if upto == 0:
             return None
         return _concat_solutions(
-            [load_solution(self.chunk_path(i), device) for i in range(upto)]
-        )
+            [load_solution(self.chunk_path(i), device=device)
+             for i in range(upto)])
 
 
 def run_batch_checkpointed(bs,
@@ -212,7 +216,7 @@ def run_batch_checkpointed(bs,
     start = mgr.completed_chunks()
     sols: List[QPSolution] = []
     if start:
-        sols.append(mgr.load_all(dev, start))
+        sols.append(mgr.load_all(start, device=dev))
 
     warm_x = warm_y = None
     if sols:
@@ -302,7 +306,7 @@ def solve_scan_l1_checkpointed(qp,
     start = mgr.completed_chunks(require_carry=True)
     sols: List[QPSolution] = []
     if start:
-        sols.append(mgr.load_all(dev, start))
+        sols.append(mgr.load_all(start, device=dev))
         boundary = mgr.load_carry(start - 1)
         carry_w, carry_x, carry_y = (
             torch.as_tensor(boundary[k], dtype=dtype).to(dev).reshape(1, -1)

@@ -1,6 +1,7 @@
 // Fused dense ADMM segment for Hopper (sm_90a), float32: one problem
 // per thread-block cluster, with the problem's operator split by
-// columns across the blocks' shared memory.
+// columns across the blocks' shared memory, whole or with a tail
+// streamed from device memory.
 //
 // Replaces porqua_tpu/ops/admm_kernel.py:146 (_segment_kernel, reached
 // through admm_segment, :251, and its pallas_call, :317). Each launch
@@ -21,15 +22,17 @@
 // device-memory bytes).
 //
 // This design reads the operator from device memory once per launch.
-// - Triangular, 8-block cluster: rank r owns the columns j = r (mod 8),
-//   so the triangle's work is balanced across ranks, and keeps their
+// - Triangular, 8-block cluster where a rank's slice fits, else a
+//   16-block (non-portable) one (tri_ranks, the one choice; 1,024 x 128
+//   needs 16): rank r owns the columns j = r (mod R), so the
+//   triangle's work is balanced across ranks at any R, and keeps their
 //   lower parts L^-1[j:, j] packed column-major in shared memory (63.5
-//   KB at n = 500). An iteration forms the rank's part of t = L^-1 rhs
-//   (a thread per pair of rows i and n-1-i, the vector a broadcast),
-//   all-reduces it over the cluster with st.async pushes on mbarriers
-//   and no cluster barrier (a reduce-scatter to the rows' owners, sums
-//   in rank order, an all-gather, so every block holds bitwise the same
-//   t), then xt[j] = sum_{i >= j} L^-1[i, j] t[i]
+//   KB at n = 500, 8 ranks). An iteration forms the rank's part of
+//   t = L^-1 rhs (a thread per pair of rows i and n-1-i, the vector a
+//   broadcast), all-reduces it over the cluster with st.async pushes
+//   on mbarriers and no cluster barrier (a reduce-scatter to the rows'
+//   owners, sums in rank order, an all-gather, so every block holds
+//   bitwise the same t), then xt[j] = sum_{i >= j} L^-1[i, j] t[i]
 //   for its own columns (a warp walks a group of consecutive columns and
 //   its mirror group over contiguous memory).
 // - Explicit inverse, 16-block (non-portable) cluster: rank r owns
@@ -38,7 +41,22 @@
 //   rank's receive array with st.async, counted in bytes on the
 //   receiver's mbarrier (double-buffered; no cluster barrier), then
 //   forms its columns of rhs @ K^-1 from shared memory.
-// - Both: C xt (m long) is reduced by st.async pushes on mbarriers, as
+// - Explicit inverse with a streamed tail, where a 16th of K^-1 does
+//   not fit a block (1,024 x 128: 256 KB of 227): the first `rows`
+//   rows of the slice stay in shared memory, read once, and the others
+//   are read again on every iteration, from L2 (the batch's tails fit
+//   it), through a ring of kStages cp.async copies per thread. A
+//   thread copies exactly the float4s it multiplies, so the ring needs
+//   no barrier, only cp.async.wait_group; the stream runs on across
+//   iterations (the operator does not change), so the copies of an
+//   iteration's first row-steps are in flight during the exchanges and
+//   the resident rows' FMAs before them. tail_rows sizes `rows` from
+//   the card's opt-in shared memory, the one definition. (L^-1 has no
+//   tail form: its packed columns cannot be read coalesced from the
+//   row-major operator, and no shape the JAX package's plan sends to
+//   its kernel needs one: the L^-1 shapes no cluster holds are those
+//   whose C slice and receive buffers alone fill a block.)
+// - All: C xt (m long) is reduced by st.async pushes on mbarriers, as
 //   in the factored cluster kernel (cluster_common.cuh); the m-vectors
 //   are replicated and every block updates them itself in the same
 //   order, in f32 as the TPU kernel does; everything else is
@@ -57,10 +75,11 @@
 // column through distributed shared memory.
 //
 // The shared-memory size has one definition, Layout::total, which the
-// launcher uses and the Python wrapper asks for
-// (porqua_admm_dense_cluster_smem_bytes) before it chooses this form
-// over the streaming one. Plain C interface for ctypes: every launcher
-// returns cudaGetLastError().
+// launchers use and the Python wrapper asks for
+// (porqua_admm_dense_cluster_smem_bytes, porqua_admm_dense_tail_smem_bytes,
+// for the rank count and resident rows the launchers take) before it
+// chooses a form. Plain C interface for ctypes: every launcher returns
+// cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,9 +99,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-// Blocks per cluster of each form.
+// Blocks per cluster of each form: the triangle takes the wide count
+// only where a rank's slice does not fit at the narrow one.
 constexpr int kTriRanks = 8;
+constexpr int kWideRanks = 16;
 constexpr int kInvRanks = 16;
+// Row-steps of the streamed tail in flight per thread, a float4 each.
+constexpr int kStages = 8;
 // Consecutive columns of L^-1 that a warp's lanes walk together.
 constexpr int kGroup = 4;
 // The set-up moves L^-1's lower triangle in tiles of kTile x kTile,
@@ -98,6 +121,7 @@ struct Inputs {
   const float *x, *z, *w, *y, *mu;
   float *x_out, *z_out, *w_out, *y_out, *mu_out, *dx_out, *dy_out, *dmu_out;
   int n, m, n_iters;
+  int rows;  // rows of the K^-1 slice held in shared memory (tail form)
   float sigma, alpha, one_m_alpha;
 };
 
@@ -108,29 +132,34 @@ __host__ __device__ inline T round4(T v) {
 
 // Shared-memory layout of one block, in floats, with offsets of type T
 // (int on the card, size_t for the size the host asks for). The
-// operator slice comes first; every array that is read as float4 or
-// holds mbarriers starts at a multiple of 4.
+// operator slice comes first (with a streamed tail: its first `rows`
+// rows, then the ring of copies in flight); every array that is read
+// as float4 or holds mbarriers starts at a multiple of 4.
 enum SliceVec {  // n-vectors, this block's columns
   kX, kW, kMu, kQ, kLb, kUb, kRhoB, kL1w, kL1c, kRhs, kXt, kXPrev, kMuPrev,
   kVecSlice
 };
 enum MVec { kZ, kY, kL, kU, kRho, kYPrev, kVecM };  // m-vectors
 
-template <bool kTri, int kRanks, class T = int>
+template <bool kTri, int kRanks, bool kTail = false, class T = int>
 struct Layout {
   T n, m;
+  T rows;   // rows of the K^-1 slice in shared memory (n but in the tail)
   T nc;     // columns of the rank with the most
   T ld;     // nc rounded up to 4: row stride of the column-slice arrays
   T n4;     // n rounded up to 4
-  T vec, c, ring, work, bars, recv, zt, mvec, total;  // offsets, size
+  T stages, vec, c, ring, work, bars, recv, zt, mvec, total;  // offsets
 
-  __host__ __device__ Layout(int n_, int m_) : n(n_), m(m_) {
+  __host__ __device__ Layout(int n_, int m_, int rows_)
+      : n(n_), m(m_), rows(kTail ? rows_ : n_) {
     nc = (n + kRanks - 1) / kRanks;
     ld = round4(nc);
     n4 = round4(n);
     // Triangular: rank 0's packed columns j = kRanks c, c < nc, of
-    // n - j entries each. Dense: n rows of ld.
-    vec = kTri ? round4(nc * n - kRanks * nc * (nc - 1) / 2) : n * ld;
+    // n - j entries each. Dense: rows rows of ld, then (tail) the ring:
+    // kStages float4s per thread.
+    stages = kTri ? round4(nc * n - kRanks * nc * (nc - 1) / 2) : rows * ld;
+    vec = stages + (kTail ? kStages * kThreads * 4 : 0);
     c = vec + kVecSlice * ld;  // C[:, cols], m rows of ld
     ring = c + m * ld;         // two n-long exchange buffers (rhs or t)
     work = ring + 2 * n4;      // the reduce-scatter slots of t (two
@@ -147,6 +176,9 @@ struct Layout {
     total = mvec + kVecM * m;
   }
   __device__ float* op() const { return smem; }
+  __device__ float4* Stage(int s) const {
+    return reinterpret_cast<float4*>(smem + stages) + s * kThreads;
+  }
   __device__ float* v(int i) const { return smem + vec + i * ld; }
   __device__ float* C() const { return smem + c; }
   __device__ float* Ring(int p) const { return smem + ring + p * n4; }
@@ -168,19 +200,23 @@ __device__ __forceinline__ int lanes_per_row(int q4) {
 // Column c of this rank is j = first + stride * c: interleaved
 // (first = rank, stride = kRanks) for the triangle, consecutive
 // (stride 1) for K^-1.
-template <bool kTri, int kRanks>
+template <bool kTri, int kRanks, bool kTail = false>
 struct Block {
   cg::cluster_group cluster;
-  Layout<kTri, kRanks> L;
+  Layout<kTri, kRanks, kTail> L;
   int rank, first, stride, cols;
   int flip;        // which ring buffer the next n-long exchange uses
   int mflip;       // which receive buffer the next m-reduction uses
   unsigned phase;  // bit i: the phase parity mbarrier i waits for
   // mbarriers: 0-1 C xt; 2-3 the rhs all-gather (K^-1) or the
   // reduce-scatter of t (L^-1); 4-5 the all-gather of t
+  // The streamed tail (kTail): this thread's next row-step to copy and
+  // the ring slot it goes to, and how many row-steps a pass has.
+  int tail_next, tail_slot, tail_steps;
 
-  __device__ Block(int n, int m)
-      : cluster(cg::this_cluster()), L(n, m), flip(0), mflip(0), phase(0u) {
+  __device__ Block(int n, int m, int rows)
+      : cluster(cg::this_cluster()), L(n, m, rows), flip(0), mflip(0),
+        phase(0u), tail_next(0), tail_slot(0), tail_steps(0) {
     rank = (int)cluster.block_rank();
     if (kTri) {
       first = rank;
@@ -360,8 +396,94 @@ struct Block {
     __syncthreads();
   }
 
-  // xt = rhs @ K^-1 on this rank's columns.
-  __device__ __forceinline__ void solve_inverse(float sig) {
+  // The product's lanes (solve_inverse): a lane takes a float4 of
+  // columns, quad cq, of rows r0 + step k.
+  struct Lanes {
+    int q4, g, per_warp, step, warp, sub, cq, r0;
+    __device__ Lanes(int ld) {
+      q4 = ld >> 2;
+      g = lanes_per_row(q4);
+      per_warp = 32 / g;
+      step = kWarps * per_warp;
+      warp = threadIdx.x >> 5;
+      const int lane = threadIdx.x & 31;
+      sub = lane / g;
+      cq = lane % g;
+      r0 = warp * per_warp + sub;
+    }
+  };
+
+  // Copies this thread's float4 of tail row-step k (rows rows + k step
+  // + r0, quad cq of the slice) into ring slot s, as one cp.async
+  // group (empty where the thread has no such entry). 16 bytes at once
+  // where the source is aligned and the quad holds four columns;
+  // otherwise 4 bytes a column, the columns past the slice zero-filled.
+  __device__ __forceinline__ void tail_copy(const float* op, const Lanes& ln,
+                                            int k, int s) const {
+    const int n = L.n, i = L.rows + k * ln.step + ln.r0, c0 = 4 * ln.cq;
+    if (i < n && c0 < cols) {
+      float* dst = reinterpret_cast<float*>(L.Stage(s) + threadIdx.x);
+      const float* src = op + (size_t)i * n + first + c0;
+      if ((n & 3) == 0 && (first & 3) == 0 && c0 + 4 <= cols) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         shared_addr(dst)),
+                     "l"(src)
+                     : "memory");
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = c0 + e < cols;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                           shared_addr(dst + e)),
+                       "l"(in ? src + e : src), "r"(in ? 4 : 0)
+                       : "memory");
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // Starts the tail's stream: the first kStages row-steps in flight.
+  __device__ __forceinline__ void tail_start(const float* op) {
+    const Lanes ln(L.ld);
+    tail_steps = (L.n - L.rows + ln.step - 1) / ln.step;
+    if (tail_steps == 0) return;
+    for (int s = 0; s < kStages; ++s) {
+      tail_copy(op, ln, tail_next, s);
+      tail_next = tail_next + 1 == tail_steps ? 0 : tail_next + 1;
+    }
+  }
+
+  // acc += the tail rows' part of rhs @ K^-1 for this lane's quad,
+  // row-step by row-step as the copies land; each slot, once read, is
+  // refilled with the row-step kStages further on, across the end of
+  // the pass into the next iteration's.
+  __device__ __forceinline__ void tail_product(const float* op,
+                                               const Lanes& ln,
+                                               const float* full,
+                                               float4& acc) {
+    const int n = L.n;
+    for (int k = 0; k < tail_steps; ++k) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1)
+                   : "memory");
+      const int i = L.rows + k * ln.step + ln.r0;
+      if (i < n && 4 * ln.cq < cols) {
+        const float ri = full[i];
+        const float4 v = L.Stage(tail_slot)[threadIdx.x];
+        acc.x = fmaf(ri, v.x, acc.x);
+        acc.y = fmaf(ri, v.y, acc.y);
+        acc.z = fmaf(ri, v.z, acc.z);
+        acc.w = fmaf(ri, v.w, acc.w);
+      }
+      tail_copy(op, ln, tail_next, tail_slot);
+      tail_next = tail_next + 1 == tail_steps ? 0 : tail_next + 1;
+      tail_slot = tail_slot + 1 == kStages ? 0 : tail_slot + 1;
+    }
+  }
+
+  // xt = rhs @ K^-1 on this rank's columns; op is the problem's K^-1 in
+  // device memory (read only for a streamed tail).
+  __device__ __forceinline__ void solve_inverse(float sig, const float* op) {
     const int n = L.n, ld = L.ld;
     const int p = flip;
     flip ^= 1;
@@ -370,31 +492,47 @@ struct Block {
     // mbarrier 2 + p. A buffer is written again two exchanges later,
     // after the writer has every block's part of C xt of the iteration
     // in between, which each block sends only after reading the buffer.
+    // With a tail (wide C) each column's rhs is formed once, not once
+    // per receiver.
     float* full = L.Ring(p);
     const unsigned bar = shared_addr(L.Bar(2 + p));
     if (threadIdx.x == 0) expect_bytes(bar, n * 4);
-    for (int idx = threadIdx.x; idx < cols * kRanks; idx += kThreads) {
-      const int q = idx / cols, c = idx - q * cols;
-      store_remote(remote_addr(shared_addr(full + first + c), q),
-                   rhs_at(c, sig), remote_addr(bar, q));
+    if constexpr (kTail) {
+      float* rhs = L.v(kRhs);
+      for (int c = threadIdx.x; c < cols; c += kThreads)
+        rhs[c] = rhs_at(c, sig);
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < cols * kRanks; idx += kThreads) {
+        const int q = idx / cols, c = idx - q * cols;
+        store_remote(remote_addr(shared_addr(full + first + c), q), rhs[c],
+                     remote_addr(bar, q));
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < cols * kRanks; idx += kThreads) {
+        const int q = idx / cols, c = idx - q * cols;
+        store_remote(remote_addr(shared_addr(full + first + c), q),
+                     rhs_at(c, sig), remote_addr(bar, q));
+      }
     }
     wait_phase(bar, (phase >> (2 + p)) & 1u);
     phase ^= 1u << (2 + p);
     // rhs @ K^-1[:, cols]: a lane takes a float4 of columns; the rows
     // are split across the lane groups of a warp (summed by shuffles)
-    // and across the warps (summed in warp order through parts).
+    // and across the warps (summed in warp order through parts). The
+    // tail's rows follow the resident ones into the same sums (its
+    // instance has ld <= 128, so one pass of q0 covers every quad).
     const float* K = L.op();
     float* parts = L.Work();
-    const int q4 = ld >> 2, g = lanes_per_row(q4), per_warp = 32 / g;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int sub = lane / g, cq = lane % g;
-    const int step = kWarps * per_warp;
+    const Lanes ln(ld);
+    const int q4 = ln.q4, g = ln.g, per_warp = ln.per_warp;
+    const int warp = ln.warp, sub = ln.sub, cq = ln.cq, step = ln.step;
+    const int rows = kTail ? L.rows : n;
     for (int q0 = 0; q0 < q4; q0 += g) {
       const int q = q0 + cq;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q < q4) {
 #pragma unroll 4
-        for (int i = warp * per_warp + sub; i < n; i += step) {
+        for (int i = warp * per_warp + sub; i < rows; i += step) {
           const float ri = full[i];
           const float4 k = reinterpret_cast<const float4*>(K + i * ld)[q];
           acc.x = fmaf(ri, k.x, acc.x);
@@ -403,6 +541,7 @@ struct Block {
           acc.w = fmaf(ri, k.w, acc.w);
         }
       }
+      if constexpr (kTail) tail_product(op, ln, full, acc);
       for (int o = g; o < 32; o <<= 1) {
         acc.x += __shfl_xor_sync(kFull, acc.x, o);
         acc.y += __shfl_xor_sync(kFull, acc.y, o);
@@ -425,7 +564,8 @@ struct Block {
 
   // One OSQP iteration (the counterpart of one_iteration and of
   // _make_iteration): rhs -> solve -> relaxed z-clip, prox, duals.
-  __device__ __forceinline__ void iteration(const Inputs& a) {
+  __device__ __forceinline__ void iteration(const Inputs& a,
+                                            const float* op) {
     const int m = L.m;
     const float al = a.alpha, one_m_al = a.one_m_alpha, sig = a.sigma;
     if constexpr (kTri) {
@@ -434,7 +574,7 @@ struct Block {
       __syncthreads();
       solve_triangular();
     } else {
-      solve_inverse(sig);
+      solve_inverse(sig, op);
     }
     float *z = L.mv(kZ), *y = L.mv(kY);
     const float *l = L.mv(kL), *u = L.mv(kU), *rho = L.mv(kRho);
@@ -509,14 +649,15 @@ struct Block {
         __syncthreads();
       }
     } else {
-      // Row i of K^-1[:, cols] into row i of the slice, consecutive
-      // threads on consecutive addresses; 16 bytes at a time where rows
-      // and slice are 16-byte aligned.
+      // Row i of K^-1[:, cols] into row i of the slice (the first
+      // `rows` rows with a streamed tail), consecutive threads on
+      // consecutive addresses; 16 bytes at a time where rows and slice
+      // are 16-byte aligned.
       float* K = L.op();
-      const int ld = L.ld;
+      const int ld = L.ld, rows = kTail ? L.rows : n;
       if ((n & 3) == 0 && (first & 3) == 0 && (cols & 3) == 0) {
         const int q4 = cols >> 2;
-        for (int e = threadIdx.x; e < n * q4; e += kThreads) {
+        for (int e = threadIdx.x; e < rows * q4; e += kThreads) {
           const int i = e / q4, q = e - i * q4;
           asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                            shared_addr(K + i * ld + 4 * q)),
@@ -524,7 +665,7 @@ struct Block {
                        : "memory");
         }
       } else {
-        for (int e = threadIdx.x; e < n * cols; e += kThreads) {
+        for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
           const int i = e / cols, c = e - i * cols;
           asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                            shared_addr(K + i * ld + c)),
@@ -536,14 +677,15 @@ struct Block {
   }
 };
 
-template <bool kTri, int kRanks>
+template <bool kTri, int kRanks, bool kTail>
 __global__ void __launch_bounds__(kThreads, 3)
     dense_cluster_kernel(Inputs a) {
   const int n = a.n, m = a.m;
-  Block<kTri, kRanks> blk(n, m);
-  const Layout<kTri, kRanks>& L = blk.L;
+  Block<kTri, kRanks, kTail> blk(n, m, a.rows);
+  const Layout<kTri, kRanks, kTail>& L = blk.L;
   const size_t b = blockIdx.x / kRanks;
   const int cols = blk.cols, first = blk.first, stride = blk.stride;
+  const float* op = a.op + b * n * n;
 
   // Zero first: the float4 product reads the K^-1 slice past its last
   // column, and those entries are best 0.
@@ -556,7 +698,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   // Every block of the cluster runs and is zeroed before any stores
   // into another.
   blk.cluster.sync();
-  blk.load_operator(a.op + b * n * n);
+  blk.load_operator(op);
   const float* C = a.C + b * m * n + first;
   for (int r = 0; r < m; ++r) copy(L.C() + r * L.ld, C + r * n, cols, stride);
   const size_t o = b * n + first;
@@ -575,6 +717,9 @@ __global__ void __launch_bounds__(kThreads, 3)
   copy(L.mv(kU), a.u + b * m, m);
   copy(L.mv(kRho), a.rho + b * m, m);
   wait_copies();
+  // The tail's first copies go out now, to land during the set-up's
+  // last barrier and the first iteration's exchange.
+  if constexpr (kTail) blk.tail_start(op);
   // The operator's stores through distributed shared memory are
   // visible, and every block's mbarriers initialised, before the first
   // exchange.
@@ -592,7 +737,7 @@ __global__ void __launch_bounds__(kThreads, 3)
       for (int r = threadIdx.x; r < m; r += kThreads) yprev[r] = y[r];
       __syncthreads();
     }
-    blk.iteration(a);
+    blk.iteration(a, op);
   }
 
   const float* w = L.v(kW);
@@ -612,23 +757,60 @@ __global__ void __launch_bounds__(kThreads, 3)
       a.dy_out[b * m + r] = y[r] - yprev[r];
     }
   }
+  // The tail's copies for an iteration that will not run land before
+  // the block's shared memory goes.
+  if constexpr (kTail) asm volatile("cp.async.wait_all;\n" ::: "memory");
   // No block may exit while another can still reach its shared memory.
   blk.cluster.sync();
 }
 
-template <bool kTri, int kRanks>
-size_t smem_bytes(int n, int m) {
-  return Layout<kTri, kRanks, size_t>(n, m).total * sizeof(float);
+template <bool kTri, int kRanks, bool kTail>
+size_t smem_bytes(int n, int m, int rows) {
+  return Layout<kTri, kRanks, kTail, size_t>(n, m, rows).total *
+         sizeof(float);
+}
+
+// The card's shared memory per block with opt-in, for the current
+// device; 0 where the query fails.
+int smem_optin() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return bytes;
+}
+
+// The triangular form's rank count: 8 where a rank's packed columns fit
+// the card's block, else 16. The one choice: the size, occupancy and
+// launch functions below all take it from here.
+int tri_ranks(int n, int m) {
+  return smem_bytes<true, kTriRanks, false>(n, m, n) <= (size_t)smem_optin()
+             ? kTriRanks
+             : kWideRanks;
+}
+
+// Rows of the K^-1 slice the tail form keeps in shared memory: as many
+// as fit beside everything else in the card's block, at most n; -1
+// where not even the rest fits, or where a rank's slice is wider than
+// one pass of a warp's float4 lanes (ld > 128, n > 2,048) covers.
+int tail_rows(int n, int m) {
+  const Layout<false, kInvRanks, true, size_t> none(n, m, 0);
+  const size_t base = none.total * sizeof(float);
+  const size_t limit = (size_t)smem_optin();
+  if (none.ld > 128 || base > limit) return -1;
+  const size_t rows = (limit - base) / (none.ld * sizeof(float));
+  return rows < (size_t)n ? (int)rows : n;
 }
 
 // Sets the kernel's shared-memory size (and, above 8 blocks, allows the
 // non-portable cluster size) and fills cfg; attr must outlive cfg.
-template <bool kTri, int kRanks>
-cudaError_t configure(int n, int m, int batch, cudaStream_t stream,
+template <bool kTri, int kRanks, bool kTail>
+cudaError_t configure(int n, int m, int rows, int batch, cudaStream_t stream,
                       cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  const size_t bytes = smem_bytes<kTri, kRanks>(n, m);
+  const size_t bytes = smem_bytes<kTri, kRanks, kTail>(n, m, rows);
   if (bytes > (size_t)INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = dense_cluster_kernel<kTri, kRanks>;
+  auto kernel = dense_cluster_kernel<kTri, kRanks, kTail>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -651,59 +833,46 @@ cudaError_t configure(int n, int m, int batch, cudaStream_t stream,
   return cudaSuccess;
 }
 
-template <bool kTri, int kRanks>
-int max_active(int n, int m) {
+template <bool kTri, int kRanks, bool kTail>
+int max_active(int n, int m, int rows) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure<kTri, kRanks>(n, m, 1, 0, &attr, &cfg);
+  cudaError_t err =
+      configure<kTri, kRanks, kTail>(n, m, rows, 1, 0, &attr, &cfg);
   if (err != cudaSuccess) return -(int)err;
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &count, (const void*)dense_cluster_kernel<kTri, kRanks>, &cfg);
+      &count, (const void*)dense_cluster_kernel<kTri, kRanks, kTail>, &cfg);
   if (err != cudaSuccess) return -(int)err;
   return count;
 }
 
-template <bool kTri, int kRanks>
-int launch(const Inputs& a, int batch, cudaStream_t stream) {
+template <bool kTri, int kRanks, bool kTail>
+int launch(Inputs a, int batch, cudaStream_t stream) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure<kTri, kRanks>(a.n, a.m, batch, stream, &attr,
-                                            &cfg);
+  if (!kTail) a.rows = a.n;
+  cudaError_t err = configure<kTri, kRanks, kTail>(a.n, a.m, a.rows, batch,
+                                                   stream, &attr, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
-    err = cudaLaunchKernelEx(&cfg, dense_cluster_kernel<kTri, kRanks>, a);
+    err = cudaLaunchKernelEx(&cfg, dense_cluster_kernel<kTri, kRanks, kTail>,
+                             a);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-int porqua_admm_dense_cluster_smem_bytes(int n, int m, int triangular) {
-  const size_t bytes = triangular ? smem_bytes<true, kTriRanks>(n, m)
-                                  : smem_bytes<false, kInvRanks>(n, m);
-  return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
-}
-
-// How many clusters of this shape the card can hold at once; a negative
-// value is a CUDA error code, negated.
-int porqua_admm_dense_cluster_max_active(int n, int m, int triangular) {
-  return triangular ? max_active<true, kTriRanks>(n, m)
-                    : max_active<false, kInvRanks>(n, m);
-}
-
-int porqua_admm_segment_dense_cluster(
-    const float* op, const float* C, const float* q, const float* l,
-    const float* u, const float* lb, const float* ub, const float* rho,
-    const float* rho_b, const float* l1w, const float* l1c, const float* x,
-    const float* z, const float* w, const float* y, const float* mu,
-    float* x_out, float* z_out, float* w_out, float* y_out, float* mu_out,
-    float* dx_out, float* dy_out, float* dmu_out, int batch, int n, int m,
-    int n_iters, float sigma, float alpha, float one_m_alpha, int triangular,
-    void* stream) {
+// Fills the launch arguments every form shares.
+Inputs inputs_of(const float* op, const float* C, const float* q,
+                 const float* l, const float* u, const float* lb,
+                 const float* ub, const float* rho, const float* rho_b,
+                 const float* l1w, const float* l1c, const float* x,
+                 const float* z, const float* w, const float* y,
+                 const float* mu, float* x_out, float* z_out, float* w_out,
+                 float* y_out, float* mu_out, float* dx_out, float* dy_out,
+                 float* dmu_out, int n, int m, int n_iters, float sigma,
+                 float alpha, float one_m_alpha) {
   Inputs a{};
   a.op = op;
   a.C = C; a.q = q; a.l = l; a.u = u; a.lb = lb; a.ub = ub;
@@ -711,10 +880,105 @@ int porqua_admm_segment_dense_cluster(
   a.x = x; a.z = z; a.w = w; a.y = y; a.mu = mu;
   a.x_out = x_out; a.z_out = z_out; a.w_out = w_out; a.y_out = y_out;
   a.mu_out = mu_out; a.dx_out = dx_out; a.dy_out = dy_out; a.dmu_out = dmu_out;
-  a.n = n; a.m = m; a.n_iters = n_iters;
+  a.n = n; a.m = m; a.n_iters = n_iters; a.rows = n;
   a.sigma = sigma; a.alpha = alpha; a.one_m_alpha = one_m_alpha;
-  return triangular ? launch<true, kTriRanks>(a, batch, (cudaStream_t)stream)
-                    : launch<false, kInvRanks>(a, batch, (cudaStream_t)stream);
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The rank count of the resident form at this shape: 8 or 16 blocks per
+// cluster.
+int porqua_admm_dense_cluster_ranks(int n, int m, int triangular) {
+  return triangular ? tri_ranks(n, m) : kInvRanks;
+}
+
+int porqua_admm_dense_cluster_smem_bytes(int n, int m, int triangular) {
+  const size_t bytes =
+      !triangular ? smem_bytes<false, kInvRanks, false>(n, m, n)
+      : tri_ranks(n, m) == kTriRanks
+          ? smem_bytes<true, kTriRanks, false>(n, m, n)
+          : smem_bytes<true, kWideRanks, false>(n, m, n);
+  return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
+}
+
+// How many clusters of this shape the card can hold at once; a negative
+// value is a CUDA error code, negated.
+int porqua_admm_dense_cluster_max_active(int n, int m, int triangular) {
+  if (!triangular) return max_active<false, kInvRanks, false>(n, m, n);
+  return tri_ranks(n, m) == kTriRanks
+             ? max_active<true, kTriRanks, false>(n, m, n)
+             : max_active<true, kWideRanks, false>(n, m, n);
+}
+
+// The resident form. ranks: -1 for the count the shape takes
+// (porqua_admm_dense_cluster_ranks), or 8 or 16 (the triangle only) to
+// launch that count whatever the shape takes, where it fits.
+int porqua_admm_segment_dense_cluster(
+    const float* op, const float* C, const float* q, const float* l,
+    const float* u, const float* lb, const float* ub, const float* rho,
+    const float* rho_b, const float* l1w, const float* l1c, const float* x,
+    const float* z, const float* w, const float* y, const float* mu,
+    float* x_out, float* z_out, float* w_out, float* y_out, float* mu_out,
+    float* dx_out, float* dy_out, float* dmu_out, int batch, int n, int m,
+    int n_iters, int ranks, float sigma, float alpha, float one_m_alpha,
+    int triangular, void* stream) {
+  const Inputs a = inputs_of(op, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
+                             x, z, w, y, mu, x_out, z_out, w_out, y_out,
+                             mu_out, dx_out, dy_out, dmu_out, n, m, n_iters,
+                             sigma, alpha, one_m_alpha);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!triangular)
+    return ranks == -1 || ranks == kInvRanks
+               ? launch<false, kInvRanks, false>(a, batch, s)
+               : (int)cudaErrorInvalidValue;
+  if (ranks == -1) ranks = tri_ranks(n, m);
+  if (ranks == kTriRanks) return launch<true, kTriRanks, false>(a, batch, s);
+  if (ranks == kWideRanks) return launch<true, kWideRanks, false>(a, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The form with a streamed tail holds K^-1 only; for L^-1 the size is
+// INT_MAX (no card fits it) and the launch is refused.
+int porqua_admm_dense_tail_rows(int n, int m, int triangular) {
+  return triangular ? -1 : tail_rows(n, m);
+}
+
+int porqua_admm_dense_tail_smem_bytes(int n, int m, int triangular) {
+  const int rows = porqua_admm_dense_tail_rows(n, m, triangular);
+  if (rows < 0) return INT_MAX;
+  const size_t bytes = smem_bytes<false, kInvRanks, true>(n, m, rows);
+  return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
+}
+
+int porqua_admm_dense_tail_max_active(int n, int m, int triangular) {
+  const int rows = porqua_admm_dense_tail_rows(n, m, triangular);
+  if (rows < 0) return 0;
+  return max_active<false, kInvRanks, true>(n, m, rows);
+}
+
+// The tail form. rows: -1 for the rows the shape takes
+// (porqua_admm_dense_tail_rows), or 0..n to keep that many resident and
+// stream the rest, where it fits.
+int porqua_admm_segment_dense_tail(
+    const float* op, const float* C, const float* q, const float* l,
+    const float* u, const float* lb, const float* ub, const float* rho,
+    const float* rho_b, const float* l1w, const float* l1c, const float* x,
+    const float* z, const float* w, const float* y, const float* mu,
+    float* x_out, float* z_out, float* w_out, float* y_out, float* mu_out,
+    float* dx_out, float* dy_out, float* dmu_out, int batch, int n, int m,
+    int n_iters, int rows, float sigma, float alpha, float one_m_alpha,
+    int triangular, void* stream) {
+  Inputs a = inputs_of(op, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z,
+                       w, y, mu, x_out, z_out, w_out, y_out, mu_out, dx_out,
+                       dy_out, dmu_out, n, m, n_iters, sigma, alpha,
+                       one_m_alpha);
+  const int fit = porqua_admm_dense_tail_rows(n, m, triangular);
+  if (fit < 0 || rows < -1 || rows > n) return (int)cudaErrorInvalidValue;
+  a.rows = rows < 0 ? fit : rows;
+  return launch<false, kInvRanks, true>(a, batch, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -98,7 +98,7 @@ class PairwiseRanker:
     epochs: int = 300
     learning_rate: float = 0.01
     seed: int = 0
-    device: Optional[object] = None
+    device: Optional[object] = dataclasses.field(default=None, kw_only=True)
 
     params: Optional[list] = dataclasses.field(default=None, repr=False)
     _norm: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(

@@ -70,7 +70,7 @@ class OrdinalRegression:
     distr: str = "probit"
     max_iter: int = 500
     tol: float = 1e-8
-    device: Optional[object] = None
+    device: Optional[object] = dataclasses.field(default=None, kw_only=True)
 
     n_classes: Optional[int] = None
     beta_: Optional[np.ndarray] = None

@@ -61,7 +61,7 @@ class OLS:
     """
 
     add_constant: bool = False
-    device: Optional[object] = None
+    device: Optional[object] = dataclasses.field(default=None, kw_only=True)
     coef_: Optional[np.ndarray] = None
 
     def _design(self, X):
@@ -100,7 +100,7 @@ class PCA:
 
     n_components: int = 15
     standardize: bool = True
-    device: Optional[object] = None
+    device: Optional[object] = dataclasses.field(default=None, kw_only=True)
 
     mean_: Optional[np.ndarray] = None
     scale_: Optional[np.ndarray] = None
@@ -139,7 +139,7 @@ class PCAOLS:
     n_components: int = 15
     standardize: bool = True
     add_constant: bool = False
-    device: Optional[object] = None
+    device: Optional[object] = dataclasses.field(default=None, kw_only=True)
 
     pca_: Optional[PCA] = None
     ols_: Optional[OLS] = None

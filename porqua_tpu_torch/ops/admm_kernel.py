@@ -10,8 +10,7 @@ refinement). Each runs ``n_iters`` OSQP iterations for every problem of
 a batch in one launch and returns ``(x, z, w, y, mu, dx, dy, dmu)``:
 the final state and the increments between the last two iterates.
 
-Two forms for the dense family and three for the factored one, in
-three sources:
+Three forms for each family, in three sources:
 
 - ``"cluster"``: ``csrc/admm_segment_cluster.cu`` (the factored form on
   a cluster of 8 blocks per problem: the columns of W, and V, C and Y0,
@@ -19,9 +18,14 @@ three sources:
   per launch; the three reductions of an iteration go through
   distributed shared memory) and ``csrc/admm_segment_dense_cluster.cu``
   (the dense forms on a cluster per problem: L^-1's lower columns
-  interleaved across 8 blocks, or K^-1's columns across 16, held in
-  shared memory and read once per launch; one n-long and one m-long
-  exchange per iteration).
+  interleaved across 8 blocks, or 16 where a rank's share does not fit
+  at 8, or K^-1's columns across 16, held in shared memory and read
+  once per launch; one n-long and one m-long exchange per iteration).
+- ``"tail"``, the dense cluster with a streamed tail
+  (``admm_segment_dense_cluster.cu``, K^-1 only): where a 16th of K^-1
+  does not fit a block, each rank keeps the first rows of its slice in
+  shared memory and reads the others from device memory (through L2)
+  on every iteration, through a ring of asynchronous copies.
 - ``"stream"``: ``csrc/admm_segment.cu``, one block per problem, the
   operator (L^-1's lower half twice, K^-1 once, W twice; V twice more
   per refinement round) streamed from device memory on every
@@ -36,9 +40,10 @@ three sources:
 
 :func:`factored_form` and :func:`dense_form` choose a kernel by shape,
 before the launch, in that order: the cluster form where its shared
-memory fits a block and the card can hold such a cluster, else the
-streaming form where that fits, else (factored) the device-memory form
-where it fits and its cluster can be held, else they raise. The dense
+memory fits a block and the card can hold such a cluster, else (dense)
+the cluster with a streamed tail where that fits and can be held, else
+the streaming form where that fits, else (factored) the device-memory
+form where it fits and its cluster can be held, else they raise. The dense
 streaming form and the factored device-memory form cover every shape
 at which the JAX package's ``_segment_plan`` takes its Pallas kernel
 without a VMEM footprint warning (tests/test_torch_cluster_route.py).
@@ -47,8 +52,8 @@ Each is built by :mod:`porqua_tpu_torch.ops._build` on first use. The
 wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
 in a plain int attribute, ``launches``, and each form's own
-(``cluster_launches``, ``stream_launches``, and the factored
-wrapper's ``global_launches``), and
+(``cluster_launches``, ``stream_launches``, the dense wrapper's
+``tail_launches`` and the factored wrapper's ``global_launches``), and
 keeps them by batch width in a dict, ``widths`` (width -> launches).
 Each launch also reports its :func:`launch_cost` to the device-cost
 counter that ``obs/devprof.py`` has active on the calling thread, if
@@ -135,6 +140,10 @@ _FACTORED_ARGS = [ctypes.c_void_p] * 29 + [
 _DENSE_ARGS = [ctypes.c_void_p] * 24 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# The dense cluster launchers take one more int after n_iters: the rank
+# count (cluster) or resident rows (tail) to force, or -1 for the ones
+# the shape takes.
+_DENSE_CLUSTER_ARGS = _DENSE_ARGS[:28] + [ctypes.c_int] + _DENSE_ARGS[28:]
 _SIGNATURES = {
     _LIB: {
         "porqua_admm_segment_dense": _DENSE_ARGS,
@@ -152,9 +161,14 @@ _SIGNATURES = {
         "porqua_admm_cluster_global_max_active": [ctypes.c_int] * 4,
     },
     _DENSE_LIB: {
-        "porqua_admm_segment_dense_cluster": _DENSE_ARGS,
+        "porqua_admm_segment_dense_cluster": _DENSE_CLUSTER_ARGS,
+        "porqua_admm_segment_dense_tail": _DENSE_CLUSTER_ARGS,
+        "porqua_admm_dense_cluster_ranks": [ctypes.c_int] * 3,
         "porqua_admm_dense_cluster_smem_bytes": [ctypes.c_int] * 3,
         "porqua_admm_dense_cluster_max_active": [ctypes.c_int] * 3,
+        "porqua_admm_dense_tail_rows": [ctypes.c_int] * 3,
+        "porqua_admm_dense_tail_smem_bytes": [ctypes.c_int] * 3,
+        "porqua_admm_dense_tail_max_active": [ctypes.c_int] * 3,
     },
 }
 # form -> (library, launcher)
@@ -165,6 +179,7 @@ _FACTORED_LAUNCHER = {
 }
 _DENSE_LAUNCHER = {
     "cluster": (_DENSE_LIB, "porqua_admm_segment_dense_cluster"),
+    "tail": (_DENSE_LIB, "porqua_admm_segment_dense_tail"),
     "stream": (_LIB, "porqua_admm_segment_dense"),
 }
 
@@ -282,7 +297,10 @@ def launch_traffic(name, args, kw, form, level="device"):
     """Bytes the kernel ``form`` moves per launch by a model of its
     access pattern (not a measurement), through device memory
     (``level="device"``) or through L2 (``"l2"``). The cluster forms
-    read each input once. The other forms read their operator on every
+    read each input once. The dense cluster with a streamed tail reads
+    each input once and the rows of K^-1 past those each rank keeps (the
+    card's library says how many at this shape) again on every
+    iteration. The other forms read their operator on every
     iteration (W twice, V twice more per refinement round, L^-1's lower
     triangle twice, K^-1 once) and, where it is not in shared memory,
     C: twice in the dense streaming form; three times in the factored
@@ -295,7 +313,12 @@ def launch_traffic(name, args, kw, form, level="device"):
     if form == "cluster":
         return once
     op, n_iters = args[0], kw["n_iters"]
-    if name.startswith("admm_segment_factored"):
+    if form == "tail":
+        B, n, _ = op.shape
+        rows = _library(_DENSE_LIB).porqua_admm_dense_tail_rows(
+            n, args[1].shape[-2], int(kw["triangular"]))
+        per_iter = again = B * (n - rows) * n * 4
+    elif name.startswith("admm_segment_factored"):
         Y0, Ginv, C = args[2], args[3], args[6]
         r = kw["refine_steps"]
         per_iter = (2 + 4 * r) * op.numel() * 4
@@ -325,6 +348,8 @@ def _count(wrapper, form, width, inputs, kw):
         wrapper.cluster_launches += 1
     elif form == "stream":
         wrapper.stream_launches += 1
+    elif form == "tail":
+        wrapper.tail_launches += 1
     else:
         wrapper.global_launches += 1
     # Local import: the obs package imports the solver, which imports
@@ -340,15 +365,21 @@ def _count(wrapper, form, width, inputs, kw):
 def dense_form(n: int, m: int, triangular: bool) -> str:
     """Which hand-written kernel runs a dense segment of this shape on
     the current card: ``"cluster"`` where one problem's operator slice
-    (L^-1's packed lower columns over 8 blocks, or K^-1's columns over
-    16) fits the shared memory of a block and the card can hold such a
-    cluster, else ``"stream"`` where the streaming form's vectors fit
-    one block. Raises ValueError where neither fits."""
+    (L^-1's packed lower columns over 8 blocks, else over 16, or K^-1's
+    columns over 16; the library's
+    ``porqua_admm_dense_cluster_ranks`` says which) fits the shared
+    memory of a block and the card can hold such a cluster, else
+    ``"tail"`` (K^-1 only) where the slice's first rows, C's slice and
+    the vectors fit and the card can hold that cluster, else
+    ``"stream"`` where the streaming form's vectors fit one block.
+    Raises ValueError where none fits."""
     lib, stream_lib = _library(_DENSE_LIB), _library(_LIB)
     tri = int(triangular)
     return _choose_form("dense", [
         ("cluster", lib.porqua_admm_dense_cluster_smem_bytes(n, m, tri),
          lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri)),
+        ("tail", lib.porqua_admm_dense_tail_smem_bytes(n, m, tri),
+         lambda: lib.porqua_admm_dense_tail_max_active(n, m, tri)),
         ("stream", stream_lib.porqua_admm_segment_smem_bytes(0, n, m, 0),
          None)], n, m, 0)
 
@@ -368,9 +399,11 @@ def _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w,
 
 
 def _dense_on_card(form, inputs, *, sigma: float, alpha: float,
-                   n_iters: int, triangular: bool):
+                   n_iters: int, triangular: bool, layout=None):
     """Launch one dense kernel on validated inputs: the one ``form``
-    names, or with ``form=None`` the one :func:`dense_form` picks."""
+    names, or with ``form=None`` the one :func:`dense_form` picks.
+    ``layout`` forces a cluster form's rank count or a tail form's
+    resident rows (None: the ones the shape takes)."""
     x, z = inputs[11], inputs[12]
     (B, n), m = x.shape, z.shape[-1]
     # x z w y mu, then the increments dx dy dmu
@@ -380,8 +413,11 @@ def _dense_on_card(form, inputs, *, sigma: float, alpha: float,
         if form is None:
             form = dense_form(n, m, triangular)
         lib_name, fn_name = _DENSE_LAUNCHER[form]
-        _launch(_library(lib_name), fn_name, stream, inputs, outs,
-                (B, n, m, n_iters), sigma, alpha, int(triangular))
+        ints = (B, n, m, n_iters)
+        if form != "stream":
+            ints += (-1 if layout is None else layout,)
+        _launch(_library(lib_name), fn_name, stream, inputs, outs, ints,
+                sigma, alpha, int(triangular))
     _count(admm_segment, form, B, inputs,
            dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
                 triangular=triangular))
@@ -405,25 +441,34 @@ def admm_segment(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c,
     return _dense_on_card(None, inputs, **kw)
 
 
-admm_segment.launches = 0          # both forms
+admm_segment.launches = 0          # every form
 admm_segment.widths = {}           # batch width -> launches
 admm_segment.cluster_launches = 0
+admm_segment.tail_launches = 0
 admm_segment.stream_launches = 0
 
 
 def _admm_segment_form(form: str, *args, sigma: float, alpha: float,
-                       n_iters: int, triangular: bool = False):
+                       n_iters: int, triangular: bool = False,
+                       ranks: int | None = None, rows: int | None = None):
     """:func:`admm_segment` on the card through the kernel ``form``
-    names ("cluster" or "stream") instead of the one chosen by
+    names ("cluster", "tail" or "stream") instead of the one chosen by
     shape, so that every form can be held against the plain twin and
-    timed on the same inputs."""
+    timed on the same inputs. ``ranks`` (cluster: 8 or 16 blocks) and
+    ``rows`` (tail: the rows each rank keeps, 0 to n) force a layout
+    the shape would not take, so that each can be held at any width."""
     if form not in _DENSE_LAUNCHER:
         raise ValueError(f"no dense kernel form {form!r}")
+    if (ranks is not None and form != "cluster") or (
+            rows is not None and form != "tail"):
+        raise ValueError(f"the {form} form takes no "
+                         f"{'ranks' if ranks is not None else 'rows'}")
     inputs = _dense_inputs(*args, n_iters)
     if inputs[0].device.type != "cuda":
         raise ValueError("a named kernel form runs on a CUDA device only")
     return _dense_on_card(form, inputs, sigma=sigma, alpha=alpha,
-                          n_iters=n_iters, triangular=triangular)
+                          n_iters=n_iters, triangular=triangular,
+                          layout=ranks if ranks is not None else rows)
 
 
 def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:

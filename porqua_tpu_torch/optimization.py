@@ -144,6 +144,9 @@ class Optimization(ABC):
         self.solution = sol
         self._publish_results(to_numpy(sol.x), int(sol.status))
 
+    # The JAX package's name for the same solve.
+    solve_jax = solve_torch
+
     def _publish_results(self, x: np.ndarray, status_code: int,
                          suboptimal_acceptable: bool = True) -> None:
         """One copy of the results contract for every solve path:

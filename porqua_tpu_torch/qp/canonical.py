@@ -26,6 +26,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from porqua_tpu_torch.utils.helpers import to_numpy
+
 
 class _PrecisionPolicy:
     """The one precision policy for every residual-bearing product in
@@ -135,9 +137,10 @@ class CanonicalQP(NamedTuple):
               Pf: Optional[np.ndarray] = None,
               Pdiag: Optional[np.ndarray] = None,
               *,
-              device) -> "CanonicalQP":
+              device=None) -> "CanonicalQP":
         """Assemble + pad a single problem (no batch axis) from numpy
-        arrays into tensors on ``device``; ``dtype`` goes through
+        arrays into tensors on ``device`` (default: the card, through
+        ``qp/solve.py::resolve_device``); ``dtype`` goes through
         :func:`as_torch_dtype` (``None`` means float32).
         ``Pf``/``Pdiag`` expose ``P == 2 Pf' Pf + diag(Pdiag)``, checked
         here by one matvec: a gross mismatch raises, rounding-grade
@@ -206,6 +209,10 @@ class CanonicalQP(NamedTuple):
         elif Pdiag is not None:
             raise ValueError("Pdiag without Pf has no meaning")
 
+        # Local import: qp/solve.py imports this module.
+        from porqua_tpu_torch.qp.solve import resolve_device
+
+        device = resolve_device(device)
         as_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                            device=device)
         return CanonicalQP(
@@ -218,9 +225,12 @@ class CanonicalQP(NamedTuple):
         )
 
 
-def stack_qps(qps: Sequence[CanonicalQP]) -> CanonicalQP:
+def stack_qps(qps: Sequence[CanonicalQP], stack_fn=None) -> CanonicalQP:
     """Stack same-shape single problems into one batch along a new
-    leading axis."""
+    leading axis: ``torch.stack`` by default, or ``stack_fn`` called as
+    the JAX package calls it, once per present field with the tuple of
+    that field's arrays as numpy (e.g. ``np.stack``: the batch stays on
+    the host); the fields are whatever it returns."""
     if not qps:
         raise ValueError("cannot stack an empty sequence of QPs")
     shapes = {(qp.n, qp.m) for qp in qps}
@@ -229,7 +239,12 @@ def stack_qps(qps: Sequence[CanonicalQP]) -> CanonicalQP:
             f"all problems must share one padded shape; got {sorted(shapes)}. "
             "Pass n_max/m_max to CanonicalQP.build."
         )
-    return CanonicalQP(*(None if fields[0] is None else torch.stack(fields)
+    if stack_fn is None:
+        return CanonicalQP(*(None if fields[0] is None
+                             else torch.stack(fields)
+                             for fields in zip(*qps)))
+    return CanonicalQP(*(None if fields[0] is None
+                         else stack_fn(tuple(to_numpy(a) for a in fields))
                          for fields in zip(*qps)))
 
 

@@ -349,9 +349,10 @@ def _check_struct(qp: CanonicalQP, struct: CanonicalQP) -> None:
 
 
 def kernel_form(struct: CanonicalQP, params: SolverParams, device):
-    """The fused-segment kernel form (``"cluster"`` or ``"stream"``)
-    that ``struct``'s shape launches on ``device`` under ``params``, or
-    ``None`` where no kernel runs (the plain path, or the CPU). Raises
+    """The fused-segment kernel form (``"cluster"``, ``"tail"``,
+    ``"stream"`` or ``"global"``) that ``struct``'s shape launches on
+    ``device`` under ``params``, or ``None`` where no kernel runs (the
+    plain path, or the CPU). Raises
     ValueError where no form fits the card."""
     if params.backend != "pallas" or torch.device(device).type != "cuda":
         return None

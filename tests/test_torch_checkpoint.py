@@ -107,10 +107,10 @@ def test_roundtrip(rng, tmp_path):
     sol = pt.solve_qp_batch(tq, tp, device="cpu")
     path = str(tmp_path / "sol.npz")
     tck.save_solution(path, sol)
-    assert_bit_identical(sol, tck.load_solution(path, "cpu"))
+    assert_bit_identical(sol, tck.load_solution(path, device="cpu"))
     jpath = str(tmp_path / "jax.npz")
     jck.save_solution(jpath, jax_solve_qp_batch(jq, jp))
-    from_jax = tck.load_solution(jpath, "cpu")
+    from_jax = tck.load_solution(jpath, device="cpu")
     assert sorted(np.load(jpath).files) == sorted(np.load(path).files)
     assert_solutions_close(sol, from_jax)
 
@@ -134,7 +134,7 @@ def test_chunk_accounting(rng, tmp_path):
     mgr.save_chunk(2, pt.QPSolution(*(None if f is None else f[4:5]
                                       for f in sol)))
     assert mgr.completed_chunks() == 1
-    assert_bit_identical(mgr.load_all("cpu"), one)
+    assert_bit_identical(mgr.load_all(device="cpu"), one)
 
 
 @pytest.mark.parametrize("change", ["params", "dtype", "l1"])

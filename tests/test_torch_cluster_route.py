@@ -28,20 +28,21 @@ import torch
 from porqua_tpu_torch.ops import admm_kernel as tk
 from porqua_tpu_torch.serve.bucketing import DEFAULT_M_RUNGS, DEFAULT_N_RUNGS
 
-from tests.test_torch_cuda import (cluster_bytes, cluster_global_bytes,
-                                   dense_cluster_bytes, dense_stream_bytes,
+from tests.test_torch_cuda import (H100_SMEM, cluster_bytes,  # noqa: F401
+                                   cluster_global_bytes, dense_cluster_bytes,
+                                   dense_cluster_ranks, dense_stream_bytes,
+                                   dense_tail_bytes, dense_tail_rows,
                                    stream_bytes)
 
-# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
-H100_SMEM = 232448
 FORMS = ("cluster", "stream", "global")
-DENSE_FORMS = ("cluster", "stream")
+DENSE_FORMS = ("cluster", "tail", "stream")
 
 
 class StubLibrary:
-    """The three kernel libraries at once: sizes from the layouts above,
-    the limit and the cluster occupancies as given (``active`` for the
-    cluster forms, ``global_active`` for the factored device-memory
+    """The three kernel libraries at once: sizes, rank counts and the
+    tail's resident rows from the layouts above at the given limit, the
+    cluster occupancies as given (``active`` for the cluster forms and
+    the dense tail, ``global_active`` for the factored device-memory
     form), and a log of launches."""
 
     def __init__(self, active=40, limit=H100_SMEM, rc=0, global_active=40):
@@ -67,14 +68,31 @@ class StubLibrary:
     def porqua_admm_segment_smem_bytes(self, factored, n, m, k):
         return stream_bytes(n, m, k) if factored else dense_stream_bytes(n, m)
 
+    def porqua_admm_dense_cluster_ranks(self, n, m, triangular):
+        return dense_cluster_ranks(n, m, bool(triangular), self.limit)
+
     def porqua_admm_dense_cluster_smem_bytes(self, n, m, triangular):
-        return dense_cluster_bytes(n, m, bool(triangular))
+        return dense_cluster_bytes(n, m, bool(triangular), self.limit)
 
     def porqua_admm_dense_cluster_max_active(self, n, m, triangular):
         return self.active
 
+    def porqua_admm_dense_tail_rows(self, n, m, triangular):
+        return dense_tail_rows(n, m, bool(triangular), self.limit)
+
+    def porqua_admm_dense_tail_smem_bytes(self, n, m, triangular):
+        return dense_tail_bytes(n, m, bool(triangular), self.limit)
+
+    def porqua_admm_dense_tail_max_active(self, n, m, triangular):
+        return self.active if dense_tail_rows(
+            n, m, bool(triangular), self.limit) >= 0 else 0
+
     def porqua_admm_segment_dense_cluster(self, *args):
         self.calls.append(("cluster", args))
+        return self.rc
+
+    def porqua_admm_segment_dense_tail(self, *args):
+        self.calls.append(("tail", args))
         return self.rc
 
     def porqua_admm_segment_dense(self, *args):
@@ -353,6 +371,6 @@ def test_every_plan_kernel_shape_has_a_form(stub, linsolve, k, refine):
                       vn, vm, vn, vm, vn]
             tk._dense_on_card(None, inputs, triangular=triangular, **KW)
             wrapper = tk.admm_segment
-        assert form in FORMS, (n, m, form)
+        assert form in forms_of(wrapper), (n, m, form)
         assert [c[0] for c in stub.calls[before:]] == [form], (n, m)
     assert counts_of(wrapper)[0] == len(taken)

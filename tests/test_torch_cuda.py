@@ -71,17 +71,26 @@ def dense_stream_bytes(n, m):
     return 4 * (14 * n + 10 * m)
 
 
-def dense_cluster_bytes(n, m, triangular):
-    """admm_segment_dense_cluster.cu's shared memory per block
-    (Layout::total), in bytes: 8 ranks holding L^-1's packed lower
-    columns j = r (mod 8), or 16 holding K^-1's consecutive columns."""
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
+H100_SMEM = 232448
+# admm_segment_dense_cluster.cu's kStages: the tail's float4 row-steps
+# in flight per thread, 256 threads a block.
+TAIL_STAGES = 8
+
+
+def _dense_layout_bytes(n, m, triangular, ranks, rows=None, ring=0):
+    """admm_segment_dense_cluster.cu's Layout::total in bytes: L^-1's
+    packed lower columns j = r (mod ranks), or ``rows`` rows (default
+    n) of K^-1's ceil(n / ranks) consecutive columns and a ring of
+    ``ring`` floats, then the vectors, C's slice and the exchange
+    buffers."""
     def round4(v):
         return (v + 3) // 4 * 4
-    ranks = 8 if triangular else 16
     nc = -(-n // ranks)
     ld, n4 = round4(nc), round4(n)
+    rows = n if rows is None else rows
     op = (round4(nc * n - ranks * nc * (nc - 1) // 2) if triangular
-          else n * ld)
+          else rows * ld + ring)
     # exchange buffers, then the reduce-scatter slots of t (triangular,
     # at least a staged 32 x 33 set-up tile) or the warps' partials
     if triangular:
@@ -90,6 +99,45 @@ def dense_cluster_bytes(n, m, triangular):
         work = 2 * n4 + 8 * ld
     floats = op + 13 * ld + m * ld + work + 12 + 2 * ranks * m + 7 * m
     return 4 * floats
+
+
+def dense_cluster_ranks(n, m, triangular, limit=H100_SMEM):
+    """admm_segment_dense_cluster.cu's rank count (tri_ranks): L^-1 on
+    8 blocks where a rank's share fits ``limit``, else 16; K^-1 on 16."""
+    if triangular and _dense_layout_bytes(n, m, True, 8) <= limit:
+        return 8
+    return 16
+
+
+def dense_cluster_bytes(n, m, triangular, limit=H100_SMEM):
+    """admm_segment_dense_cluster.cu's shared memory per block of the
+    resident cluster form, at the rank count it takes on a card of
+    ``limit`` bytes a block."""
+    return _dense_layout_bytes(n, m, triangular,
+                               dense_cluster_ranks(n, m, triangular, limit))
+
+
+def dense_tail_rows(n, m, triangular, limit=H100_SMEM):
+    """admm_segment_dense_cluster.cu's tail_rows: the rows of each
+    rank's K^-1 slice the tail form keeps in shared memory, at most n;
+    -1 for L^-1, where the rest does not fit ``limit`` or where the
+    slice is wider than 128 columns."""
+    ld = (-(-n // 16) + 3) // 4 * 4
+    base = _dense_layout_bytes(n, m, False, 16, rows=0,
+                               ring=TAIL_STAGES * 256 * 4)
+    if triangular or ld > 128 or base > limit:
+        return -1
+    return min(n, (limit - base) // (4 * ld))
+
+
+def dense_tail_bytes(n, m, triangular, limit=H100_SMEM):
+    """The tail form's shared memory per block (2**31 - 1 where it
+    does not exist at this shape)."""
+    rows = dense_tail_rows(n, m, triangular, limit)
+    if rows < 0:
+        return 2 ** 31 - 1
+    return _dense_layout_bytes(n, m, False, 16, rows=rows,
+                               ring=TAIL_STAGES * 256 * 4)
 
 
 def need_card():
@@ -103,6 +151,10 @@ def factored_counts():
 
 def counts_of(wrapper):
     return wrapper.launches, wrapper.cluster_launches, wrapper.stream_launches
+
+
+def tail_count():
+    return tk.admm_segment.tail_launches
 
 
 def assert_matches_twin(fn, out, args, kw, beside=None):
@@ -219,8 +271,9 @@ def dense_call(triangular, n, m, n_iters):
 @pytest.mark.parametrize("n", [5, 13, 37, 500])
 @pytest.mark.parametrize("triangular", [True, False])
 def test_dense_cluster_kernel_matches_plain_twin(triangular, n, m, n_iters):
-    """The dense cluster forms (L^-1 over 8 ranks, K^-1 over 16) at
-    shapes that stress their column partitions: n=5 and 13 leave ranks
+    """The dense cluster forms at the widths where the router takes them
+    (L^-1 over 8 ranks, K^-1 over 16), at shapes that stress their
+    column partitions: n=5 and 13 leave ranks
     without a column, 37 leaves the last ranks ragged, 500 is the
     headline width. Each launch moves the cluster counter by one and
     the streaming counter not at all. Held by the twin rule over the
@@ -283,12 +336,15 @@ def test_factored_stream_kernel_matches_plain_twin(n, m, refine, n_iters):
 @pytest.mark.gpu
 @pytest.mark.parametrize("triangular", [True, False])
 def test_dense_shape_beyond_cluster_goes_to_stream(triangular):
-    """1,024 assets: rank 0's packed L^-1 columns (258 KB) or a 16th of
-    K^-1 (256 KB) are above the shared-memory limit, so the streaming
-    form runs and matches the twin."""
+    """Beyond both cluster forms: L^-1 at 1,400 assets (a 16th of its
+    packed columns, 269 KB, is above the shared-memory limit) and K^-1
+    at 1,024 x 512 (C's slice and the receive buffers alone, 251 KB,
+    leave no room for resident rows): the streaming form runs and
+    matches the twin."""
     need_card()
-    fn, args, kw = dense_call(triangular, 1024, 1, 25)
-    assert tk.dense_form(1024, 1, triangular) == "stream"
+    n, m = (1400, 1) if triangular else (1024, 512)
+    fn, args, kw = dense_call(triangular, n, m, 25)
+    assert tk.dense_form(n, m, triangular) == "stream"
     launches, cluster, stream = counts_of(fn)
     out = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -319,12 +375,88 @@ def test_dense_cluster_smem_size_is_the_one_the_router_reads():
     need_card()
     stream_lib = tk._library(tk._LIB)
     dense_lib = tk._library(tk._DENSE_LIB)
+    limit = stream_lib.porqua_max_smem_optin()
     for n, m in [(5, 1), (13, 3), (37, 3), (500, 1), (1024, 1)]:
         for tri in (True, False):
             assert dense_lib.porqua_admm_dense_cluster_smem_bytes(
-                n, m, int(tri)) == dense_cluster_bytes(n, m, tri)
+                n, m, int(tri)) == dense_cluster_bytes(n, m, tri, limit)
         assert stream_lib.porqua_admm_segment_smem_bytes(
             0, n, m, 0) == dense_stream_bytes(n, m)
+
+
+@pytest.mark.gpu
+def test_dense_layouts_are_the_ones_the_router_reads():
+    """The rank count, resident rows and shared-memory sizes of the
+    dense cluster forms that the router and the traffic model read are
+    the ones the launchers use, and the CPU mirror's, at the ragged
+    widths, the tracking width and the service's wide rungs; the tail
+    form exists for K^-1 only."""
+    need_card()
+    lib = tk._library(tk._DENSE_LIB)
+    limit = tk._library(tk._LIB).porqua_max_smem_optin()
+    for n, m in [(5, 1), (13, 3), (37, 3), (500, 1), (1024, 1), (1024, 128),
+                 (512, 512), (1024, 512), (1400, 1), (2048, 8)]:
+        for tri in (True, False):
+            assert lib.porqua_admm_dense_cluster_ranks(n, m, int(tri)) == \
+                dense_cluster_ranks(n, m, tri, limit), (n, m, tri)
+            assert lib.porqua_admm_dense_cluster_smem_bytes(
+                n, m, int(tri)) == dense_cluster_bytes(n, m, tri, limit)
+            assert lib.porqua_admm_dense_tail_rows(n, m, int(tri)) == \
+                dense_tail_rows(n, m, tri, limit), (n, m, tri)
+            assert lib.porqua_admm_dense_tail_smem_bytes(
+                n, m, int(tri)) == dense_tail_bytes(n, m, tri, limit)
+            if dense_tail_bytes(n, m, tri, limit) <= limit:
+                assert lib.porqua_admm_dense_tail_max_active(
+                    n, m, int(tri)) > 0
+    assert lib.porqua_admm_dense_cluster_ranks(1024, 128, 1) == 16
+    assert lib.porqua_admm_dense_tail_rows(1024, 128, 1) == -1
+    fn, args, kw = dense_call(True, 37, 1, 25)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tk._admm_segment_form("tail", *args, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_iters", [1, 25])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("n", [5, 13, 37, 100])
+@pytest.mark.parametrize("triangular", [True, False])
+def test_wide_dense_instances_match_plain_twin(triangular, n, m, n_iters):
+    """The instances the wide rungs run, forced at ragged widths: L^-1
+    on 16 ranks (n = 5 and 13 leave ranks without a column), and K^-1
+    with a streamed tail that holds none, half or all of each rank's
+    rows in shared memory (the ring wraps across iterations; n = 100
+    keeps several row-steps per pass). Each launch moves its form's
+    counter by one; held by the twin rule."""
+    need_card()
+    fn, args, kw = dense_call(triangular, n, m, n_iters)
+    layouts = ([dict(ranks=16)] if triangular
+               else [dict(rows=r) for r in (0, n // 2, n)])
+    for layout in layouts:
+        form = "cluster" if triangular else "tail"
+        before, tails = counts_of(fn), tail_count()
+        out = tk._admm_segment_form(form, *args, **kw, **layout)
+        torch.cuda.synchronize()
+        assert counts_of(fn) == (before[0] + 1, before[1] + triangular,
+                                 before[2])
+        assert tail_count() == tails + (not triangular)
+        assert_matches_twin(fn, out, args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("triangular", [True, False])
+def test_named_dense_forms_at_the_rung(triangular):
+    """The (1024, 128) rung at phase 8e's batch of 8: each form that
+    takes it, launched by name (the one-block form and the 16-rank
+    cluster, or the tail for K^-1), matches the twin."""
+    need_card()
+    fn, args, kw = dense_call(triangular, 1024, 128, 25)
+    args = tuple(a[:1].expand(8, *a.shape[1:]).contiguous() for a in args)
+    forms = ["stream", "cluster" if triangular else "tail"]
+    assert tk.dense_form(1024, 128, triangular) == forms[1]
+    for form in forms:
+        out = tk._admm_segment_form(form, *args, **kw)
+        torch.cuda.synchronize()
+        assert_matches_twin(fn, out, args, kw)
 
 
 @pytest.mark.gpu
@@ -413,20 +545,22 @@ def test_factored_gap_shape_goes_to_global(refine, n, m, k):
 @pytest.mark.parametrize("n, m", [(1024, 128), (512, 512)])
 @pytest.mark.parametrize("triangular", [True, False])
 def test_dense_gap_shape_matches_plain_twin(triangular, n, m):
-    """The ladder's 1,024 x 128 rung (both kinds go to the streaming
-    form, C in device memory) and 512 x 512 (L^-1 goes to it; K^-1's
-    16-block cluster fits): the routed form matches the twin."""
+    """The ladder's 1,024 x 128 rung (L^-1 goes to the 16-rank cluster,
+    K^-1 to the cluster with a streamed tail) and 512 x 512 (L^-1 on
+    16 ranks; K^-1's 16-block cluster fits): the routed form matches
+    the twin."""
     need_card()
     fn, args, kw = dense_call(triangular, n, m, 25)
     form = tk.dense_form(n, m, triangular)
-    assert form == ("cluster" if (n, m, triangular) == (512, 512, False)
-                    else "stream")
-    before = counts_of(fn)
+    assert form == ("tail" if (n, m, triangular) == (1024, 128, False)
+                    else "cluster")
+    before, tails = counts_of(fn), tail_count()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert counts_of(fn) == (before[0] + 1,
                              before[1] + (form == "cluster"),
-                             before[2] + (form == "stream"))
+                             before[2])
+    assert tail_count() == tails + (form == "tail")
     assert_matches_twin(fn, out, args, kw)
 
 

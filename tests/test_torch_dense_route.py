@@ -1,11 +1,13 @@
 """How the dense segment wrapper picks its CUDA kernel, on the CPU.
 
-``admm_segment`` chooses between two hand-written kernels by shape
+``admm_segment`` chooses between three hand-written kernels by shape
 before it launches: the cluster form (L^-1's packed lower columns over
-8 blocks, or K^-1's columns over 16) where a block's slice fits the
-card's shared memory and the card can hold such a cluster, else the
-streaming form (C read from device memory beside the operator) where
-its block of vectors fits, else it raises. ``_library`` is
+8 blocks, else over 16, or K^-1's columns over 16) where a block's
+slice fits the card's shared memory and the card can hold such a
+cluster, else (K^-1) the cluster with a streamed tail where its
+resident rows, C's slice and the vectors fit, else the streaming form
+(C read from device memory beside the operator) where its block of
+vectors fits, else it raises. ``_library`` is
 replaced by the stub of tests/test_torch_cluster_route.py, which
 answers the size, limit and occupancy queries from the C layouts
 (mirrored in tests/test_torch_cuda.py, which holds the mirror to the C
@@ -22,7 +24,8 @@ from porqua_tpu_torch.ops import admm_kernel as tk
 from tests.test_torch_cluster_route import (DENSE_FORMS,  # noqa: F401
                                              H100_SMEM, counts_of,
                                              one_launch_of, stub)
-from tests.test_torch_cuda import dense_cluster_bytes, dense_stream_bytes
+from tests.test_torch_cuda import (dense_cluster_bytes, dense_stream_bytes,
+                                   dense_tail_bytes)
 
 
 def counts():
@@ -50,16 +53,21 @@ ROUTES = [
     pytest.param(500, 1, True, 0, "stream", id="trinv-no-resident-cluster"),
     pytest.param(500, 1, False, 0, "stream",
                  id="inverse-no-resident-cluster"),
-    pytest.param(1024, 1, True, 45, "stream", id="trinv-1024"),
-    pytest.param(1024, 1, False, 24, "stream", id="inverse-1024"),
-    # The service's ladder rungs where C (m x n) would outgrow a block:
-    # it stays in device memory, only the vectors in shared memory.
-    pytest.param(1024, 128, True, 45, "stream", id="trinv-rung-1024x128"),
-    pytest.param(1024, 128, False, 24, "stream", id="inverse-rung-1024x128"),
-    pytest.param(512, 512, True, 45, "stream", id="trinv-rung-512x512"),
+    # 1,024 assets: a rank's share of L^-1 fits at 16 ranks, not 8; a
+    # 16th of K^-1 does not fit, so its first 725 rows stay resident.
+    pytest.param(1024, 1, True, 7, "cluster", id="trinv-1024"),
+    pytest.param(1024, 1, False, 7, "tail", id="inverse-1024"),
+    # The service's wide ladder rungs: L^-1 on 16 ranks, K^-1 with 520
+    # of each rank's 1,024 rows resident (1,024 x 128); at 512 x 512 both
+    # fit on 16 ranks.
+    pytest.param(1024, 128, True, 7, "cluster", id="trinv-rung-1024x128"),
+    pytest.param(1024, 128, False, 7, "tail", id="inverse-rung-1024x128"),
+    pytest.param(512, 512, True, 7, "cluster", id="trinv-rung-512x512"),
     pytest.param(512, 512, False, 24, "cluster", id="inverse-rung-512x512"),
     # The corner of the JAX package's dense domain: 1,664 assets (its
-    # VMEM estimate's limit) at the ladder's widest 2,048 rows, 175 KB.
+    # VMEM estimate's limit) at the ladder's widest 2,048 rows, 175 KB
+    # for the one-block form; the clusters' receive buffers alone (2
+    # ranks x m floats) are above the limit.
     pytest.param(1664, 2048, True, 45, "stream", id="trinv-corner-1664x2048"),
     pytest.param(1664, 2048, False, 24, "stream",
                  id="inverse-corner-1664x2048"),
@@ -71,24 +79,30 @@ def test_dense_form_by_shape(stub, n, m, triangular, active, form):
     stub.active = active
     assert tk.dense_form(n, m, triangular) == form
     cluster = dense_cluster_bytes(n, m, triangular) <= H100_SMEM
+    tail = dense_tail_bytes(n, m, triangular) <= H100_SMEM
     stream = dense_stream_bytes(n, m) <= H100_SMEM
     assert (form == "cluster") == (cluster and active > 0)
-    assert (form == "stream") == (stream and form != "cluster")
+    assert (form == "tail") == (tail and active > 0 and not cluster)
+    assert (form == "stream") == (stream and form not in ("cluster", "tail"))
 
 
 @pytest.mark.parametrize("n, m, triangular, active, form", ROUTES)
 def test_card_path_launches_the_chosen_dense_form(stub, n, m, triangular,
                                                   active, form):
     """The whole card path on stubbed libraries: one launch of the chosen
-    form with the problem's dimensions and operator kind, and the
-    counters that say so."""
+    form with the problem's dimensions, its layout argument (the
+    cluster's rank count and the tail's resident rows: by shape) and
+    operator kind, and the counters that say so."""
     stub.active = active
     out = tk._dense_on_card(None, zero_inputs(n, m), triangular=triangular,
                             **KW)
     assert [c[0] for c in stub.calls] == [form]
     args = stub.calls[0][1]
     assert args[24:28] == (1, n, m, KW["n_iters"])
-    assert args[31] == int(triangular)
+    assert args[-2] == int(triangular)
+    assert len(args) == 33 + (form != "stream")
+    if form != "stream":
+        assert args[28] == -1
     assert counts() == one_launch_of(form, DENSE_FORMS)
     shapes = [tuple(t.shape) for t in out]
     assert shapes == [(1, n), (1, m), (1, n), (1, m), (1, n), (1, n), (1, m),
@@ -107,22 +121,29 @@ def test_no_dense_form_fits_raises(stub, n, limit, triangular):
     with pytest.raises(ValueError, match="shared memory"):
         tk._dense_on_card(None, zero_inputs(n, 1), triangular=triangular,
                           **KW)
-    assert stub.calls == [] and counts() == (0, 0, 0)
+    assert stub.calls == [] and counts() == (0, 0, 0, 0)
+
+
+# form -> (n, cluster occupancy) of an inverse shape that routes to it
+DENSE_ROUTED_TO = {"cluster": (500, 40), "tail": (1024, 40),
+                   "stream": (500, 0)}
 
 
 @pytest.mark.parametrize("triangular", [True, False])
 @pytest.mark.parametrize("form", DENSE_FORMS)
 def test_failed_dense_launch_raises_and_counts_nothing(stub, form,
                                                        triangular):
-    """A launch the card refuses raises; no other form is tried."""
+    """A launch the card refuses raises; no other form is tried. (No
+    L^-1 shape routes to the tail form, which holds K^-1 only: L^-1 is
+    launched there by name.)"""
     stub.rc = 1
-    stub.active = 40 if form == "cluster" else 0
-    n, m = 500, 1
+    n, stub.active = DENSE_ROUTED_TO[form]
+    named = form if (form, triangular) == ("tail", True) else None
     with pytest.raises(RuntimeError, match="launch failed"):
-        tk._dense_on_card(None, zero_inputs(n, m), triangular=triangular,
+        tk._dense_on_card(named, zero_inputs(n, 1), triangular=triangular,
                           **KW)
     assert [c[0] for c in stub.calls] == [form]
-    assert counts() == (0, 0, 0)
+    assert counts() == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("triangular", [True, False])
@@ -133,7 +154,7 @@ def test_failed_dense_occupancy_query_raises(stub, triangular):
     with pytest.raises(RuntimeError, match="occupancy"):
         tk._dense_on_card(None, zero_inputs(500, 1), triangular=triangular,
                           **KW)
-    assert stub.calls == [] and counts() == (0, 0, 0)
+    assert stub.calls == [] and counts() == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("form", DENSE_FORMS)
@@ -150,6 +171,15 @@ def test_named_dense_form_is_launched_as_named(stub, form):
         tk._admm_segment_form("factored", *inputs, **KW)
     with pytest.raises(ValueError, match="no dense kernel form"):
         tk._admm_segment_form("global", *inputs, **KW)
+    # A forced layout reaches the launcher; a form takes only its own.
+    if form != "stream":
+        forced = {"cluster": 16, "tail": 300}[form]
+        tk._dense_on_card(form, inputs, triangular=True, layout=forced, **KW)
+        assert stub.calls[-1][1][28] == forced
+    with pytest.raises(ValueError, match="takes no"):
+        tk._admm_segment_form(form, *inputs, **KW,
+                              **({"rows": 3} if form != "tail"
+                                 else {"ranks": 16}))
 
 
 @pytest.mark.parametrize("triangular", [True, False])
@@ -172,4 +202,4 @@ def test_dense_cpu_tensors_run_the_twin_and_count_nothing(stub, triangular):
     ref = tk.admm_segment_ref(*inputs, triangular=triangular, **KW)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert stub.calls == [] and counts() == (0, 0, 0)
+    assert stub.calls == [] and counts() == (0, 0, 0, 0)
