@@ -19,12 +19,13 @@ printed):
    (stream, cluster, cluster, stream), beside the device-memory bytes
    each design moves, the shared memory and resident clusters of the
    cluster form, and the time of a launch with one iteration. Then
-   every form, the factored device-memory one included, at the ragged
-   widths (``ragged_twin_checks``), and the forms that serve the shapes
-   the cluster forms do not fit (``GAP_SHAPES``: the service's 1,024 x
-   128 and 512 x 512 rungs through the dense streaming form, 2,048 x 8
-   and the 5,000-asset sketch shape through the factored device-memory
-   form), each a kernel row.
+   every form, the factored grid and device-memory ones included, at the
+   ragged widths (``ragged_twin_checks``), and the forms that serve the
+   shapes the cluster forms do not fit (``GAP_SHAPES``: the service's
+   1,024 x 128 and 512 x 512 rungs through the dense 16-rank cluster or
+   streamed tail beside the one-block form, 2,048 x 8, 1,024 x 128 and
+   the 5,000-asset sketch shape through the factored grid form beside
+   the device-memory one), each a kernel row.
 4. The main path: ``tracking_step`` on that batch with
    ``backend="pallas"`` for every config of the JAX golden
    (``porqua_tpu_torch/testdata/tracking_golden.npz``), with the launch
@@ -536,7 +537,8 @@ def check_twin(out_k, ref, kw):
 
 def ragged_twin_checks():
     """Every form of every kernel family (cluster, streaming and, for
-    the factored one, device-memory; for the dense one also L^-1 on 16
+    the factored one, device-memory and the grid on 8 clusters, where
+    most of its 64 blocks own no column; for the dense one also L^-1 on 16
     ranks and K^-1 with a streamed tail holding none or half of each
     rank's rows in shared memory, the instances of the wide rungs),
     each called by name where the router would pick the cluster form,
@@ -564,7 +566,7 @@ def ragged_twin_checks():
                 "inverse": [("stream", {}), ("cluster", {}),
                             ("tail", {"rows": 0}), ("tail", {"rows": "half"})],
                 "factored": [("stream", {}), ("cluster", {}),
-                             ("global", {})]}
+                             ("global", {}), ("grid", {"groups": 8})]}
     label_of = lambda form, layout: form + "".join(
         f" {k}={v}" for k, v in layout.items())
     forms = list(dict.fromkeys(label_of(f, lay) for v in forms_of.values()
@@ -617,9 +619,10 @@ def ragged_twin_checks():
 # domain): (family, n, m, window k, refine, batch). The service's
 # ladder rungs 1,024 x 128 and 512 x 512 for the dense kinds (L^-1 on
 # 16 ranks, K^-1 with a streamed tail or on its 16 ranks, beside the
-# one-block form); for the factored one (the device-memory form) the
-# 2,048 x 8 rung at a year's window with and without refinement,
-# 1,024 x 128, and the sketch-fed 5,000-asset north star at B = 1.
+# one-block form); for the factored one (the grid form, beside the
+# device-memory form) the 2,048 x 8 rung at a year's window with and
+# without refinement, 1,024 x 128, and the sketch-fed 5,000-asset
+# north star at B = 1.
 GAP_SHAPES = [("triangular", 1024, 128, 24, None, 3),
               ("triangular", 512, 512, 24, None, 3),
               ("inverse", 1024, 128, 24, None, 3),
@@ -636,8 +639,9 @@ def gap_rows(rows):
     twin rule, timed (CUDA events, median of 20) beside its twin, its
     bound and the bytes it moves. For the dense shapes, the one-block
     streaming form keeps its row beside the routed form's, as the
-    yardstick. No run of the main path launches these calls, so the
-    rows' launches are 0. Returns the rows' keys."""
+    yardstick; for the factored ones, the device-memory form. No run of
+    the main path launches these calls, so the rows' launches are 0.
+    Returns the rows' keys."""
     import numpy as np
     import torch
 
@@ -663,12 +667,15 @@ def gap_rows(rows):
                            form=form)
                 keys.append(key if form == "stream" else key + (form,))
         else:
-            chosen = tk.factored_form(n, m, k, refine)
-            rname = (f"admm_segment_factored_global[refine={refine}], gap "
-                     f"{n}x{m} k={k} B={batch}")
-            kernel_row(rows, key, rname, ("woodbury", "cluster"), fn, args,
-                       kw, 0, form="global")
-            keys.append(key)
+            chosen = tk.factored_form(n, m, k, refine, batch=batch)
+            check(chosen == "grid", f"gap {n}x{m} k={k} refine {refine}: "
+                  f"the router picks the grid form ({chosen})")
+            for form in ("global", chosen):
+                rname = (f"admm_segment_factored_{form}[refine={refine}], "
+                         f"gap {n}x{m} k={k} B={batch}")
+                kernel_row(rows, key + (form,), rname, ("woodbury", "cluster"),
+                           fn, args, kw, 0, form=form)
+                keys.append(key + (form,))
         print(f"gap {n}x{m}: the router picks the {chosen} form", flush=True)
     return keys
 
@@ -1438,7 +1445,8 @@ def backtest_phase(rows, reset_counts):
             m = problems.qp.l.shape[-1]
             k = problems.qp.Pf.shape[-2]
             form = (admm_kernel.dense_form(n, m, True) if dense else
-                    admm_kernel.factored_form(n, m, k, prm.woodbury_refine))
+                    admm_kernel.factored_form(n, m, k, prm.woodbury_refine,
+                                              batch=B))
 
             times = []
             for _ in range(2):   # the first run includes the warm-up
@@ -1936,7 +1944,8 @@ def scan_phases(rows, reset_counts):
     scan_sol = sol
     fn, args, kw = scan_kernel_call(lanes, w0, l1w, prm, 2)
     check(fn is K1 and admm_kernel.factored_form(
-        n, 1, args[0].shape[-2], prm.woodbury_refine) == "cluster",
+        n, 1, args[0].shape[-2], prm.woodbury_refine,
+        batch=args[-1].shape[0]) == "cluster",
         "[scan_l1] the chain's kernel call is K1 in its cluster form")
     kernel_row(rows, ("scan_l1", "cluster"),
                "admm_segment_factored_cluster[refine=0]@scan",
@@ -2513,8 +2522,9 @@ def secondary_phase(rows, reset_counts, device="cuda"):
     8c'. The dense and admm arms (woodbury at k = 504 and at the
     sketch's k = 256, refine 0) with the golden's params and
     ``backend="pallas"``: held by 8c's rules, each launching the
-    factored device-memory form (and no other form) at B = 1; its kernel
-    call held against its twin.
+    factored grid form (and no other form) at B = 1; its kernel call
+    held against its twin and timed beside the device-memory form's on
+    the same inputs.
     8e. ``rung_solves``: the dense streaming form, C in device memory,
     on the (1024, 128) rung.
     8d. One profiled compacted ``compact_woodbury`` solve."""
@@ -2558,6 +2568,7 @@ def secondary_phase(rows, reset_counts, device="cuda"):
                     "widths": dict(sorted(f.widths.items()))}
              for name, f in (("K1", K1), ("K2", K2))}
         c["K1"]["global"] = K1.global_launches
+        c["K1"]["grid"] = K1.grid_launches
         c["K2"]["tail"] = K2.tail_launches
         return c
 
@@ -2883,11 +2894,11 @@ def secondary_phase(rows, reset_counts, device="cuda"):
             c = counts()
         print(f"northstar [{arm} pallas]: launches {c}", flush=True)
         northstar_checks(arm, f"{arm} pallas", res, ms)
-        check(c["K1"]["global"] > 0 and c["K1"]["cluster"] == 0
-              and c["K1"]["stream"] == 0
+        check(c["K1"]["grid"] > 0
+              and not any(c["K1"][f] for f in ("cluster", "stream", "global"))
               and not any(c["K2"][f] for f in ("cluster", "tail", "stream")),
-              f"[northstar {arm} pallas] launched the factored device-memory"
-              f" form ({c['K1']['global']}) and no other form")
+              f"[northstar {arm} pallas] launched the factored grid form "
+              f"({c['K1']['grid']}) and no other form")
         # Its kernel call, from the first segment, against the twin.
         qp5 = pt.build_tracking_qp(X5d, y5d, sketch_dim=prm.sketch_dim,
                                    sketch_seed=prm.sketch_seed, draws=draws)
@@ -2895,14 +2906,18 @@ def secondary_phase(rows, reset_counts, device="cuda"):
         fn, args, kw = segment_kernel_call(carry, scaled, prm)
         n5, k5 = args[0].shape[-1], args[0].shape[-2]
         check(fn is K1 and admm_kernel.factored_form(
-            n5, args[6].shape[-2], k5, kw["refine_steps"]) == "global",
-              f"[northstar {arm} pallas] its kernel call goes to the "
-              f"device-memory form")
-        key = f"northstar_{arm}_k1"
-        kernel_row(rows, key, f"admm_segment_factored_global[refine="
-                   f"{kw['refine_steps']}], northstar {arm} k={k5}",
-                   ("woodbury", "cluster"), fn, args, kw, c["K1"]["global"])
-        added.append(key)
+            n5, args[6].shape[-2], k5, kw["refine_steps"],
+            batch=args[-1].shape[0]) == "grid",
+              f"[northstar {arm} pallas] its kernel call goes to the grid "
+              f"form")
+        for form, launched in (("grid", c["K1"]["grid"]), ("global", 0)):
+            key = f"northstar_{arm}_k1" + ("" if form == "grid"
+                                           else f"_{form}")
+            kernel_row(rows, key, f"admm_segment_factored_{form}[refine="
+                       f"{kw['refine_steps']}], northstar {arm} k={k5}",
+                       ("woodbury", "cluster"), fn, args, kw, launched,
+                       form=form)
+            added.append(key)
 
     # -- 8e. the (1024, 128) rung through the dense streaming form -------
     added += rung_solves(rows, reset_counts, counts, synced, device)
@@ -3047,7 +3062,8 @@ def rung_solves(rows, reset_counts, counts, synced, device="cuda"):
         form = admm_kernel.dense_form(*RUNG, kind == "trinv")
         others = [f for f in ("cluster", "tail", "stream") if f != form]
         check(c["K2"][form] >= 2 and not any(c["K2"][f] for f in others)
-              and not any(c["K1"][f] for f in ("cluster", "stream", "global")),
+              and not any(c["K1"][f] for f in ("cluster", "stream", "grid",
+                                               "global")),
               f"[rung {kind}] chained {c['K2'][form]} launches of the dense "
               f"{form} form (two or more) and no other form")
         check(np.array_equal(status, sol32.status.cpu().numpy()),
@@ -5725,6 +5741,21 @@ def global_shape(dense, args, kw):
             lib.porqua_admm_cluster_global_max_active(*shape))
 
 
+def grid_shape(dense, args, kw):
+    """(shared bytes per block, resident clusters) of the factored grid
+    form at this call's shape, at the G the router takes for its batch
+    width."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    lib = admm_kernel._library(admm_kernel._CLUSTER_LIB)
+    B, k, n = args[0].shape
+    shape = (n, args[6].shape[-2], k, kw["refine_steps"])
+    groups = lib.porqua_admm_cluster_grid_groups(*shape, B)
+    return (f"G={groups}: "
+            f"{lib.porqua_admm_cluster_grid_smem_bytes(*shape, groups)}",
+            lib.porqua_admm_cluster_grid_max_active(*shape, groups))
+
+
 def tail_shape(dense, args, kw):
     """(shared bytes per block, resident clusters) of the dense cluster
     with a streamed tail at this call's shape."""
@@ -5760,7 +5791,7 @@ def dense_layout(args, kw, form):
 
 
 SHAPE_OF = {"cluster": cluster_shape, "stream": stream_shape,
-            "global": global_shape, "tail": tail_shape}
+            "global": global_shape, "grid": grid_shape, "tail": tail_shape}
 
 
 def form_of(dense, args, kw):
@@ -5772,7 +5803,7 @@ def form_of(dense, args, kw):
                                       kw["triangular"])
     B, k, n = args[0].shape
     return admm_kernel.factored_form(n, args[6].shape[-2], k,
-                                     kw["refine_steps"])
+                                     kw["refine_steps"], batch=B)
 
 
 def main():
@@ -5945,6 +5976,7 @@ def main():
             f.launches = f.cluster_launches = f.stream_launches = 0
             f.widths = {}
         admm_kernel.admm_segment_factored.global_launches = 0
+        admm_kernel.admm_segment_factored.grid_launches = 0
         admm_kernel.admm_segment.tail_launches = 0
 
     def timed(prm):

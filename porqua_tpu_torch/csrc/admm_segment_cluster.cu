@@ -1,5 +1,5 @@
 // Fused factored (Woodbury) ADMM segment for Hopper (sm_90a), float32:
-// one problem per cluster of 8 thread blocks.
+// one problem per cluster of 8 thread blocks, or per G such clusters.
 //
 // Replaces porqua_tpu/ops/admm_kernel.py:340 (admm_segment_factored ->
 // _factored_segment_kernel). Each launch runs n_iters OSQP iterations
@@ -54,7 +54,7 @@
 // reduction and the elementwise updates are shared with the other
 // kernels (cluster_common.cuh).
 //
-// The device-memory form (cluster_kernel<true>,
+// The device-memory form (cluster_kernel<Form::device>,
 // porqua_admm_segment_factored_global) is the same cluster of 8 blocks
 // and the same reductions, for the shapes where a block's slices do not
 // fit its shared memory (the 5,000-asset sketch shape: 256 x 625 floats
@@ -72,12 +72,54 @@
 // as in the streaming form (admm_segment.cu, FactoredSolve): at these
 // widths the rounding of an f32 C x0 comes back amplified in the row's
 // dual. C x0 is summed over the cluster in f64 through the same
-// alternating DSMEM buffers as W r.
+// alternating DSMEM buffers as W r. It runs on 8 SMs and is bound by
+// the latency of its loads through L2 (10.4 and 5.4 ms a launch at the
+// 5,000-asset arms, k = 504 and 256, on an H100).
 //
-// The shared-memory sizes have one definition each, smem_floats<false>
-// and smem_floats<true>, which the launchers use and the Python wrapper
-// asks for (porqua_admm_cluster_smem_bytes,
-// porqua_admm_cluster_global_smem_bytes) before it chooses a form.
+// The grid form (cluster_kernel<Form::grid>,
+// porqua_admm_segment_factored_grid) serves the same shapes with the
+// operator resident: one problem on G clusters of 8 blocks (G <= 16),
+// global rank R = 8 g + r owning columns [R nc, (R+1) nc), nc =
+// ceil(n / 8 G), with the cluster form's layout and products (W, V, C,
+// Y0 slices and Ginv in shared memory, read from device memory once per
+// launch) and the device-memory form's f64 Schur step. Each of the
+// three reductions of an iteration is summed in two levels, in a fixed
+// order: over the cluster as above, then over the G clusters through a
+// scratch buffer in device memory that the wrapper allocates zeroed:
+// rank 0 of group g writes its cluster's sum to slot g, then
+// __threadfence() and a per-group sequence flag stored st.release.gpu;
+// every block waits for the G flags with ld.acquire.gpu and sums the G
+// slots in group order, read with ld.global.cg (L2, never the
+// non-coherent path, which may return data written earlier in the same
+// launch). Every block of every group then holds bitwise the same sum
+// and makes the same m-vector updates, and two calls give the same
+// bits. The slots alternate between two buffers by the parity of the
+// exchange, so one wait per exchange is enough: group g writes buffer p
+// for exchange s + 2 only after it has seen every group's flag for
+// exchange s + 1, and a group raises that flag only after all its
+// blocks have read exchange s (for the k-long sums they have passed the
+// cluster.sync of s + 1, for the m-long ones rank 0 has received every
+// rank's st.async of s + 1, each issued after that block's read of s).
+// A spin on a group that is not resident would never end, so the
+// grid's groups must all be resident at once: the wrapper launches the
+// grid form only where B G clusters fit the card at once
+// (porqua_admm_cluster_grid_max_active, the occupancy of this very
+// configuration), the launch carries cudaLaunchAttributeCooperative
+// beside the cluster dimension (CUDA 12.8 accepts the pair and refuses
+// a grid that cannot be co-resident: error 720, too many blocks in
+// cooperative launch, on an H100), and every spin ends in __trap()
+// after about a second (2^31 clock cycles), a launch fault at the next
+// synchronize rather than a hang. Blocks with no columns (ragged n,
+// large G) take part in every reduction with zero partials. What is
+// left is latency: an iteration at refine 0 is three reductions, each
+// a cluster.sync, a fence, a flag and a read through L2, about 17-24
+// us an iteration at the 5,000-asset arms on an H100.
+//
+// The shared-memory sizes have one definition each, smem_floats<F>,
+// which the launchers use and the Python wrapper asks for
+// (porqua_admm_cluster_smem_bytes, porqua_admm_cluster_global_smem_bytes,
+// porqua_admm_cluster_grid_smem_bytes) before it chooses a form; the
+// grid's group count G has one rule, grid_groups (see there).
 // Plain C interface for ctypes: every launcher returns
 // cudaGetLastError().
 
@@ -99,7 +141,15 @@ namespace {
 constexpr int kCluster = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroups = 16;
 constexpr unsigned kFull = 0xffffffffu;
+// A grid exchange's spin gives up (__trap) after this many SM clock
+// cycles: about a second at the H100's clocks.
+constexpr long long kSpinCycles = 1ll << 31;
+
+// resident: the cluster form; device: the device-memory form; grid: G
+// clusters per problem, the operator resident.
+enum class Form { resident, device, grid };
 
 struct Inputs {
   // per-problem arrays (batch-strided), row-major
@@ -113,16 +163,20 @@ struct Inputs {
   const float *q, *l, *u, *lb, *ub, *rho, *rho_b, *l1w, *l1c;
   const float *x, *z, *w, *y, *mu;
   float *x_out, *z_out, *w_out, *y_out, *mu_out, *dx_out, *dy_out, *dmu_out;
-  int n, m, k, n_iters, refine_steps;
+  float* scratch;  // grid: grid_scratch_floats per problem, zeroed
+  int n, m, k, n_iters, refine_steps, groups;
   float sigma, alpha, one_m_alpha;
 };
 
-// Columns per rank, and the row stride of every column-slice array.
-__host__ __device__ inline int slice_cols(int n) {
-  return (n + kCluster - 1) / kCluster;
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Columns per rank over `ranks` blocks, and the row stride of every
+// column-slice array.
+__host__ __device__ inline int slice_cols(int n, int ranks) {
+  return (n + ranks - 1) / ranks;
 }
-__host__ __device__ inline int slice_ld(int n) {
-  return (slice_cols(n) + 3) & ~3;
+__host__ __device__ inline int slice_ld(int n, int ranks) {
+  return round4(slice_cols(n, ranks));
 }
 
 // The float4 columns of row i of a W or V slice are stored permuted,
@@ -151,26 +205,34 @@ enum SliceVec {  // n-vectors, this block's columns
 };
 enum MVec { kZ, kY, kL, kU, kRho, kZt, kYPrev, kS, kVecM };  // m-vectors
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
-
-// The device-memory form's partial buffers: two of max(k, 2 m) floats,
-// for the k-long f32 reductions and the m-long f64 one.
+// The partial buffers of the forms with an f64 Schur step: two of
+// max(k, 2 m) floats, for the k-long f32 reductions and the m-long f64
+// one. The grid's device-memory slots have the same length.
 __host__ __device__ inline int global_ring(int k, int m) {
   return round4(k > 2 * m ? k : 2 * m);
 }
 
-// kDev: the device-memory form's layout (no W, V, C, Y0 or Ginv; f64
-// C x0 and its Ginv product at the end), else the cluster form's.
-template <bool kDev>
+// The grid's scratch per problem, in floats: G sequence flags (rounded
+// up to 4), then two buffers of G slots of global_ring floats.
+__host__ __device__ inline size_t grid_scratch_floats(int k, int m,
+                                                      int groups) {
+  return round4(groups) + 2 * (size_t)groups * global_ring(k, m);
+}
+
+// The layout of form F on `ranks` blocks per problem: the device form
+// keeps no W, V, C, Y0 or Ginv; the device and grid forms end with f64
+// C x0 and its Ginv product.
+template <Form F>
 struct Layout {
   int ld, swz, k, m;  // slice row stride and swizzle, W's rows, m
   int rlen;           // floats per partial buffer
   int vec, c, y0, parts, bars, t, ring, recv, mvec, ginv, sd;  // offsets
 
-  __device__ Layout(int n, int m_, int k_, int refine) : k(k_), m(m_) {
-    ld = slice_ld(n);
+  __device__ Layout(int n, int m_, int k_, int refine, int ranks)
+      : k(k_), m(m_) {
+    ld = slice_ld(n, ranks);
     swz = slice_swizzle(ld);
-    if constexpr (kDev) {
+    if constexpr (F == Form::device) {
       vec = 0;
       c = y0 = ginv = -1;
       parts = vec + kVecSlice * ld;
@@ -189,12 +251,21 @@ struct Layout {
       parts = y0 + m * ld;
       bars = parts + kWarps * ld;  // two mbarriers, 16-byte aligned
       t = bars + 4;
-      rlen = k;
-      ring = t + k;
-      recv = ring + 2 * k;
+      if constexpr (F == Form::grid) {
+        rlen = global_ring(k, m);
+        ring = t + round4(k);
+      } else {
+        rlen = k;
+        ring = t + k;
+      }
+      recv = ring + 2 * rlen;
       mvec = recv + 2 * kCluster * m;
       ginv = mvec + kVecM * m;
       sd = -1;
+      if constexpr (F == Form::grid) {
+        sd = ginv + m * m;
+        sd += sd & 1;
+      }
     }
   }
   __device__ float* W() const { return smem; }
@@ -209,17 +280,17 @@ struct Layout {
   __device__ float* Ring(int i) const { return smem + ring + i * rlen; }
   __device__ float* Recv(int i) const { return smem + recv + i * kCluster * m; }
   __device__ float* Ginv() const { return smem + ginv; }
-  // kDev: C x0, then vv = (C x0) Ginv, m doubles each.
+  // device, grid: C x0, then vv = (C x0) Ginv, m doubles each.
   __device__ double* Sd() const {
     return reinterpret_cast<double*>(smem + sd);
   }
 };
 
-template <bool kDev>
-__host__ __device__ inline size_t smem_floats(int n, int m, int k,
-                                              int refine) {
-  const size_t ld = slice_ld(n);
-  if constexpr (kDev) {
+template <Form F>
+__host__ __device__ inline size_t smem_floats(int n, int m, int k, int refine,
+                                              int ranks) {
+  const size_t ld = slice_ld(n, ranks);
+  if constexpr (F == Form::device) {
     size_t f = (size_t)kVecSlice * ld             // slice vectors
                + (size_t)kWarps * ld              // W't partials
                + 4                                // mbarriers
@@ -228,6 +299,18 @@ __host__ __device__ inline size_t smem_floats(int n, int m, int k,
                + 2 * (size_t)kCluster * m         // m-partials received
                + (size_t)kVecM * m;               // m-vectors
     return f + (f & 1) + 4 * (size_t)m;           // C x0, vv in f64
+  }
+  if constexpr (F == Form::grid) {
+    size_t f = (size_t)k * ld * (refine > 0 ? 2 : 1)  // W (V)
+               + (size_t)kVecSlice * ld               // slice vectors
+               + 2 * (size_t)m * ld                   // C, Y0
+               + (size_t)kWarps * ld                  // W't partials
+               + 4                                    // mbarriers
+               + round4(k)                            // t
+               + 2 * (size_t)global_ring(k, m)        // partial buffers
+               + 2 * (size_t)kCluster * m             // m-partials received
+               + (size_t)kVecM * m + (size_t)m * m;   // m-vectors, Ginv
+    return f + (f & 1) + 4 * (size_t)m;               // C x0, vv in f64
   }
   return (size_t)k * ld * (refine > 0 ? 2 : 1)  // W (V)
          + (size_t)kVecSlice * ld               // slice vectors
@@ -375,7 +458,9 @@ __device__ __forceinline__ void cols_times_global(const float* t,
 }
 
 // out[r] = sum_{j < cols} C[r ldm + j] v[j] for r < rows, in f64: a
-// warp per row.
+// warp per row. kGlobalMem: C in device memory (read through __ldg),
+// else in shared memory.
+template <bool kGlobalMem>
 __device__ __forceinline__ void rows_dot_f64(const float* C, int ldm,
                                              int rows, int cols,
                                              const float* v, double* out) {
@@ -383,32 +468,96 @@ __device__ __forceinline__ void rows_dot_f64(const float* C, int ldm,
   for (int r = warp; r < rows; r += kWarps) {
     const float* row = C + (size_t)r * ldm;
     double acc = 0.0;
-    for (int j = lane; j < cols; j += 32) acc += (double)__ldg(row + j) * v[j];
+    for (int j = lane; j < cols; j += 32) {
+      const float c = kGlobalMem ? __ldg(row + j) : row[j];
+      acc += (double)c * v[j];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
     if (lane == 0) out[r] = acc;
   }
 }
 
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
 // One block's view of its problem: its columns and its shared memory.
-// kDev: the device-memory form, whose operator, C, Y0 and Ginv are read
-// from device memory through the pointers below.
-template <bool kDev>
+// device: the operator, C, Y0 and Ginv are read from device memory
+// through the pointers below. grid: the block is rank r of group g of
+// its problem's G clusters, and every reduction ends in exchange().
+template <Form F>
 struct Block {
   cg::cluster_group cluster;
-  Layout<kDev> L;
+  Layout<F> L;
   int cols;      // this rank's column count (maybe 0)
   int flip;      // which partial buffer the next k-reduction uses
   int mflip;     // which receive buffer the next m-reduction uses
   unsigned mphase;  // bit p: the phase parity mbarrier p waits for
-  // kDev: this block's columns of W, V, C (row stride n) and rows of
+  // device: this block's columns of W, V, C (row stride n) and rows of
   // Y0, and Ginv, in device memory.
   const float *W, *V, *C, *Y0, *Ginv;
   int n;
+  // grid: this problem's flags and slot buffers, the group count, this
+  // block's group, and the exchanges done so far.
+  unsigned* flags;
+  float* slots;
+  int groups, group;
+  unsigned seq;
 
-  // out[0:len] = the sum over the cluster's blocks, in rank order, of
-  // what partial(buffer) wrote to each block's buffer. Every block of
-  // the cluster calls it at the same point.
+  // out[0:len] (this block's cluster's sum, the same in every block of
+  // the cluster) becomes the sum over the problem's G clusters, in
+  // group order, through the slot buffers in device memory. Every block
+  // of the problem calls it at the same point.
+  template <class T>
+  __device__ __forceinline__ void exchange(int len, T* out) {
+    constexpr int kPer = sizeof(T) / sizeof(float);
+    const int slot = L.rlen / kPer;  // T per slot
+    T* buf = reinterpret_cast<T*>(slots + (size_t)(seq & 1) * groups * L.rlen);
+    if (cluster.block_rank() == 0) {
+      T* mine = buf + (size_t)group * slot;
+      for (int i = threadIdx.x; i < len; i += kThreads) __stcg(mine + i, out[i]);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        store_release(flags + group, seq + 1);
+      }
+    }
+    if (threadIdx.x < groups) {
+      const long long t0 = clock64();
+      while (load_acquire(flags + threadIdx.x) < seq + 1)
+        if (clock64() - t0 > kSpinCycles) __trap();
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      T v[kMaxGroups];
+#pragma unroll
+      for (int g = 0; g < kMaxGroups; ++g)
+        if (g < groups) v[g] = __ldcg(buf + (size_t)g * slot + i);
+      T acc = v[0];
+#pragma unroll
+      for (int g = 1; g < kMaxGroups; ++g)
+        if (g < groups) acc += v[g];
+      out[i] = acc;
+    }
+    __syncthreads();
+    ++seq;
+  }
+
+  // out[0:len] = the sum over the problem's blocks of what
+  // partial(buffer) wrote to each block's buffer: over the cluster in
+  // rank order, then (grid) over the clusters in group order. Every
+  // block of the problem calls it at the same point.
   template <class T, class Partial>
   __device__ __forceinline__ void reduce(int len, T* out, Partial partial) {
     T* buf = reinterpret_cast<T*>(L.Ring(flip));
@@ -428,13 +577,15 @@ struct Block {
       out[i] = acc;
     }
     __syncthreads();
+    if constexpr (F == Form::grid) exchange(len, out);
   }
 
-  // out = C v (m long), summed over the cluster (reduce_rows).
+  // out = C v (m long), summed over the problem's blocks (reduce_rows,
+  // then the grid's exchange).
   __device__ __forceinline__ void reduce_rows(const float* v, float* out) {
     const int p = mflip;
     mflip ^= 1;
-    if constexpr (kDev) {
+    if constexpr (F == Form::device) {
       ::reduce_rows<kCluster, kThreads>(
           C, n, L.m, cols, v, L.Recv(p), shared_addr(L.Bar(p)),
           (mphase >> p) & 1u, (int)cluster.block_rank(), out);
@@ -444,16 +595,17 @@ struct Block {
           (mphase >> p) & 1u, (int)cluster.block_rank(), out);
     }
     mphase ^= 1u << p;
+    if constexpr (F == Form::grid) exchange(L.m, out);
   }
 
   // store(j, t[j]) for t = v M' M restricted to this block's columns,
-  // M = W or V (which: 0 or 1): the k-long M v summed over the cluster,
+  // M = W or V (which: 0 or 1): the k-long M v summed over the problem,
   // then M' of it on this block's columns.
   template <class Store>
   __device__ __forceinline__ void gram(int which, const float* v,
                                        Store store) {
-    const Layout<kDev> L = this->L;
-    if constexpr (kDev) {
+    const Layout<F> L = this->L;
+    if constexpr (F == Form::device) {
       const float* M = which ? V : W;
       const int n = this->n, cols = this->cols;
       reduce(L.k, L.T(), [=](float* buf) {
@@ -478,7 +630,7 @@ struct Block {
 
   // xt = x0 - Y0 (Ginv (C x0)), x0 = base(rhs) refined refine_steps times.
   __device__ __forceinline__ void solve(int refine_steps) {
-    const Layout<kDev> L = this->L;
+    const Layout<F> L = this->L;
     const int m = L.m;
     float *rhs = L.v(kRhs), *x0 = L.v(kX0), *r = L.v(kR);
     base(rhs, [=](int j, float v) { x0[j] = v; });
@@ -490,29 +642,7 @@ struct Block {
       base(r, [=](int j, float v) { x0[j] += v; });
     }
     float* xt = L.v(kXt);
-    if constexpr (kDev) {
-      // In f64, as the streaming form: sd = C x0 summed over the
-      // cluster, vv = sd Ginv, xt = x0 - Y0 vv.
-      double *sd = L.Sd(), *vv = sd + m;
-      const float *C = this->C, *Y0 = this->Y0, *Ginv = this->Ginv;
-      const int n = this->n, cols = this->cols;
-      reduce(m, sd, [=](double* buf) {
-        rows_dot_f64(C, n, m, cols, x0, buf);
-      });
-      for (int c = threadIdx.x; c < m; c += kThreads) {
-        double acc = 0.0;
-        for (int q = 0; q < m; ++q)
-          acc += sd[q] * (double)__ldg(Ginv + (size_t)q * m + c);
-        vv[c] = acc;
-      }
-      __syncthreads();
-      for (int j = threadIdx.x; j < cols; j += kThreads) {
-        const float* y0 = Y0 + (size_t)j * m;
-        double acc = 0.0;
-        for (int c = 0; c < m; ++c) acc += (double)__ldg(y0 + c) * vv[c];
-        xt[j] = (float)(x0[j] - acc);
-      }
-    } else {
+    if constexpr (F == Form::resident) {
       float* s = L.mv(kS);
       reduce_rows(x0, s);
       // xt = x0 - Y0 vv, vv = s Ginv: each thread forms vv itself.
@@ -526,13 +656,44 @@ struct Block {
         }
         xt[j] = x0[j] - acc;
       }
+    } else {
+      // In f64, as the streaming form: sd = C x0 summed over the
+      // problem, vv = sd Ginv, xt = x0 - Y0 vv.
+      constexpr bool kDev = F == Form::device;
+      double *sd = L.Sd(), *vv = sd + m;
+      const float* C = kDev ? this->C : L.C();
+      const float* Y0 = kDev ? this->Y0 : L.Y0();
+      const float* Ginv = kDev ? this->Ginv : L.Ginv();
+      const int ldc = kDev ? this->n : L.ld, cols = this->cols;
+      reduce(m, sd, [=](double* buf) {
+        rows_dot_f64<kDev>(C, ldc, m, cols, x0, buf);
+      });
+      for (int c = threadIdx.x; c < m; c += kThreads) {
+        double acc = 0.0;
+        for (int q = 0; q < m; ++q) {
+          const float g = kDev ? __ldg(Ginv + (size_t)q * m + c)
+                               : Ginv[(size_t)q * m + c];
+          acc += sd[q] * (double)g;
+        }
+        vv[c] = acc;
+      }
+      __syncthreads();
+      for (int j = threadIdx.x; j < cols; j += kThreads) {
+        const float* y0 = Y0 + (size_t)j * m;
+        double acc = 0.0;
+        for (int c = 0; c < m; ++c) {
+          const float y = kDev ? __ldg(y0 + c) : y0[c];
+          acc += (double)y * vv[c];
+        }
+        xt[j] = (float)(x0[j] - acc);
+      }
     }
     __syncthreads();
   }
 
   // One OSQP iteration (the counterpart of _make_iteration).
   __device__ __forceinline__ void iteration(const Inputs& a) {
-    const Layout<kDev> L = this->L;
+    const Layout<F> L = this->L;
     const int m = L.m, ld = L.ld;
     const float al = a.alpha, one_m_al = a.one_m_alpha, sig = a.sigma;
     float *z = L.mv(kZ), *y = L.mv(kY), *zt = L.mv(kZt);
@@ -541,7 +702,7 @@ struct Block {
     const float *q = L.v(kQ), *lb = L.v(kLb), *ub = L.v(kUb);
     const float *rho_b = L.v(kRhoB), *l1w = L.v(kL1w), *l1c = L.v(kL1c);
     // rhs = sigma x - q + C'(rho z - y) + (rho_b w - mu)
-    if constexpr (kDev) {
+    if constexpr (F == Form::device) {
       const float* C = this->C;
       const int n = this->n;
       for (int j = threadIdx.x; j < cols; j += kThreads) {
@@ -572,19 +733,27 @@ struct Block {
   }
 };
 
-template <bool kDev>
-__global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
+// Three blocks of the resident and device forms share an SM at the
+// tracking shape; the grid's blocks are large (at most two an SM at
+// its shapes), so it takes the registers of two and spills less.
+template <Form F>
+__global__ void __launch_bounds__(kThreads, F == Form::grid ? 2 : 3)
+    cluster_kernel(Inputs a) {
   const int n = a.n, m = a.m, k = a.k, refine = a.refine_steps;
-  Block<kDev> blk{cg::this_cluster(), Layout<kDev>(n, m, k, refine), 0, 0, 0,
-                  0u};
-  const Layout<kDev> L = blk.L;
+  const int groups = F == Form::grid ? a.groups : 1;
+  const int ranks = kCluster * groups;
+  Block<F> blk{cg::this_cluster(), Layout<F>(n, m, k, refine, ranks), 0, 0, 0,
+               0u};
+  const Layout<F> L = blk.L;
   const int ld = L.ld;
-  const size_t b = blockIdx.x / kCluster;
-  const int nc = slice_cols(n);
-  const int c0 = min(n, (int)blk.cluster.block_rank() * nc);
+  const size_t cid = blockIdx.x / kCluster;  // this block's cluster
+  const size_t b = cid / groups;             // its problem
+  const int group = (int)(cid % groups);
+  const int nc = slice_cols(n, ranks);
+  const int c0 = min(n, (group * kCluster + (int)blk.cluster.block_rank()) * nc);
   const int cols = min(n, c0 + nc) - c0;
   blk.cols = cols;
-  if constexpr (kDev) {
+  if constexpr (F == Form::device) {
     blk.n = n;
     blk.W = a.W + b * k * n + c0;
     blk.V = a.V + b * k * n + c0;
@@ -592,10 +761,18 @@ __global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
     blk.Y0 = a.Y0 + (b * n + c0) * m;
     blk.Ginv = a.Ginv + b * m * m;
   }
+  if constexpr (F == Form::grid) {
+    float* scratch = a.scratch + b * grid_scratch_floats(k, m, groups);
+    blk.flags = reinterpret_cast<unsigned*>(scratch);
+    blk.slots = scratch + round4(groups);
+    blk.groups = groups;
+    blk.group = group;
+    blk.seq = 0u;
+  }
 
   // Zero first: the float4 products read the slices past their last
   // column, and those entries must be 0.
-  const int total = (int)smem_floats<kDev>(n, m, k, refine);
+  const int total = (int)smem_floats<F>(n, m, k, refine, ranks);
   for (int i = threadIdx.x; i < total; i += kThreads) smem[i] = 0.f;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -603,7 +780,7 @@ __global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
     fence_barrier_init();
   }
   if (refine > 0) copy(L.v(kDv), a.Dv + b * n + c0, cols);
-  if constexpr (!kDev) {
+  if constexpr (F != Form::device) {
     // The operator slices, read from device memory once per launch.
     copy_cols(L.W(), ld, L.swz, a.W + b * k * n + c0, n, k, cols);
     if (refine > 0)
@@ -656,7 +833,7 @@ __global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
     a.dx_out[o] = x[j] - xprev[j];
     a.dmu_out[o] = mu[j] - muprev[j];
   }
-  if (blk.cluster.block_rank() == 0) {
+  if (group == 0 && blk.cluster.block_rank() == 0) {
     const float* z = L.mv(kZ);
     for (int r = threadIdx.x; r < m; r += kThreads) {
       a.z_out[b * m + r] = z[r];
@@ -668,58 +845,90 @@ __global__ void __launch_bounds__(kThreads, 3) cluster_kernel(Inputs a) {
   blk.cluster.sync();
 }
 
-// The launch configuration; attr must outlive cfg.
-cudaLaunchConfig_t config(int batch, size_t bytes, cudaStream_t stream,
-                          cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kCluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
+// The launch configuration of `clusters` clusters; attrs (two) must
+// outlive cfg. The grid form's launch is cooperative as well.
+template <Form F>
+cudaLaunchConfig_t config(int clusters, size_t bytes, cudaStream_t stream,
+                          cudaLaunchAttribute* attrs) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * batch, 1, 1);
+  cfg.gridDim = dim3(kCluster * clusters, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = F == Form::grid ? 2 : 1;
   return cfg;
 }
 
-template <bool kDev>
-size_t smem_bytes(int n, int m, int k, int refine) {
-  return smem_floats<kDev>(n, m, k, refine) * sizeof(float);
+template <Form F>
+size_t smem_bytes(int n, int m, int k, int refine, int groups) {
+  return smem_floats<F>(n, m, k, refine, kCluster * groups) * sizeof(float);
 }
 
-template <bool kDev>
+template <Form F>
 cudaError_t set_smem(size_t bytes) {
-  return cudaFuncSetAttribute(cluster_kernel<kDev>,
+  return cudaFuncSetAttribute(cluster_kernel<F>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-template <bool kDev>
-int clamped_smem_bytes(int n, int m, int k, int refine_steps) {
-  const size_t bytes = smem_bytes<kDev>(n, m, k, refine_steps);
+template <Form F>
+int clamped_smem_bytes(int n, int m, int k, int refine_steps, int groups) {
+  const size_t bytes = smem_bytes<F>(n, m, k, refine_steps, groups);
   return bytes > (size_t)INT_MAX ? INT_MAX : (int)bytes;
 }
 
 // How many 8-block clusters of this shape the card can hold at once;
 // a negative value is a CUDA error code, negated.
-template <bool kDev>
-int max_active(int n, int m, int k, int refine_steps) {
-  const size_t bytes = smem_bytes<kDev>(n, m, k, refine_steps);
-  cudaError_t err = set_smem<kDev>(bytes);
+template <Form F>
+int max_active(int n, int m, int k, int refine_steps, int groups) {
+  const size_t bytes = smem_bytes<F>(n, m, k, refine_steps, groups);
+  cudaError_t err = set_smem<F>(bytes);
   if (err != cudaSuccess) return -(int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config(1, bytes, 0, &attr);
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg = config<F>(1, bytes, 0, attrs);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &count, (const void*)cluster_kernel<kDev>, &cfg);
+      &count, (const void*)cluster_kernel<F>, &cfg);
   if (err != cudaSuccess) return -(int)err;
   return count;
 }
 
-template <bool kDev>
+// The grid's group count for `batch` problems of this shape: the
+// fewest groups, up to kMaxGroups, whose slices fit a block's shared
+// memory and of which the card can hold batch * G clusters at once;
+// 0 where there is none, a negative CUDA error code on a failed query.
+// Raced against the most groups the card holds for one problem
+// (scripts/torch_form_race.py, H100 80GB HBM3 at 700 W, B = 1, ms a
+// launch, two turns): 0.743-0.807 (G = 7) against 0.765-0.861 (16) at
+// 5,000 x 504; 0.606-0.623 (4) against 0.619-0.624 (16) at 5,000 x
+// 256; 1.001-1.031 (3) against 0.984-0.989 (16) at 2,048 x 8, refine
+// 1. The fewest is as fast within the noise and leaves the other SMs
+// free.
+int grid_groups(int n, int m, int k, int refine_steps, int batch) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  for (int g = 1; g <= kMaxGroups; ++g) {
+    if (smem_bytes<Form::grid>(n, m, k, refine_steps, g) > (size_t)limit)
+      continue;
+    const int active = max_active<Form::grid>(n, m, k, refine_steps, g);
+    if (active < 0) return active;
+    if ((long long)batch * g <= active) return g;
+  }
+  return 0;
+}
+
+template <Form F>
 int launch_segment(
     const float* W, const float* inv_d, const float* Y0, const float* Ginv,
     const float* V, const float* Dv, const float* C, const float* q,
@@ -727,9 +936,10 @@ int launch_segment(
     const float* rho, const float* rho_b, const float* l1w, const float* l1c,
     const float* x, const float* z, const float* w, const float* y,
     const float* mu, float* x_out, float* z_out, float* w_out, float* y_out,
-    float* mu_out, float* dx_out, float* dy_out, float* dmu_out, int batch,
-    int n, int m, int k, int n_iters, float sigma, float alpha,
-    float one_m_alpha, int refine_steps, void* stream) {
+    float* mu_out, float* dx_out, float* dy_out, float* dmu_out,
+    float* scratch, int batch, int n, int m, int k, int n_iters, int groups,
+    float sigma, float alpha, float one_m_alpha, int refine_steps,
+    void* stream) {
   Inputs a{};
   a.W = W; a.inv_d = inv_d; a.Y0 = Y0; a.Ginv = Ginv; a.V = V; a.Dv = Dv;
   a.C = C; a.q = q; a.l = l; a.u = u; a.lb = lb; a.ub = ub;
@@ -737,17 +947,21 @@ int launch_segment(
   a.x = x; a.z = z; a.w = w; a.y = y; a.mu = mu;
   a.x_out = x_out; a.z_out = z_out; a.w_out = w_out; a.y_out = y_out;
   a.mu_out = mu_out; a.dx_out = dx_out; a.dy_out = dy_out; a.dmu_out = dmu_out;
+  a.scratch = scratch;
   a.n = n; a.m = m; a.k = k; a.n_iters = n_iters;
   a.refine_steps = refine_steps;
+  a.groups = groups;
   a.sigma = sigma; a.alpha = alpha; a.one_m_alpha = one_m_alpha;
-  const size_t bytes = smem_bytes<kDev>(n, m, k, refine_steps);
-  cudaError_t err = set_smem<kDev>(bytes);
+  if (F == Form::grid && (groups < 1 || groups > kMaxGroups))
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes<F>(n, m, k, refine_steps, groups);
+  cudaError_t err = set_smem<F>(bytes);
   if (err != cudaSuccess) return (int)err;
   if (batch > 0) {
-    cudaLaunchAttribute attr;
+    cudaLaunchAttribute attrs[2];
     const cudaLaunchConfig_t cfg =
-        config(batch, bytes, (cudaStream_t)stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, cluster_kernel<kDev>, a);
+        config<F>(batch * groups, bytes, (cudaStream_t)stream, attrs);
+    err = cudaLaunchKernelEx(&cfg, cluster_kernel<F>, a);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
@@ -758,21 +972,42 @@ int launch_segment(
 extern "C" {
 
 int porqua_admm_cluster_smem_bytes(int n, int m, int k, int refine_steps) {
-  return clamped_smem_bytes<false>(n, m, k, refine_steps);
+  return clamped_smem_bytes<Form::resident>(n, m, k, refine_steps, 1);
 }
 
 int porqua_admm_cluster_global_smem_bytes(int n, int m, int k,
                                           int refine_steps) {
-  return clamped_smem_bytes<true>(n, m, k, refine_steps);
+  return clamped_smem_bytes<Form::device>(n, m, k, refine_steps, 1);
+}
+
+int porqua_admm_cluster_grid_smem_bytes(int n, int m, int k,
+                                        int refine_steps, int groups) {
+  if (groups < 1 || groups > kMaxGroups) return INT_MAX;
+  return clamped_smem_bytes<Form::grid>(n, m, k, refine_steps, groups);
 }
 
 int porqua_admm_cluster_max_active(int n, int m, int k, int refine_steps) {
-  return max_active<false>(n, m, k, refine_steps);
+  return max_active<Form::resident>(n, m, k, refine_steps, 1);
 }
 
 int porqua_admm_cluster_global_max_active(int n, int m, int k,
                                           int refine_steps) {
-  return max_active<true>(n, m, k, refine_steps);
+  return max_active<Form::device>(n, m, k, refine_steps, 1);
+}
+
+int porqua_admm_cluster_grid_max_active(int n, int m, int k,
+                                        int refine_steps, int groups) {
+  if (groups < 1 || groups > kMaxGroups) return -(int)cudaErrorInvalidValue;
+  return max_active<Form::grid>(n, m, k, refine_steps, groups);
+}
+
+int porqua_admm_cluster_grid_groups(int n, int m, int k, int refine_steps,
+                                    int batch) {
+  return grid_groups(n, m, k, refine_steps, batch);
+}
+
+int porqua_admm_cluster_grid_scratch_floats(int m, int k, int groups) {
+  return (int)grid_scratch_floats(k, m, groups);
 }
 
 #define PORQUA_FACTORED_ARGS                                                 \
@@ -783,21 +1018,43 @@ int porqua_admm_cluster_global_max_active(int n, int m, int k,
       const float *l1c, const float *x, const float *z, const float *w,      \
       const float *y, const float *mu, float *x_out, float *z_out,           \
       float *w_out, float *y_out, float *mu_out, float *dx_out,              \
-      float *dy_out, float *dmu_out, int batch, int n, int m, int k,         \
-      int n_iters, float sigma, float alpha, float one_m_alpha,              \
-      int refine_steps, void *stream
+      float *dy_out, float *dmu_out
 #define PORQUA_FACTORED_CALL                                                 \
   W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, \
-      w, y, mu, x_out, z_out, w_out, y_out, mu_out, dx_out, dy_out, dmu_out, \
-      batch, n, m, k, n_iters, sigma, alpha, one_m_alpha, refine_steps, stream
+      w, y, mu, x_out, z_out, w_out, y_out, mu_out, dx_out, dy_out, dmu_out
 
-int porqua_admm_segment_factored_cluster(PORQUA_FACTORED_ARGS) {
-  return launch_segment<false>(PORQUA_FACTORED_CALL);
+int porqua_admm_segment_factored_cluster(PORQUA_FACTORED_ARGS, int batch,
+                                         int n, int m, int k, int n_iters,
+                                         float sigma, float alpha,
+                                         float one_m_alpha, int refine_steps,
+                                         void* stream) {
+  return launch_segment<Form::resident>(
+      PORQUA_FACTORED_CALL, nullptr, batch, n, m, k, n_iters, 1, sigma, alpha,
+      one_m_alpha, refine_steps, stream);
 }
 
 // The device-memory form: the same arguments.
-int porqua_admm_segment_factored_global(PORQUA_FACTORED_ARGS) {
-  return launch_segment<true>(PORQUA_FACTORED_CALL);
+int porqua_admm_segment_factored_global(PORQUA_FACTORED_ARGS, int batch,
+                                        int n, int m, int k, int n_iters,
+                                        float sigma, float alpha,
+                                        float one_m_alpha, int refine_steps,
+                                        void* stream) {
+  return launch_segment<Form::device>(
+      PORQUA_FACTORED_CALL, nullptr, batch, n, m, k, n_iters, 1, sigma, alpha,
+      one_m_alpha, refine_steps, stream);
+}
+
+// The grid form: one more pointer, the zeroed scratch (batch *
+// porqua_admm_cluster_grid_scratch_floats floats), and one more int
+// after n_iters, the group count G.
+int porqua_admm_segment_factored_grid(PORQUA_FACTORED_ARGS, float* scratch,
+                                      int batch, int n, int m, int k,
+                                      int n_iters, int groups, float sigma,
+                                      float alpha, float one_m_alpha,
+                                      int refine_steps, void* stream) {
+  return launch_segment<Form::grid>(
+      PORQUA_FACTORED_CALL, scratch, batch, n, m, k, n_iters, groups, sigma,
+      alpha, one_m_alpha, refine_steps, stream);
 }
 
 }  // extern "C"

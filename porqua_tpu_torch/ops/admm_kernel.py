@@ -10,7 +10,7 @@ refinement). Each runs ``n_iters`` OSQP iterations for every problem of
 a batch in one launch and returns ``(x, z, w, y, mu, dx, dy, dmu)``:
 the final state and the increments between the last two iterates.
 
-Three forms for each family, in three sources:
+The forms, in three sources:
 
 - ``"cluster"``: ``csrc/admm_segment_cluster.cu`` (the factored form on
   a cluster of 8 blocks per problem: the columns of W, and V, C and Y0,
@@ -32,28 +32,38 @@ Three forms for each family, in three sources:
   iteration. The dense form reads C from device memory beside it and
   keeps only O(n + m) floats in shared memory; the factored form keeps
   C, Y0 and Ginv there too.
+- ``"grid"``, the factored form on G clusters of 8 blocks per problem
+  (``admm_segment_cluster.cu``, ``cluster_kernel<Form::grid>``): the
+  cluster form's resident column slices over 8 G blocks, each
+  reduction summed over the cluster and then over the G clusters
+  through a zeroed scratch buffer in device memory; all B G clusters
+  must be resident at once, so the router reads the batch width.
 - ``"global"``, the factored device-memory form, for the shapes where
-  neither of the others fits a block: the cluster kernel with W, V, C,
-  Y0 and Ginv read from device memory on every iteration
-  (``admm_segment_cluster.cu``, ``cluster_kernel<true>``), a block's
-  slices of the vectors alone in shared memory.
+  none of the others fits: the cluster kernel with W, V, C, Y0 and
+  Ginv read from device memory on every iteration
+  (``admm_segment_cluster.cu``, ``cluster_kernel<Form::device>``), a
+  block's slices of the vectors alone in shared memory.
 
-:func:`factored_form` and :func:`dense_form` choose a kernel by shape,
-before the launch, in that order: the cluster form where its shared
-memory fits a block and the card can hold such a cluster, else (dense)
-the cluster with a streamed tail where that fits and can be held, else
-the streaming form where that fits, else (factored) the device-memory
-form where it fits and its cluster can be held, else they raise. The dense
-streaming form and the factored device-memory form cover every shape
-at which the JAX package's ``_segment_plan`` takes its Pallas kernel
-without a VMEM footprint warning (tests/test_torch_cluster_route.py).
+:func:`factored_form` and :func:`dense_form` choose a kernel by shape
+(and, for the grid form, batch width), before the launch, in that
+order: the cluster form where its shared memory fits a block and the
+card can hold such a cluster, else (dense) the cluster with a streamed
+tail where that fits and can be held, else the streaming form where
+that fits, else (factored) the grid form where its slices fit at some
+G and the card can hold B G of its clusters at once, else the
+device-memory form where it fits and its cluster can be held, else
+they raise. The dense streaming form and the factored device-memory
+form cover every shape at which the JAX package's ``_segment_plan``
+takes its Pallas kernel without a VMEM footprint warning
+(tests/test_torch_cluster_route.py).
 
 Each is built by :mod:`porqua_tpu_torch.ops._build` on first use. The
 wrappers take the plain twin only for tensors on the CPU; for CUDA
 tensors they launch a kernel or raise. Each wrapper counts its launches
 in a plain int attribute, ``launches``, and each form's own
 (``cluster_launches``, ``stream_launches``, the dense wrapper's
-``tail_launches`` and the factored wrapper's ``global_launches``), and
+``tail_launches`` and the factored wrapper's ``grid_launches`` and
+``global_launches``), and
 keeps them by batch width in a dict, ``widths`` (width -> launches).
 Each launch also reports its :func:`launch_cost` to the device-cost
 counter that ``obs/devprof.py`` has active on the calling thread, if
@@ -144,6 +154,10 @@ _DENSE_ARGS = [ctypes.c_void_p] * 24 + [
 # count (cluster) or resident rows (tail) to force, or -1 for the ones
 # the shape takes.
 _DENSE_CLUSTER_ARGS = _DENSE_ARGS[:28] + [ctypes.c_int] + _DENSE_ARGS[28:]
+# The factored grid launcher takes one more pointer (its zeroed scratch)
+# and one more int after n_iters (the group count G).
+_GRID_ARGS = ([ctypes.c_void_p] + _FACTORED_ARGS[:34] + [ctypes.c_int]
+              + _FACTORED_ARGS[34:])
 _SIGNATURES = {
     _LIB: {
         "porqua_admm_segment_dense": _DENSE_ARGS,
@@ -155,10 +169,15 @@ _SIGNATURES = {
     _CLUSTER_LIB: {
         "porqua_admm_segment_factored_cluster": _FACTORED_ARGS,
         "porqua_admm_segment_factored_global": _FACTORED_ARGS,
+        "porqua_admm_segment_factored_grid": _GRID_ARGS,
         "porqua_admm_cluster_smem_bytes": [ctypes.c_int] * 4,
         "porqua_admm_cluster_max_active": [ctypes.c_int] * 4,
         "porqua_admm_cluster_global_smem_bytes": [ctypes.c_int] * 4,
         "porqua_admm_cluster_global_max_active": [ctypes.c_int] * 4,
+        "porqua_admm_cluster_grid_smem_bytes": [ctypes.c_int] * 5,
+        "porqua_admm_cluster_grid_max_active": [ctypes.c_int] * 5,
+        "porqua_admm_cluster_grid_groups": [ctypes.c_int] * 5,
+        "porqua_admm_cluster_grid_scratch_floats": [ctypes.c_int] * 3,
     },
     _DENSE_LIB: {
         "porqua_admm_segment_dense_cluster": _DENSE_CLUSTER_ARGS,
@@ -175,6 +194,7 @@ _SIGNATURES = {
 _FACTORED_LAUNCHER = {
     "cluster": (_CLUSTER_LIB, "porqua_admm_segment_factored_cluster"),
     "stream": (_LIB, "porqua_admm_segment_factored"),
+    "grid": (_CLUSTER_LIB, "porqua_admm_segment_factored_grid"),
     "global": (_CLUSTER_LIB, "porqua_admm_segment_factored_global"),
 }
 _DENSE_LAUNCHER = {
@@ -239,26 +259,33 @@ def _smem_refusal(form, need, limit, n, m, k):
             f"per block (n={n}, m={m}, k={k}); the card allows {limit}")
 
 
+def _occupancy(active):
+    """``active``, the answer of a cluster occupancy query; raises where
+    it is a CUDA error code (negative)."""
+    if active < 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           f"{_cuda_error(-active)}")
+    return active
+
+
 def _choose_form(kind, candidates, n, m, k):
-    """The first of ``candidates``, ``(form, bytes of shared memory per
-    block, occupancy query or None)`` in order of preference, whose
-    bytes fit a block of the card and whose query (the clusters the
-    card can hold at once) is above 0; raises ValueError where none
-    fits."""
+    """The first of ``candidates`` (an iterable, read lazily), ``(form,
+    bytes of shared memory per block, occupancy query or None, clusters
+    needed at once)`` in order of preference, whose bytes fit a block
+    of the card and whose query (the clusters the card can hold at
+    once) is at least the clusters it needs; raises ValueError where
+    none fits."""
     limit = _library(_LIB).porqua_max_smem_optin()
-    for form, need, active_clusters in candidates:
+    least = None
+    for form, need, active_clusters, clusters in candidates:
+        least = need if least is None else min(least, need)
         if need > limit:
             continue
-        if active_clusters is not None:
-            active = active_clusters()
-            if active < 0:
-                raise RuntimeError("cluster occupancy query failed: "
-                                   f"{_cuda_error(-active)}")
-            if active == 0:
-                continue
+        if (active_clusters is not None
+                and _occupancy(active_clusters()) < clusters):
+            continue
         return form
-    raise ValueError(_smem_refusal(kind, min(c[1] for c in candidates),
-                                   limit, n, m, k))
+    raise ValueError(_smem_refusal(kind, least, limit, n, m, k))
 
 
 def launch_cost(name, args, kw):
@@ -307,11 +334,22 @@ def launch_traffic(name, args, kw, form, level="device"):
     device-memory form, with Y0 once and Ginv once per block. Through
     L2 all of that counts. From device memory the model counts the
     matrices read again once where they fit together in the L2 of the
-    inputs' card (its ``L2_cache_size``), else as through L2. All write
-    each output once."""
+    inputs' card (its ``L2_cache_size``), else as through L2. The grid
+    form reads each input once from device memory; through L2 it also
+    moves, on every iteration, its 3 + 2 refine_steps exchanges (k long
+    for W r and V x0, 2 m floats for the f64 C x0, m for C xt): G
+    partials written and read by each of its 8 G blocks, at the
+    router's G for this batch width. All write each output once."""
     once = launch_cost(name, args, kw)[1]
-    if form == "cluster":
+    if form == "cluster" or (form == "grid" and level == "device"):
         return once
+    if form == "grid":
+        W, C = args[0], args[6]
+        (B, k, n), m, r = W.shape, C.shape[-2], kw["refine_steps"]
+        groups = _grid_groups(_library(_CLUSTER_LIB), (n, m, k, r), B)
+        floats = (1 + 2 * r) * k + 3 * m
+        return (once + kw["n_iters"] * B * groups * floats * 4
+                * (1 + 8 * groups))
     op, n_iters = args[0], kw["n_iters"]
     if form == "tail":
         B, n, _ = op.shape
@@ -350,6 +388,8 @@ def _count(wrapper, form, width, inputs, kw):
         wrapper.stream_launches += 1
     elif form == "tail":
         wrapper.tail_launches += 1
+    elif form == "grid":
+        wrapper.grid_launches += 1
     else:
         wrapper.global_launches += 1
     # Local import: the obs package imports the solver, which imports
@@ -377,11 +417,11 @@ def dense_form(n: int, m: int, triangular: bool) -> str:
     tri = int(triangular)
     return _choose_form("dense", [
         ("cluster", lib.porqua_admm_dense_cluster_smem_bytes(n, m, tri),
-         lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri)),
+         lambda: lib.porqua_admm_dense_cluster_max_active(n, m, tri), 1),
         ("tail", lib.porqua_admm_dense_tail_smem_bytes(n, m, tri),
-         lambda: lib.porqua_admm_dense_tail_max_active(n, m, tri)),
+         lambda: lib.porqua_admm_dense_tail_max_active(n, m, tri), 1),
         ("stream", stream_lib.porqua_admm_segment_smem_bytes(0, n, m, 0),
-         None)], n, m, 0)
+         None, 1)], n, m, 0)
 
 
 def _dense_inputs(Kinv, C, q, l, u, lb, ub, rho, rho_b, l1w, l1c, x, z, w,
@@ -471,24 +511,59 @@ def _admm_segment_form(form: str, *args, sigma: float, alpha: float,
                           layout=ranks if ranks is not None else rows)
 
 
-def factored_form(n: int, m: int, k: int, refine_steps: int) -> str:
-    """Which hand-written kernel runs a factored segment of this shape
-    on the current card: ``"cluster"`` where one problem's column slices
-    fit the shared memory of a block and the card can hold such an
-    8-block cluster, else ``"stream"`` where the streaming form's state
-    fits one block, else ``"global"`` where a block's slices of the
+def factored_form(n: int, m: int, k: int, refine_steps: int, *,
+                  batch: int) -> str:
+    """Which hand-written kernel runs a factored segment of ``batch``
+    problems of this shape on the current card: ``"cluster"`` where one
+    problem's column slices fit the shared memory of a block and the
+    card can hold such an 8-block cluster, else ``"stream"`` where the
+    streaming form's state fits one block, else ``"grid"`` where the
+    slices fit over G clusters and the card can hold ``batch`` G of
+    them at once, else ``"global"`` where a block's slices of the
     vectors alone fit and the card can hold its cluster. Raises
-    ValueError where none fits."""
+    ValueError where none fits.
+
+    The grid's G (the library's ``porqua_admm_cluster_grid_groups``) is
+    the fewest groups, up to 16, whose slices fit a block and of which
+    the card holds ``batch`` G clusters at once. Raced against as many
+    groups as the card holds for one problem
+    (``scripts/torch_form_race.py``, H100 80GB HBM3 at 700 W, B = 1,
+    refine 0), it takes 0.743-0.807 ms (G = 7) against 0.765-0.861
+    (G = 16) at 5,000 x 504 and 0.606-0.623 (G = 4) against
+    0.619-0.624 at 5,000 x 256: as fast within the noise, on fewer
+    SMs."""
+    return _factored_route(n, m, k, refine_steps, batch)[0]
+
+
+def _grid_groups(lib, shape, batch):
+    """The grid form's G for ``batch`` problems of ``shape`` (0 where it
+    has none); raises where the occupancy query fails."""
+    return _occupancy(lib.porqua_admm_cluster_grid_groups(*shape, batch))
+
+
+def _factored_route(n, m, k, refine_steps, batch):
+    """(form, G) of :func:`factored_form`; G is None but for the grid."""
     lib = _library(_CLUSTER_LIB)
     shape = (n, m, k, refine_steps)
-    return _choose_form("factored", [
-        ("cluster", lib.porqua_admm_cluster_smem_bytes(*shape),
-         lambda: lib.porqua_admm_cluster_max_active(*shape)),
-        ("stream", _library(_LIB).porqua_admm_segment_smem_bytes(1, n, m, k),
-         None),
-        ("global", lib.porqua_admm_cluster_global_smem_bytes(*shape),
-         lambda: lib.porqua_admm_cluster_global_max_active(*shape))],
-        n, m, k)
+    groups = []
+
+    def candidates():
+        yield ("cluster", lib.porqua_admm_cluster_smem_bytes(*shape),
+               lambda: lib.porqua_admm_cluster_max_active(*shape), 1)
+        yield ("stream",
+               _library(_LIB).porqua_admm_segment_smem_bytes(1, n, m, k),
+               None, 1)
+        g = _grid_groups(lib, shape, batch)
+        if g:
+            groups.append(g)
+            yield ("grid", lib.porqua_admm_cluster_grid_smem_bytes(*shape, g),
+                   lambda: lib.porqua_admm_cluster_grid_max_active(*shape, g),
+                   batch * g)
+        yield ("global", lib.porqua_admm_cluster_global_smem_bytes(*shape),
+               lambda: lib.porqua_admm_cluster_global_max_active(*shape), 1)
+
+    form = _choose_form("factored", candidates(), n, m, k)
+    return form, (groups[0] if form == "grid" else None)
 
 
 def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
@@ -508,25 +583,58 @@ def _factored_inputs(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub, rho,
     return inputs
 
 
+def _grid_scratch(lib, shape, batch, groups, device):
+    """The grid form's zeroed scratch for ``batch`` problems on ``groups``
+    groups, after checking that its slices fit a block and that the card
+    holds ``batch`` ``groups`` of its clusters at once (a group that is
+    not resident would never be waited for): ValueError otherwise."""
+    n, m, k, refine = shape
+    if not 1 <= groups <= 16:
+        raise ValueError(f"the grid fused segment takes 1 to 16 groups, "
+                         f"not {groups} (n={n}, m={m}, k={k})")
+    need = lib.porqua_admm_cluster_grid_smem_bytes(*shape, groups)
+    limit = _library(_LIB).porqua_max_smem_optin()
+    if need > limit:
+        raise ValueError(_smem_refusal(f"grid (G={groups})", need, limit,
+                                       n, m, k))
+    active = _occupancy(lib.porqua_admm_cluster_grid_max_active(*shape,
+                                                                groups))
+    if batch * groups > active:
+        raise ValueError(f"the grid fused segment needs {batch * groups} "
+                         f"clusters resident at once (B={batch}, "
+                         f"G={groups}); the card holds {active}")
+    floats = lib.porqua_admm_cluster_grid_scratch_floats(m, k, groups)
+    return torch.zeros(batch * floats, dtype=torch.float32, device=device)
+
+
 def _factored_on_card(form, inputs, *, sigma: float, alpha: float,
-                      n_iters: int, refine_steps: int):
+                      n_iters: int, refine_steps: int, groups=None):
     """Launch one factored kernel on validated inputs: the one ``form``
-    names, or with ``form=None`` the one :func:`factored_form` picks."""
+    names, or with ``form=None`` the one :func:`factored_form` picks.
+    ``groups`` forces the grid form's G (None: the router's)."""
     W, x, z = inputs[0], inputs[16], inputs[17]
     (B, n), m, k = x.shape, z.shape[-1], W.shape[-2]
+    shape = (n, m, k, refine_steps)
     # x z w y mu, then the increments dx dy dmu
     outs = [torch.empty_like(inputs[i])
             for i in (16, 17, 18, 19, 20, 16, 19, 20)]
     with _on_card(x.device) as stream:
         if form is None:
-            form = factored_form(n, m, k, refine_steps)
+            form, groups = _factored_route(*shape, B)
         lib_name, fn_name = _FACTORED_LAUNCHER[form]
-        _launch(_library(lib_name), fn_name, stream, inputs, outs,
-                (B, n, m, k, n_iters), sigma, alpha, int(refine_steps))
+        lib = _library(lib_name)
+        ints = (B, n, m, k, n_iters)
+        if form == "grid":
+            if groups is None:
+                groups = _grid_groups(lib, shape, B)
+            ints += (groups,)
+            outs.append(_grid_scratch(lib, shape, B, groups, x.device))
+        _launch(lib, fn_name, stream, inputs, outs, ints, sigma, alpha,
+                int(refine_steps))
     _count(admm_segment_factored, form, B, inputs,
            dict(sigma=sigma, alpha=alpha, n_iters=n_iters,
                 refine_steps=refine_steps))
-    return tuple(outs)
+    return tuple(outs[:8])
 
 
 def admm_segment_factored(W, inv_d, Y0, Ginv, V, Dv, C, q, l, u, lb, ub,
@@ -553,19 +661,26 @@ admm_segment_factored.launches = 0          # every form
 admm_segment_factored.widths = {}           # batch width -> launches
 admm_segment_factored.cluster_launches = 0
 admm_segment_factored.stream_launches = 0
+admm_segment_factored.grid_launches = 0
 admm_segment_factored.global_launches = 0
 
 
 def _admm_segment_factored_form(form: str, *args, sigma: float, alpha: float,
-                                n_iters: int, refine_steps: int = 0):
+                                n_iters: int, refine_steps: int = 0,
+                                groups: int | None = None):
     """:func:`admm_segment_factored` on the card through the kernel
-    ``form`` names ("cluster", "stream" or "global") instead of the one
-    chosen by shape, so that every form can be held against the plain
-    twin and timed on the same inputs."""
+    ``form`` names ("cluster", "stream", "grid" or "global") instead of
+    the one chosen by shape, so that every form can be held against the
+    plain twin and timed on the same inputs. ``groups`` (grid: 1 to 16
+    clusters per problem) forces a G the router would not take; it
+    raises where those clusters cannot all be resident at once."""
     if form not in _FACTORED_LAUNCHER:
         raise ValueError(f"no factored kernel form {form!r}")
+    if groups is not None and form != "grid":
+        raise ValueError(f"the {form} form takes no groups")
     inputs = _factored_inputs(*args, n_iters, refine_steps)
     if inputs[0].device.type != "cuda":
         raise ValueError("a named kernel form runs on a CUDA device only")
     return _factored_on_card(form, inputs, sigma=sigma, alpha=alpha,
-                             n_iters=n_iters, refine_steps=refine_steps)
+                             n_iters=n_iters, refine_steps=refine_steps,
+                             groups=groups)

@@ -350,7 +350,8 @@ def _check_struct(qp: CanonicalQP, struct: CanonicalQP) -> None:
 
 def kernel_form(struct: CanonicalQP, params: SolverParams, device):
     """The fused-segment kernel form (``"cluster"``, ``"tail"``,
-    ``"stream"`` or ``"global"``) that ``struct``'s shape launches on
+    ``"stream"``, ``"grid"`` or ``"global"``) that ``struct``'s shape
+    (and, for the factored kernel, its batch width) launches on
     ``device`` under ``params``, or ``None`` where no kernel runs (the
     plain path, or the CPU). Raises
     ValueError where no form fits the card."""
@@ -363,8 +364,10 @@ def kernel_form(struct: CanonicalQP, params: SolverParams, device):
     linsolve = resolve_linsolve(params, struct)
     with torch.cuda.device(device):
         if linsolve == "woodbury":
+            batch = struct.q.shape[0] if struct.q.dim() > 1 else 1
             return admm_kernel.factored_form(
-                n, m, struct.Pf.shape[-2], params.woodbury_refine)
+                n, m, struct.Pf.shape[-2], params.woodbury_refine,
+                batch=batch)
         return admm_kernel.dense_form(n, m, linsolve == "trinv")
 
 

@@ -2,6 +2,7 @@
 """Time the fused segment kernel forms against each other on the card.
 
     python3 scripts/torch_form_race.py [--root DIR] [--label NAME]
+                                       [--match TEXT]
 
 At each shape of CASES, every form the wrapper of ``DIR``'s
 ``porqua_tpu_torch`` offers (``_DENSE_LAUNCHER``/``_FACTORED_LAUNCHER``)
@@ -10,14 +11,21 @@ inputs (the kernel call of a small tracking batch's second segment,
 ``chip_smoke.small_kernel_call``, built for one problem and repeated
 over the batch) and timed in turns: the forms in order, then in reverse,
 each turn the median of 10 launches after 2 of warm-up (CUDA events).
+The factored grid form runs at each of its group counts G that the
+race compares: the router's (the fewest whose slices fit and whose B G
+clusters the card holds at once) and as many as the card holds for
+the batch, up to 16, each a form of its own ("grid G=4").
 Prints one JSON line per case: the router's pick (and, for a dense
 case, the rank count, the resident clusters and the tail's resident
-rows the library takes), each form's median of both turns, each
-form's largest distance to the first form's outputs, the bound of
-``chip_smoke.py``'s kernel rows and the plain twin's time. ``--root``
-takes the package from another checkout (the parent commit unpacked
-beside this one), so that two versions of a kernel can be timed in one
-call: parent, change, change, parent.
+rows the library takes; for a factored one the grid's G candidates
+with their shared memory per block and the card's occupancy answer),
+each form's median of both turns, each form's largest distance to the
+first form's outputs, the bound of ``chip_smoke.py``'s kernel rows and
+the plain twin's time. ``--root`` takes the package from another
+checkout (the parent commit unpacked beside this one), so that two
+versions of a kernel can be timed in one call: parent, change, change,
+parent. ``--match`` keeps the cases whose label (as printed, e.g.
+``factored_refine0 5000x1 k=504 r0 B=1``) contains the text.
 """
 
 import argparse
@@ -38,7 +46,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # tracking shape; each at one problem and at 64. Then the service's
 # wide dense rungs (1,024 x 128, 512 x 512, 1,024 x 1) at B = 8, the
 # batch of chip_smoke.py's phase 8e, and B = 7, one wave of the
-# 16-block clusters the card holds at once.
+# 16-block clusters the card holds at once. Then the factored shapes no
+# cluster form fits, at one problem: the 5,000-asset north star's
+# woodbury arms (k = 504 dense, 256 sketch-fed) and the gap rungs
+# (2,048 x 8 at refine 0 and 1, 1,024 x 128), where the grid form
+# races the device-memory one.
 CASES = [(family, n, m, k, refine, batch)
          for family, n, m, k, refine in [
              ("triangular", 500, 1, 24, None),
@@ -52,7 +64,34 @@ CASES = [(family, n, m, k, refine, batch)
     (family, n, m, 24, None, batch)
     for n, m in [(1024, 128), (512, 512), (1024, 1)]
     for family in ("triangular", "inverse")
-    for batch in (7, 8)]
+    for batch in (7, 8)] + [
+    ("factored_refine0", n, m, k, refine, 1)
+    for n, m, k, refine in [(5000, 1, 504, 0), (5000, 1, 256, 0),
+                            (2048, 8, 252, 0), (2048, 8, 252, 1),
+                            (1024, 128, 252, 0)]]
+
+
+def label_of(family, n, m, k, refine, batch):
+    return (f"{family} {n}x{m} k={k}"
+            f"{'' if refine is None else f' r{refine}'} B={batch}")
+
+
+def grid_candidates(lib, shape, batch, limit):
+    """The grid's G candidates at this shape: {G: (shared bytes per
+    block, clusters the card holds at once)} for the router's G and
+    the most groups (up to 16) whose slices fit and whose batch G
+    clusters the card holds at once."""
+    held = {}
+    for g in range(1, 17):
+        need = lib.porqua_admm_cluster_grid_smem_bytes(*shape, g)
+        if need <= limit:
+            active = lib.porqua_admm_cluster_grid_max_active(*shape, g)
+            if batch * g <= active:
+                held[g] = (need, active)
+    if not held:
+        return {}
+    routed = lib.porqua_admm_cluster_grid_groups(*shape, batch)
+    return {g: held[g] for g in sorted({routed, max(held)}) if g in held}
 
 
 def main():
@@ -60,6 +99,7 @@ def main():
     ap.add_argument("--root", default=HERE,
                     help="checkout whose porqua_tpu_torch is timed")
     ap.add_argument("--label", default="change")
+    ap.add_argument("--match", default="")
     args = ap.parse_args()
     sys.path[:0] = [os.path.abspath(args.root), HERE]
 
@@ -81,6 +121,8 @@ def main():
     limit = tk._library(tk._LIB).porqua_max_smem_optin()
     layout = None
     for family, n, m, k, refine, batch in CASES:
+        if args.match not in label_of(family, n, m, k, refine, batch):
+            continue
         fn, call, kw = chip_smoke.small_kernel_call(
             family, np.float32, n=n, m=m, window=k, batch=1, refine=refine)
         call = tuple(a.cuda().expand(batch, *a.shape[1:]).contiguous()
@@ -106,8 +148,13 @@ def main():
         else:
             named, forms = (tk._admm_segment_factored_form,
                             list(tk._FACTORED_LAUNCHER))
-            chosen = tk.factored_form(n, m, k, refine)
             lib = tk._library(tk._CLUSTER_LIB)
+            if "grid" in forms:
+                chosen = tk.factored_form(n, m, k, refine, batch=batch)
+                grid = grid_candidates(lib, (n, m, k, refine), batch, limit)
+            else:
+                chosen = tk.factored_form(n, m, k, refine)
+                grid = {}
             sizes = {"stream": tk._library(tk._LIB)
                      .porqua_admm_segment_smem_bytes(1, n, m, k),
                      "cluster": lib.porqua_admm_cluster_smem_bytes(
@@ -115,10 +162,15 @@ def main():
             if hasattr(lib, "porqua_admm_cluster_global_smem_bytes"):
                 sizes["global"] = lib.porqua_admm_cluster_global_smem_bytes(
                     n, m, k, refine)
-        forms = [f for f in forms if sizes[f] <= limit]
+        launch = {f: (lambda f=f: named(f, *call, **kw)) for f in forms
+                  if f != "grid" and sizes[f] <= limit}
         if fn is not tk.admm_segment:
-            layout = None
-        launch = {f: (lambda f=f: named(f, *call, **kw)) for f in forms}
+            layout = {"grid": {g: {"smem": need, "active": active}
+                               for g, (need, active) in grid.items()}}
+            for g in grid:
+                launch[f"grid G={g}"] = (
+                    lambda g=g: named("grid", *call, groups=g, **kw))
+        forms = list(launch)
         first = launch[forms[0]]()
         dist = {}
         for f in forms:
@@ -138,7 +190,9 @@ def main():
                  else tk.admm_segment_factored_ref)
         plain_ms = chip_smoke.cuda_ms(lambda: plain(*call, **kw), 1, 3)
         print(json.dumps({
-            "label": args.label, "card": card, "family": family, "n": n,
+            "label": args.label, "card": card,
+            "case": label_of(family, n, m, k, refine, batch),
+            "family": family, "n": n,
             "m": m, "k": k if fn is not tk.admm_segment else None,
             "refine": refine, "batch": batch, "n_iters": kw["n_iters"],
             "router": chosen, "layout": layout, "bound_ms": bound_ms,

@@ -91,7 +91,8 @@ def main():
             chosen = tk.dense_form(n, m, kw["triangular"])
         else:
             chosen = tk.factored_form(n, m, args[0].shape[-2],
-                                      kw["refine_steps"])
+                                      kw["refine_steps"],
+                                      batch=args[-1].shape[0])
         # The streaming form fits every shape here; the cluster form
         # runs where the router picks it.
         for form in sorted({chosen, "stream"}):

@@ -1,15 +1,18 @@
 """How the factored segment wrapper picks its CUDA kernel, on the CPU.
 
-``admm_segment_factored`` chooses between three hand-written kernels by
-shape before it launches: the 8-block cluster form where a block's
-column slice fits the card's shared memory and the card can hold such a
-cluster, else the streaming form where its block fits, else the
-device-memory form (the same cluster with the operator, C, Y0 and Ginv
-left in device memory) where a block's vector slices fit and its
-cluster can be held, else it raises. Here ``_library`` is replaced by a
-stub that answers the size, limit and occupancy queries from the C
-layouts (mirrored in tests/test_torch_cuda.py, which holds the mirror
-to the C functions on the card) and records which launcher was called.
+``admm_segment_factored`` chooses between four hand-written kernels by
+shape and batch width before it launches: the 8-block cluster form
+where a block's column slice fits the card's shared memory and the card
+can hold such a cluster, else the streaming form where its block fits,
+else the grid form (G clusters of 8 blocks per problem, the slices
+resident) at the fewest G whose slices fit and of which the card holds
+B G clusters at once, else the device-memory form (the same cluster
+with the operator, C, Y0 and Ginv left in device memory) where a
+block's vector slices fit and its cluster can be held, else it raises.
+Here ``_library`` is replaced by a stub that answers the size, limit,
+group and occupancy queries from the C layouts (mirrored in
+tests/test_torch_cuda.py, which holds the mirror to the C functions on
+the card) and records which launcher was called.
 
 ``test_every_plan_kernel_shape_has_a_form`` holds the port's domain to
 the JAX package's: at every rung of the service's default ladder where
@@ -29,12 +32,13 @@ from porqua_tpu_torch.ops import admm_kernel as tk
 from porqua_tpu_torch.serve.bucketing import DEFAULT_M_RUNGS, DEFAULT_N_RUNGS
 
 from tests.test_torch_cuda import (H100_SMEM, cluster_bytes,  # noqa: F401
-                                   cluster_global_bytes, dense_cluster_bytes,
-                                   dense_cluster_ranks, dense_stream_bytes,
-                                   dense_tail_bytes, dense_tail_rows,
-                                   stream_bytes)
+                                   cluster_global_bytes, cluster_grid_bytes,
+                                   dense_cluster_bytes, dense_cluster_ranks,
+                                   dense_stream_bytes, dense_tail_bytes,
+                                   dense_tail_rows, grid_groups,
+                                   grid_scratch_floats, stream_bytes)
 
-FORMS = ("cluster", "stream", "global")
+FORMS = ("cluster", "stream", "grid", "global")
 DENSE_FORMS = ("cluster", "tail", "stream")
 
 
@@ -42,12 +46,14 @@ class StubLibrary:
     """The three kernel libraries at once: sizes, rank counts and the
     tail's resident rows from the layouts above at the given limit, the
     cluster occupancies as given (``active`` for the cluster forms and
-    the dense tail, ``global_active`` for the factored device-memory
-    form), and a log of launches."""
+    the dense tail, ``grid_active`` for the factored grid form at any G,
+    ``global_active`` for the factored device-memory form), the grid's
+    G by its rule, and a log of launches."""
 
-    def __init__(self, active=40, limit=H100_SMEM, rc=0, global_active=40):
+    def __init__(self, active=40, limit=H100_SMEM, rc=0, global_active=40,
+                 grid_active=40):
         self.active, self.limit, self.rc = active, limit, rc
-        self.global_active = global_active
+        self.global_active, self.grid_active = global_active, grid_active
         self.calls = []
 
     def porqua_max_smem_optin(self):
@@ -64,6 +70,19 @@ class StubLibrary:
 
     def porqua_admm_cluster_global_max_active(self, n, m, k, refine):
         return self.global_active
+
+    def porqua_admm_cluster_grid_smem_bytes(self, n, m, k, refine, groups):
+        return cluster_grid_bytes(n, m, k, refine, groups)
+
+    def porqua_admm_cluster_grid_max_active(self, n, m, k, refine, groups):
+        return self.grid_active
+
+    def porqua_admm_cluster_grid_groups(self, n, m, k, refine, batch):
+        return grid_groups(n, m, k, refine, batch,
+                           lambda g: self.grid_active, self.limit)
+
+    def porqua_admm_cluster_grid_scratch_floats(self, m, k, groups):
+        return grid_scratch_floats(m, k, groups)
 
     def porqua_admm_segment_smem_bytes(self, factored, n, m, k):
         return stream_bytes(n, m, k) if factored else dense_stream_bytes(n, m)
@@ -109,6 +128,10 @@ class StubLibrary:
 
     def porqua_admm_segment_factored_global(self, *args):
         self.calls.append(("global", args))
+        return self.rc
+
+    def porqua_admm_segment_factored_grid(self, *args):
+        self.calls.append(("grid", args))
         return self.rc
 
     def porqua_cuda_error_string(self, rc):
@@ -161,112 +184,224 @@ def zero_inputs(n, m, k, B=1):
 
 KW = dict(sigma=1e-6, alpha=1.6, n_iters=35)
 
-# (n, m, k, refine, cluster occupancy, shared-memory limit, expected form)
+# (n, m, k, refine, batch, cluster occupancy, shared-memory limit,
+# expected form); the grid and device-memory forms' occupancy is the
+# stub's 40 clusters.
 ROUTES = [
-    pytest.param(500, 1, 252, 0, 40, H100_SMEM, "cluster",
+    pytest.param(500, 1, 252, 0, 1, 40, H100_SMEM, "cluster",
                  id="headline-refine0"),
-    pytest.param(500, 1, 252, 1, 16, H100_SMEM, "cluster",
+    pytest.param(500, 1, 252, 1, 1, 16, H100_SMEM, "cluster",
                  id="headline-refine1"),
-    pytest.param(500, 1, 252, 2, 16, H100_SMEM, "cluster",
+    pytest.param(500, 1, 252, 2, 1, 16, H100_SMEM, "cluster",
                  id="headline-refine2"),
-    pytest.param(5, 3, 24, 1, 40, H100_SMEM, "cluster",
+    pytest.param(5, 3, 24, 1, 1, 40, H100_SMEM, "cluster",
                  id="ranks-without-columns"),
-    pytest.param(500, 1, 252, 1, 0, H100_SMEM, "stream",
+    pytest.param(500, 1, 252, 1, 1, 0, H100_SMEM, "stream",
                  id="no-resident-cluster"),
-    pytest.param(512, 1, 1024, 0, 40, H100_SMEM, "stream", id="long-window"),
-    pytest.param(2048, 1, 256, 0, 40, H100_SMEM, "stream", id="wide-2048"),
-    # The sketch-fed 5,000-asset north star: W's slice (256 x 625
-    # floats) and the streaming form's n-vectors and Y0 (about 21 n
-    # floats) are above the limit; the vector slices alone are not.
-    pytest.param(5000, 1, 256, 0, 40, H100_SMEM, "global", id="sketch-5000"),
-    pytest.param(1024, 128, 252, 0, 40, H100_SMEM, "global",
+    pytest.param(512, 1, 1024, 0, 1, 40, H100_SMEM, "stream",
+                 id="long-window"),
+    pytest.param(2048, 1, 256, 0, 1, 40, H100_SMEM, "stream", id="wide-2048"),
+    # The 5,000-asset north star's woodbury arms (k = 256 sketch-fed,
+    # 504 dense) and the factored gap rungs: W's slice over 8 blocks and
+    # the streaming form's n-vectors and Y0 (about 21 n floats) are
+    # above the limit, the slices over G clusters are not (G = 4 and 7
+    # at 5,000, 2 and 3 at 2,048 x 8, 2 at 1,024 x 128).
+    pytest.param(5000, 1, 256, 0, 1, 40, H100_SMEM, "grid", id="sketch-5000"),
+    pytest.param(5000, 1, 504, 0, 1, 40, H100_SMEM, "grid",
+                 id="dense-arm-5000"),
+    pytest.param(1024, 128, 252, 0, 1, 40, H100_SMEM, "grid",
                  id="rung-1024x128"),
-    pytest.param(2048, 8, 252, 1, 40, H100_SMEM, "global",
+    pytest.param(2048, 8, 252, 0, 1, 40, H100_SMEM, "grid",
+                 id="rung-2048x8-refine0"),
+    pytest.param(2048, 8, 252, 1, 1, 40, H100_SMEM, "grid",
                  id="rung-2048x8-refine1"),
+    pytest.param(5000, 1, 504, 0, 2, 40, H100_SMEM, "grid",
+                 id="dense-arm-5000-B2"),
+    # The same shapes at 64 problems: 64 G clusters are more than the
+    # card holds at once, so the device-memory form takes them.
+    pytest.param(5000, 1, 256, 0, 64, 40, H100_SMEM, "global",
+                 id="sketch-5000-B64"),
+    pytest.param(5000, 1, 504, 0, 64, 40, H100_SMEM, "global",
+                 id="dense-arm-5000-B64"),
+    pytest.param(1024, 128, 252, 0, 64, 40, H100_SMEM, "global",
+                 id="rung-1024x128-B64"),
+    pytest.param(2048, 8, 252, 0, 64, 40, H100_SMEM, "global",
+                 id="rung-2048x8-refine0-B64"),
+    pytest.param(2048, 8, 252, 1, 64, 40, H100_SMEM, "global",
+                 id="rung-2048x8-refine1-B64"),
     # On a card with 32 KB a block, the headline shape fits neither the
-    # cluster form (75 KB) nor the streaming one (43 KB), but the
+    # cluster form (75 KB) nor the streaming one (43 KB), but the grid's
+    # slices over 3 clusters (30 KB), and at 64 problems the
     # device-memory form's 9.5 KB.
-    pytest.param(500, 1, 252, 0, 40, 32 * 1024, "global", id="32KB-card"),
+    pytest.param(500, 1, 252, 0, 1, 40, 32 * 1024, "grid", id="32KB-card"),
+    pytest.param(500, 1, 252, 0, 64, 40, 32 * 1024, "global",
+                 id="32KB-card-B64"),
 ]
 
 
-@pytest.mark.parametrize("n, m, k, refine, active, limit, form", ROUTES)
-def test_factored_form_by_shape(stub, n, m, k, refine, active, limit, form):
+@pytest.mark.parametrize("n, m, k, refine, batch, active, limit, form",
+                         ROUTES)
+def test_factored_form_by_shape(stub, n, m, k, refine, batch, active, limit,
+                                form):
     stub.active, stub.limit = active, limit
-    assert tk.factored_form(n, m, k, refine) == form
+    assert tk.factored_form(n, m, k, refine, batch=batch) == form
     cluster = cluster_bytes(n, m, k, refine) <= limit and active > 0
     stream = stream_bytes(n, m, k) <= limit
+    groups = grid_groups(n, m, k, refine, batch, lambda g: stub.grid_active,
+                         limit)
     assert (form == "cluster") == cluster
     assert (form == "stream") == (stream and not cluster)
-    assert (form == "global") == (not cluster and not stream)
+    assert (form == "grid") == (groups > 0 and not cluster and not stream)
+    assert (form == "global") == (not cluster and not stream and groups == 0)
     assert cluster_global_bytes(n, m, k, refine) <= limit
 
 
-@pytest.mark.parametrize("n, m, k, refine, active, limit, form", ROUTES)
-def test_card_path_launches_the_chosen_form(stub, n, m, k, refine, active,
-                                            limit, form):
+@pytest.mark.parametrize("n, m, k, refine, batch, active, limit, form",
+                         ROUTES)
+def test_card_path_launches_the_chosen_form(stub, n, m, k, refine, batch,
+                                            active, limit, form):
     """The whole card path on stubbed libraries: one launch of the chosen
-    form with the problem's dimensions, and the counters that say so."""
+    form with the problem's dimensions (the grid's: one more pointer,
+    its scratch, and its G after n_iters), and the counters that say
+    so."""
     stub.active, stub.limit = active, limit
-    inputs = zero_inputs(n, m, k)
+    inputs = zero_inputs(n, m, k, batch)
     out = tk._factored_on_card(None, inputs, refine_steps=refine, **KW)
     assert [c[0] for c in stub.calls] == [form]
     args = stub.calls[0][1]
-    assert args[29:34] == (1, n, m, k, KW["n_iters"])
-    assert args[37] == refine
+    dims = (batch, n, m, k, KW["n_iters"])
+    if form == "grid":
+        groups = grid_groups(n, m, k, refine, batch,
+                             lambda g: stub.grid_active, limit)
+        assert args[30:36] == dims + (groups,) and args[39] == refine
+    else:
+        assert args[29:34] == dims and args[37] == refine
     assert counts() == one_launch_of(form)
     shapes = [tuple(t.shape) for t in out]
-    assert shapes == [(1, n), (1, m), (1, n), (1, m), (1, n), (1, n), (1, m),
-                      (1, n)]
+    B = batch
+    assert shapes == [(B, n), (B, m), (B, n), (B, m), (B, n), (B, n), (B, m),
+                      (B, n)]
 
 
-@pytest.mark.parametrize("n, k, limit, global_active", [
-    # Each rank's slices of the n-vectors alone (7,500 columns) exceed
-    # a block.
-    pytest.param(60000, 1, H100_SMEM, 40, id="60000-assets"),
-    pytest.param(500, 252, 4 * 1024, 40, id="4KB-card"),
-    pytest.param(5000, 256, H100_SMEM, 0, id="sketch-5000-no-resident-cluster"),
+def test_grid_scratch_is_zeroed_and_sized(stub, monkeypatch):
+    """The grid launch's scratch: batch times the library's floats per
+    problem, zeroed by the wrapper (the kernel allocates nothing), its
+    pointer right after the outputs."""
+    made = []
+    zeros = torch.zeros
+    inputs = zero_inputs(5000, 1, 504, 2)
+
+    def recording_zeros(*shape, **kw):
+        made.append(zeros(*shape, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(tk.torch, "zeros", recording_zeros)
+    tk._factored_on_card(None, inputs, refine_steps=0, **KW)
+    (scratch,) = made
+    assert scratch.shape == (2 * grid_scratch_floats(1, 504, 7),)
+    assert scratch.dtype == torch.float32 and not scratch.any()
+    assert stub.calls[0][1][29] == scratch.data_ptr()
+
+
+@pytest.mark.parametrize("refine", [0, 1])
+def test_grid_traffic_model(stub, refine):
+    """The grid form's traffic model: each input once from device
+    memory; through L2 also, per iteration, its 3 + 2 refine exchanges
+    (k floats for W r and V x0, 2 m for the f64 C x0, m for C xt), G
+    partials written and read by each of 8 G blocks, at the router's
+    G."""
+    B, n, m, k = 2, 5000, 8, 504
+    args = zero_inputs(n, m, k, B)
+    kw = dict(KW, refine_steps=refine)
+    once = tk.launch_cost("admm_segment_factored", args, kw)[1]
+    groups = grid_groups(n, m, k, refine, B, lambda g: stub.grid_active)
+    per_exchange = ((1 + 2 * refine) * k + 3 * m) * 4 * groups * (
+        1 + 8 * groups)
+    assert tk.launch_traffic("admm_segment_factored", args, kw,
+                             "grid") == once
+    assert tk.launch_traffic("admm_segment_factored", args, kw, "grid",
+                             level="l2") == (
+        once + KW["n_iters"] * B * per_exchange)
+
+
+@pytest.mark.parametrize("groups, grid_active", [(16, 8), (17, 40),
+                                                 (0, 40)])
+def test_forced_grid_groups_must_fit_and_be_resident(stub, groups,
+                                                     grid_active):
+    """A forced G whose clusters the card cannot hold at once, or
+    outside 1..16, is refused before any launch: a spin on a group that
+    is not resident would never end."""
+    stub.grid_active = grid_active
+    with pytest.raises(ValueError, match="grid"):
+        tk._factored_on_card("grid", zero_inputs(5000, 1, 256),
+                             refine_steps=0, groups=groups, **KW)
+    assert stub.calls == [] and counts() == (0,) * 5
+
+
+@pytest.mark.parametrize("n, k, limit, active, batch", [
+    # One problem's slices of the n-vectors alone (7,500 columns) exceed
+    # a block at 8 ranks; the grid holds them at G = 4, but 64 problems
+    # need 256 clusters at once.
+    pytest.param(60000, 1, H100_SMEM, 40, 64, id="60000-assets"),
+    pytest.param(500, 252, 4 * 1024, 40, 1, id="4KB-card"),
+    pytest.param(5000, 256, H100_SMEM, 0, 1,
+                 id="sketch-5000-no-resident-cluster"),
 ])
-def test_no_form_fits_raises(stub, n, k, limit, global_active):
-    stub.limit, stub.global_active = limit, global_active
+def test_no_form_fits_raises(stub, n, k, limit, active, batch):
+    stub.limit = limit
+    stub.global_active = stub.grid_active = active
     with pytest.raises(ValueError, match="shared memory"):
-        tk.factored_form(n, 1, k, 0)
+        tk.factored_form(n, 1, k, 0, batch=batch)
     with pytest.raises(ValueError, match="shared memory"):
-        tk._factored_on_card(None, zero_inputs(n, 1, k), refine_steps=0,
-                             **KW)
-    assert stub.calls == [] and counts() == (0, 0, 0, 0)
+        tk._factored_on_card(None, zero_inputs(n, 1, k, batch),
+                             refine_steps=0, **KW)
+    assert stub.calls == [] and counts() == (0,) * 5
 
 
-# form -> (n, k, cluster occupancy) of a shape that routes to it
-ROUTED_TO = {"cluster": (500, 252, 40), "stream": (500, 252, 0),
-             "global": (5000, 256, 40)}
+# form -> (n, k, cluster occupancy, grid occupancy) of a shape that
+# routes to it
+ROUTED_TO = {"cluster": (500, 252, 40, 40), "stream": (500, 252, 0, 40),
+             "grid": (5000, 256, 40, 40), "global": (5000, 256, 40, 0)}
 
 
 @pytest.mark.parametrize("form", FORMS)
 def test_failed_launch_raises_and_counts_nothing(stub, form):
     """A launch the card refuses raises; no other form is tried."""
-    n, k, stub.active = ROUTED_TO[form]
+    n, k, stub.active, stub.grid_active = ROUTED_TO[form]
     stub.rc = 1
     with pytest.raises(RuntimeError, match="launch failed"):
         tk._factored_on_card(None, zero_inputs(n, 1, k), refine_steps=0,
                              **KW)
     assert [c[0] for c in stub.calls] == [form]
-    assert counts() == (0, 0, 0, 0)
+    assert counts() == (0,) * 5
 
 
 def test_failed_occupancy_query_raises(stub):
     stub.active = -1
     with pytest.raises(RuntimeError, match="occupancy"):
-        tk.factored_form(500, 1, 252, 0)
+        tk.factored_form(500, 1, 252, 0, batch=1)
     assert stub.calls == []
 
 
 def test_failed_global_occupancy_query_raises(stub):
-    """The device-memory form's occupancy query, at the sketch shape."""
-    stub.global_active = -1
+    """The device-memory form's occupancy query, at the sketch shape
+    where the grid cannot be resident."""
+    stub.global_active, stub.grid_active = -1, 0
     with pytest.raises(RuntimeError, match="occupancy"):
-        tk.factored_form(5000, 1, 256, 0)
+        tk.factored_form(5000, 1, 256, 0, batch=1)
     assert stub.calls == []
+
+
+def test_failed_grid_occupancy_query_raises(stub):
+    """The grid form's occupancy query, at the sketch shape: raised by
+    the router and by the card path, before any launch."""
+    stub.grid_active = -1
+    with pytest.raises(RuntimeError, match="occupancy"):
+        tk.factored_form(5000, 1, 256, 0, batch=1)
+    with pytest.raises(RuntimeError, match="occupancy"):
+        tk._factored_on_card(None, zero_inputs(5000, 1, 256), refine_steps=0,
+                             **KW)
+    assert stub.calls == [] and counts() == (0,) * 5
 
 
 @pytest.mark.parametrize("form", FORMS)
@@ -281,6 +416,9 @@ def test_named_form_is_launched_as_named(stub, form):
     assert counts() == one_launch_of(form)
     with pytest.raises(ValueError, match="no factored kernel form"):
         tk._admm_segment_factored_form("dense", *inputs, **KW)
+    if form != "grid":
+        with pytest.raises(ValueError, match="takes no groups"):
+            tk._admm_segment_factored_form(form, *inputs, groups=2, **KW)
 
 
 @pytest.mark.parametrize("refine", [0, 1])
@@ -301,7 +439,7 @@ def test_cpu_tensors_run_the_twin_and_count_nothing(stub, refine):
     ref = tk.admm_segment_factored_ref(*inputs, refine_steps=refine, **KW)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    assert stub.calls == [] and counts() == (0, 0, 0, 0)
+    assert stub.calls == [] and counts() == (0,) * 5
 
 
 def jax_plan_takes_kernel(n, m, k, refine, linsolve):
@@ -357,7 +495,7 @@ def test_every_plan_kernel_shape_has_a_form(stub, linsolve, k, refine):
     for n, m in taken:
         before = len(stub.calls)
         if linsolve == "woodbury":
-            form = tk.factored_form(n, m, k, refine)
+            form = tk.factored_form(n, m, k, refine, batch=1)
             tk._factored_on_card(None, zero_inputs(n, m, k),
                                  refine_steps=refine, **KW)
             wrapper = tk.admm_segment_factored

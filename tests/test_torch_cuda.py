@@ -36,6 +36,10 @@ def f32_floor(kw):
     return 2 * kw["n_iters"] * 2.0 ** -23
 
 
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
+H100_SMEM = 232448
+
+
 def cluster_bytes(n, m, k, refine):
     """admm_segment_cluster.cu's shared memory per block (smem_floats),
     in bytes."""
@@ -59,6 +63,46 @@ def cluster_global_bytes(n, m, k, refine):
     return 4 * (floats + floats % 2 + 4 * m)
 
 
+def cluster_grid_bytes(n, m, k, refine, groups):
+    """admm_segment_cluster.cu's smem_floats<Form::grid>, the grid
+    form's shared memory per block on ``groups`` clusters of 8 blocks,
+    in bytes: the cluster form's slices at ceil(n / 8 groups) columns,
+    then the device-memory form's partial buffers and f64 C x0 and its
+    Ginv product."""
+    def round4(v):
+        return (v + 3) // 4 * 4
+    ld = round4(-(-n // (8 * groups)))
+    floats = (k * ld * (2 if refine > 0 else 1) + 17 * ld + 2 * m * ld
+              + 8 * ld + 4 + round4(k) + 2 * round4(max(k, 2 * m))
+              + 16 * m + 8 * m + m * m)
+    return 4 * (floats + floats % 2 + 4 * m)
+
+
+def grid_groups(n, m, k, refine, batch, active, limit=H100_SMEM):
+    """admm_segment_cluster.cu's grid_groups: the fewest groups G, up to
+    16, whose slices fit ``limit`` and for which ``active(G)`` (the
+    clusters the card holds at once; negative: a failed query,
+    returned as it is) is at least batch G; 0 where none."""
+    for g in range(1, 17):
+        if cluster_grid_bytes(n, m, k, refine, g) > limit:
+            continue
+        held = active(g)
+        if held < 0:
+            return held
+        if batch * g <= held:
+            return g
+    return 0
+
+
+def grid_scratch_floats(m, k, groups):
+    """admm_segment_cluster.cu's grid_scratch_floats: per problem, the
+    groups' flags (rounded up to 4), then two buffers of ``groups``
+    slots of max(k, 2 m) floats (rounded up to 4)."""
+    def round4(v):
+        return (v + 3) // 4 * 4
+    return round4(groups) + 2 * groups * round4(max(k, 2 * m))
+
+
 def stream_bytes(n, m, k):
     """admm_segment.cu's smem_floats(factored=true), in bytes: the
     dense form's vectors, then C, the factored vectors, t, Y0, Ginv."""
@@ -71,8 +115,6 @@ def dense_stream_bytes(n, m):
     return 4 * (14 * n + 10 * m)
 
 
-# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
-H100_SMEM = 232448
 # admm_segment_dense_cluster.cu's kStages: the tail's float4 row-steps
 # in flight per thread, 256 threads a block.
 TAIL_STAGES = 8
@@ -208,7 +250,7 @@ def test_cluster_kernel_matches_plain_twin(n, m, refine):
                                  refine=refine)
     args = tuple(a.cuda() for a in args)
     k = args[0].shape[-2]
-    assert tk.factored_form(n, m, k, refine) == "cluster"
+    assert tk.factored_form(n, m, k, refine, batch=3) == "cluster"
     launches, cluster, stream = factored_counts()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -230,7 +272,7 @@ def test_factored_shape_beyond_cluster_goes_to_stream(n, k, refine):
     fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n,
                                  window=k, batch=2, refine=refine)
     args = tuple(a.cuda() for a in args)
-    assert tk.factored_form(n, 1, k, refine) == "stream"
+    assert tk.factored_form(n, 1, k, refine, batch=2) == "stream"
     launches, cluster, stream = factored_counts()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -503,8 +545,8 @@ def global_counts(wrapper):
 @pytest.mark.parametrize("m", [1, 3])
 @pytest.mark.parametrize("n", [5, 13, 37])
 def test_factored_global_kernel_matches_plain_twin(n, m, refine, n_iters):
-    """The factored device-memory form (cluster_kernel<true>) at the
-    cluster tests' shapes, through the private entry, with one
+    """The factored device-memory form (cluster_kernel<Form::device>)
+    at the cluster tests' shapes, through the private entry, with one
     iteration and a whole segment; each launch moves its counter by
     one. Held by the twin rule, with the cluster form's outputs on the
     same inputs beside the twin's (as the cluster test holds it)."""
@@ -521,24 +563,214 @@ def test_factored_global_kernel_matches_plain_twin(n, m, refine, n_iters):
     assert_matches_twin(fn, out, args, kw, beside=clustered)
 
 
+def expanded(args, batch):
+    """A kernel call of one problem repeated ``batch`` times."""
+    return tuple(a.expand(batch, *a.shape[1:]).contiguous() for a in args)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("refine, n, m, k", [(0, 5000, 1, 256),
                                              (1, 2048, 8, 252)])
 def test_factored_gap_shape_goes_to_global(refine, n, m, k):
-    """The sketch-fed 5,000-asset north star (k = 256, B = 1) and the
-    ladder's 2,048 x 8 rung at a year's window with refinement: no
-    cluster slice and no streaming block fits, so the router picks the
+    """The sketch-fed 5,000-asset north star (k = 256) and the ladder's
+    2,048 x 8 rung at a year's window with refinement, 64 problems at
+    once: no cluster slice and no streaming block fits, and the card
+    cannot hold 64 G grid clusters at once, so the router picks the
     device-memory form, which matches the twin."""
     need_card()
     fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
                                  window=k, batch=1, refine=refine)
-    args = tuple(a.cuda() for a in args)
-    assert tk.factored_form(n, m, k, refine) == "global"
+    args = expanded(tuple(a.cuda() for a in args), 64)
+    assert tk.factored_form(n, m, k, refine, batch=64) == "global"
     launches, held = global_counts(fn)
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert global_counts(fn) == (launches + 1, held + 1)
     assert_matches_twin(fn, out, args, kw)
+
+
+# The grid form's shapes: the north star's woodbury arms (k = 504, 256)
+# and the factored gap rungs, as (refine, n, m, k).
+GRID_SHAPES = [(0, 5000, 1, 504), (0, 5000, 1, 256), (0, 2048, 8, 252),
+               (1, 2048, 8, 252), (0, 1024, 128, 252)]
+
+
+def grid_counts(wrapper):
+    return wrapper.launches, wrapper.grid_launches
+
+
+@pytest.mark.gpu
+def test_grid_sizes_are_the_ones_the_router_reads():
+    """The grid form's shared memory per block, scratch and G (at the
+    card's own occupancy answers) are the mirrors' that the CPU routing
+    tests assume (cluster_grid_bytes, grid_scratch_floats,
+    grid_groups)."""
+    need_card()
+    lib = tk._library(tk._CLUSTER_LIB)
+    limit = tk._library(tk._LIB).porqua_max_smem_optin()
+    for refine, n, m, k in GRID_SHAPES + [(0, 37, 3, 24), (2, 500, 1, 252)]:
+        shape = (n, m, k, refine)
+        for g in (1, 2, 3, 7, 16):
+            assert lib.porqua_admm_cluster_grid_smem_bytes(
+                *shape, g) == cluster_grid_bytes(*shape, g)
+            assert lib.porqua_admm_cluster_grid_scratch_floats(
+                m, k, g) == grid_scratch_floats(m, k, g)
+        for batch in (1, 2, 64):
+            assert lib.porqua_admm_cluster_grid_groups(
+                *shape, batch) == grid_groups(
+                    *shape, batch,
+                    lambda g: lib.porqua_admm_cluster_grid_max_active(
+                        *shape, g), limit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine, n, m, k", GRID_SHAPES)
+def test_factored_gap_shape_goes_to_grid(refine, n, m, k):
+    """At one problem, each of the grid's shapes routes to the grid
+    form: one launch of it, held by the twin rule with the
+    device-memory form's outputs on the same inputs beside the twin's
+    (both f64 Schur steps); a second call gives the same bits."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 window=k, batch=1, refine=refine)
+    args = tuple(a.cuda() for a in args)
+    assert tk.factored_form(n, m, k, refine, batch=1) == "grid"
+    launches, held = grid_counts(fn)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert grid_counts(fn) == (launches + 1, held + 1)
+    again = fn(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    device_form = tk._admm_segment_factored_form("global", *args, **kw)
+    assert_matches_twin(fn, out, args, kw, beside=device_form)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("refine, n, m, k, groups, n_iters", [
+    # the 5,000-asset sketch shape, a few iterations, at the fewest
+    # groups and at 12 (an H100 holds 30 of the small clusters at once,
+    # two blocks an SM, so two problems take at most 15 groups each)
+    (0, 5000, 1, 256, 4, 3), (0, 5000, 1, 256, 12, 3),
+    # ragged: at 12 groups each of 96 blocks owns one column of 37 or
+    # none; at 3 groups, 2 columns of 37, the last ranks none
+    (0, 37, 3, 24, 12, 25), (1, 37, 3, 24, 3, 25), (1, 13, 1, 24, 12, 1),
+    # m = 128 over 2 and 5 groups, with and without refinement
+    (0, 1024, 128, 252, 2, 5), (1, 1024, 128, 252, 5, 5)])
+def test_factored_grid_kernel_matches_plain_twin(refine, n, m, k, groups,
+                                                 n_iters, batch):
+    """The grid form through the private entry at a forced G: held by
+    the twin rule against the plain twin, with the device-memory form's
+    outputs beside the twin's; two calls give the same bits; each
+    launch moves its counter by one."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 window=k, batch=batch, refine=refine)
+    args = tuple(a.cuda() for a in args)
+    kw = dict(kw, n_iters=n_iters)
+    launches, held = grid_counts(fn)
+    out = tk._admm_segment_factored_form("grid", *args, groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert grid_counts(fn) == (launches + 1, held + 1)
+    again = tk._admm_segment_factored_form("grid", *args, groups=groups, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    device_form = tk._admm_segment_factored_form("global", *args, **kw)
+    assert_matches_twin(fn, out, args, kw, beside=device_form)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("refine, n, m, k", [(0, 5000, 1, 504),
+                                             (1, 2048, 8, 252)])
+def test_forced_grid_groups_agree(refine, n, m, k):
+    """Two group counts sum each reduction in another order: both hold
+    the twin rule, each with the other's outputs beside the twin's."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=n, m=m,
+                                 window=k, batch=1, refine=refine)
+    args = tuple(a.cuda() for a in args)
+    lib = tk._library(tk._CLUSTER_LIB)
+    low = lib.porqua_admm_cluster_grid_groups(n, m, k, refine, 1)
+    assert 1 <= low < 16
+    outs = [tk._admm_segment_factored_form("grid", *args, groups=g, **kw)
+            for g in (low, 16)]
+    assert_matches_twin(fn, outs[0], args, kw, beside=outs[1])
+    assert_matches_twin(fn, outs[1], args, kw, beside=outs[0])
+
+
+@pytest.mark.gpu
+def test_grid_that_cannot_be_resident_raises():
+    """A forced G whose B G clusters the card cannot hold at once is
+    refused before the launch (a spin on a group that is not resident
+    would never end); nothing is counted."""
+    need_card()
+    fn, args, kw = kernel_inputs("factored_refine0", np.float32, n=5000,
+                                 window=256, batch=1, refine=0)
+    lib = tk._library(tk._CLUSTER_LIB)
+    held = lib.porqua_admm_cluster_grid_max_active(5000, 1, 256, 0, 16)
+    args = expanded(tuple(a.cuda() for a in args), held // 16 + 1)
+    before = grid_counts(fn)
+    with pytest.raises(ValueError, match="resident"):
+        tk._admm_segment_factored_form("grid", *args, groups=16, **kw)
+    assert grid_counts(fn) == before
+
+
+# One problem on 16 groups at k = 1,024 over 5,000 assets (about 180 KB
+# a block, one block an SM): more clusters than an H100 holds at once.
+# Launched past the wrapper's check, in a process of its own: the
+# runtime must refuse the cooperative launch, or the kernel's bounded
+# spin must trap; either way the process ends.
+OVERFULL_GRID = """
+import sys, torch
+from porqua_tpu_torch.ops import admm_kernel as tk
+B, n, m, k, G = 1, 5000, 1, 1024, 16
+lib = tk._library(tk._CLUSTER_LIB)
+if B * G <= lib.porqua_admm_cluster_grid_max_active(n, m, k, 0, G):
+    print("resident")
+    sys.exit(0)
+f = lambda *s: torch.ones((B,) + s, device="cuda")
+# W inv_d Y0 Ginv V Dv C q l u lb ub rho rho_b l1w l1c x z w y mu
+inputs = [f(k, n), f(n), f(n, m), f(m, m), f(k, n), f(n), f(m, n), f(n),
+          f(m), f(m), f(n), f(n), f(m), f(n), f(n), f(n), f(n), f(m), f(n),
+          f(m), f(n)]
+outs = [torch.empty_like(inputs[i]) for i in (16, 17, 18, 19, 20, 16, 19, 20)]
+outs.append(torch.zeros(
+    B * lib.porqua_admm_cluster_grid_scratch_floats(m, k, G), device="cuda"))
+try:
+    tk._launch(lib, "porqua_admm_segment_factored_grid",
+               torch.cuda.current_stream().cuda_stream, inputs, outs,
+               (B, n, m, k, 3, G), 1e-6, 1.6, 0)
+except RuntimeError as e:
+    print("refused:", e)
+    sys.exit(0)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("trapped:", e)
+    sys.exit(0)
+print("ran")
+"""
+
+
+@pytest.mark.gpu
+def test_grid_beyond_residency_is_refused_or_traps():
+    """A grid launch whose clusters cannot all be resident, made past
+    the wrapper's check, never hangs: the cooperative launch is refused
+    (an H100 answers CUDA error 720), or a spin traps after about a
+    second."""
+    need_card()
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    done = subprocess.run([sys.executable, "-c", OVERFULL_GRID], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    said = done.stdout.strip()
+    if said == "resident":
+        pytest.skip("this card holds 16 such clusters at once")
+    assert said.startswith(("refused:", "trapped:")), (said, done.stderr)
 
 
 @pytest.mark.gpu
@@ -584,9 +816,10 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
 @pytest.mark.gpu
 def test_factored_wrapper_raises_where_no_form_fits():
     """60,000 assets fit neither a cluster block's slice nor the
-    streaming form's block: the wrapper raises before any launch."""
+    streaming form's block nor, at 64 problems, a grid the card can hold
+    at once: the wrapper raises before any launch."""
     need_card()
-    B, n, m, k = 1, 60000, 1, 1
+    B, n, m, k = 64, 60000, 1, 1
     f = lambda *s: torch.zeros((B,) + s, device="cuda")
     # W inv_d Y0 Ginv V Dv C q l u lb ub rho rho_b l1w l1c x z w y mu
     args = (f(k, n), f(n), f(n, m), f(m, m), f(k, n), f(n), f(m, n), f(n),
@@ -639,7 +872,8 @@ def test_scan_kernel_call_matches_plain_twin(form, lanes):
     if fn is tk.admm_segment:
         assert tk.dense_form(n, m, kw["triangular"]) == "cluster"
     else:
-        assert tk.factored_form(n, m, args[0].shape[-2], 0) == "cluster"
+        assert tk.factored_form(n, m, args[0].shape[-2], 0,
+                                batch=lanes) == "cluster"
     launches, cluster, stream = counts_of(fn)
     out = fn(*args, **kw)
     torch.cuda.synchronize()
