@@ -136,7 +136,16 @@ printed):
    counts (backend "auto": none). Phase 3 also holds every kernel form,
    the streaming ones included, at the ragged widths of the gpu tests
    (``ragged_twin_checks``).
-15. One JSON line per kernel, then the card line, then the result line.
+15. The command-line tools (``cli_phase``; checks listed there):
+   ``porqua_tpu_torch.cli``'s load generator on the north-star stream
+   with every artifact flag, its files rendered by the readers
+   (``obs_report``, ``harvest_report``, ``roofline_report`` against the
+   card's ridge point, ``incident_report``); the same readers over
+   phase 10's harvest datasets and flight bundles and phase 11's
+   CostRecords, which K1 and K2 produced; ``tsan_smoke`` and
+   ``slo_smoke``; ``run_checks`` over the port, and ``hlolint_report``
+   harvesting a baseline on the card and checked against it.
+16. One JSON line per kernel, then the card line, then the result line.
 """
 
 import contextlib
@@ -4110,11 +4119,13 @@ def _replay_batches(spans, by_trace):
 
 
 def routed_serve_phase(rows, reset_counts, device="cuda",
-                       bare_bursts=None):
+                       bare_bursts=None, artifacts=None):
     """Phase 10: the routed, retried and observed service on ``device``
     (the card); returns the kernel rows it adds to ``rows``.
     ``bare_bursts``: phase 7's burst numbers, printed beside the hooked
-    ones.
+    ones. ``artifacts``, a dict, gets ``"phase10"``: the paths of the
+    stream runs' harvest datasets and flight-recorder directories (phase
+    15 renders them).
 
     (a) Phase 7's north-star stream (512 requests x 500 assets, bucket
     512 x 8, max_batch 256, one burst) through ``SolveService(router=
@@ -4481,6 +4492,11 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
     chaos_cells(device, label)
     print(f"chaos cells: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if artifacts is not None:
+        artifacts["phase10"] = {
+            "harvest": [os.path.join(tmp, f"{tag}.jsonl")
+                        for tag, *_ in runs],
+            "flight": [os.path.join(tmp, tag) for tag, *_ in runs]}
     added = []
     for key, rname, base_row, tag in (
             ("routed_k2", "admm_segment[triangular]_cluster, routed serve",
@@ -4520,9 +4536,11 @@ def _trace_kernels(path, name, exclude=None):
     return len(hits), sum(float(e.get("dur", 0.0)) for e in hits)
 
 
-def cost_phase(rows, reset_counts, device="cuda"):
+def cost_phase(rows, reset_counts, device="cuda", artifacts=None):
     """Phase 11: the device-cost plane on ``device`` (the card); returns
-    the kernel rows it adds to ``rows``.
+    the kernel rows it adds to ``rows``. ``artifacts``, a dict, gets
+    ``"phase11"``: the paths of the two runs' CostLog files (phase 15
+    renders them).
 
     Phase 7's north-star stream (512 requests x 500 assets, bucket
     512 x 8, max_batch 256; max_wait long enough that the burst forms
@@ -4827,6 +4845,9 @@ def cost_phase(rows, reset_counts, device="cuda"):
         print(f"{tag}: {time.perf_counter() - t_run:.1f} s", flush=True)
     check(hashes["cost_trinv"] != hashes["cost_woodbury"],
           "the trinv and woodbury entries have different op hashes")
+    if artifacts is not None:
+        artifacts["phase11"] = {"costs": [
+            os.path.join(tmp, f"{tag}.costs.jsonl") for tag, *_ in runs]}
 
     added = []
     for key, rname, base, tag in (
@@ -5651,6 +5672,258 @@ def examples_phase(reset_counts, device="cuda"):
     return seconds
 
 
+# Phase 15 runs the port's command-line tools (porqua_tpu_torch/cli/)
+# through their ``main`` on the card. The load generator's stream (the
+# north star as the JAX script's ``--workload northstar`` builds it),
+# the sanitizer smoke's arguments and the programs the op-trace lint
+# harvests are module constants so that a rehearsal on the CPU can cut
+# them.
+CLI_LOADGEN = ["--workload", "northstar", "--requests", "252"]
+CLI_TSAN = []
+CLI_HLO_LABELS = "serve_entry,continuous_step,solve_batch"
+CLI_SHOW_LINES = 40
+
+
+def cli_phase(artifacts, device="cuda"):
+    """Phase 15: the command-line tools on ``device`` (the card), each
+    called through its ``main`` as ``python -m porqua_tpu_torch.cli.<name>``
+    would call it. Checks:
+    (a) ``serve_loadgen`` at CLI_LOADGEN with ``--jsonl``,
+        ``--trace-out``, ``--events-out``, ``--rings 16``,
+        ``--harvest-out``, ``--cost-out``, ``--slo`` and ``--flight-out``
+        exits 0 and prints one JSON line: zero errors, zero recompiles
+        after warm-up, one harvest record per measured request, every
+        answer on the card; ``obs_report``, ``harvest_report`` and
+        ``roofline_report`` (``--report``, ``--device-kind`` the card's
+        name: every ranked entry classified against the card's ridge
+        point) render those files, and ``incident_report`` any bundle;
+    (b) the same readers over the files phase 10 and phase 11 wrote
+        (``artifacts``): ``harvest_report`` over the routed runs'
+        datasets, ``roofline_report`` ranking each CostLog's entries,
+        ``obs_report`` joining them, ``incident_report`` every bundle
+        phase 10 dumped;
+    (c) ``tsan_smoke`` and ``slo_smoke`` exit 0 (the latter holds its
+        one ``breaker_open`` bundle itself);
+    (d) ``run_checks --no-contracts`` over the port is clean (phase 13
+        ran the contracts on the card); ``hlolint_report --harvest`` of
+        CLI_HLO_LABELS on the card into a new baseline, then the check
+        against it: zero fingerprint flips, nothing missing, its exit
+        code agreeing with its findings. The committed baseline is the
+        CPU's (every op line names its device), so the card is not held
+        to it."""
+    import contextlib
+    import glob
+    import io
+    import shlex
+    import tempfile
+
+    import torch
+
+    from porqua_tpu_torch.cli import (harvest_report, hlolint_report,
+                                      incident_report, obs_report,
+                                      roofline_report, run_checks,
+                                      serve_loadgen, slo_smoke, tsan_smoke)
+    from porqua_tpu_torch.profiling import device_peaks
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    label = f"{dev.type}:{dev.index or 0}"
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+    peak_f, peak_bw = device_peaks(kind)
+    seconds = {}
+
+    def run(mod, argv, show=CLI_SHOW_LINES):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(list(argv))
+        except (Exception, SystemExit) as exc:  # noqa: BLE001 - reported
+            rc = f"{type(exc).__name__}: {exc}"
+        dt = time.perf_counter() - t0
+        seconds[name] = seconds.get(name, 0.0) + dt
+        out = buf.getvalue()
+        lines = out.splitlines()
+        print(f"$ python -m porqua_tpu_torch.cli.{name} {shlex.join(argv)}"
+              f"\n  -> exit {rc} in {dt:.1f} s, {len(lines)} lines",
+              flush=True)
+        for ln in lines[:show]:
+            print(f"  | {ln}", flush=True)
+        if len(lines) > show:
+            print(f"  | ... ({len(lines) - show} more lines)", flush=True)
+        return rc, out
+
+    def bundles(dirs):
+        return sorted(p for d in dirs
+                      for p in glob.glob(os.path.join(d, "incident-*")))
+
+    with tempfile.TemporaryDirectory(prefix="porqua-phase15-") as td:
+        # -- (a) the load generator and its readers ----------------------
+        f = {k: os.path.join(td, v) for k, v in (
+            ("jsonl", "serve.jsonl"), ("trace", "trace.json"),
+            ("events", "events.jsonl"), ("harvest", "harvest.jsonl"),
+            ("costs", "costs.jsonl"), ("flight", "flight"),
+            ("report", "report.json"), ("verdict", "verdict.json"))}
+        argv = CLI_LOADGEN + [
+            "--jsonl", f["jsonl"], "--trace-out", f["trace"],
+            "--events-out", f["events"], "--rings", "16",
+            "--harvest-out", f["harvest"], "--cost-out", f["costs"],
+            "--slo", "--flight-out", f["flight"], "--device", device]
+        rc, out = run(serve_loadgen, argv, show=0)
+        lines = out.splitlines()
+        try:
+            report = json.loads(lines[-1]) if len(lines) == 1 else {}
+        except ValueError:
+            report = {}
+        n_req = report.get("n_requests")
+        print(f"serve_loadgen: {n_req} requests of {report.get('n_assets')} "
+              f"assets, {report.get('throughput_solves_per_s', 0):.1f} "
+              f"solves/s, p50 {report.get('latency_p50_ms', 0):.1f} ms, "
+              f"p99 {report.get('latency_p99_ms', 0):.1f} ms, occupancy "
+              f"{report.get('occupancy_mean')}, errors "
+              f"{report.get('errors')}, recompiles after warm-up "
+              f"{report.get('recompiles_after_warmup')}, harvest records "
+              f"{report.get('harvest_records_measured')} measured of "
+              f"{report.get('harvest_records')}, CostRecords "
+              f"{report.get('cost_records')}, SLO firing "
+              f"{(report.get('slo') or {}).get('firing')}, incident "
+              f"bundles {report.get('incident_bundles')}", flush=True)
+        check(rc == 0 and len(lines) == 1 and report.get("errors") == 0
+              and report.get("recompiles_after_warmup") == 0
+              and n_req and report.get("harvest_records_measured") == n_req
+              and report.get("solved") == n_req
+              and report.get("device") == label,
+              f"[cli serve_loadgen] exit 0, one JSON line: zero errors, "
+              f"zero recompiles after warm-up, {n_req} harvest records "
+              f"for {n_req} requests, all solved on {label}")
+        with open(f["report"], "w") as fh:
+            json.dump(report, fh)
+        rc, out = run(obs_report, [
+            "--trace", f["trace"], "--events", f["events"],
+            "--metrics", f["jsonl"], "--harvest", f["harvest"],
+            "--costs", f["costs"]])
+        check(rc == 0 and all(s in out for s in (
+            "stage waterfall", "convergence rings",
+            "harvest convergence analytics", "device cost / memory",
+            "latency / throughput")),
+              "[cli obs_report] renders the run's trace, events, metrics, "
+              "harvest and costs")
+        rc, out = run(harvest_report, [f["harvest"]])
+        check(rc == 0 and f"harvest dataset: "
+              f"{report.get('harvest_records')} records" in out,
+              "[cli harvest_report] renders the run's dataset")
+        rc, out = run(roofline_report, [
+            "--costs", f["costs"], "--report", f["report"],
+            "--device-kind", kind, "--out", f["verdict"]])
+        verdict = {}
+        if os.path.exists(f["verdict"]):
+            with open(f["verdict"]) as fh:
+                verdict = json.load(fh)
+        ridge = peak_f / peak_bw if peak_f else None
+        ranked = verdict.get("ranked") or []
+        check(rc == 0 and ridge is not None
+              and verdict.get("ridge_flops_per_byte") == ridge
+              and ranked and all(r.get("bound") in ("memory", "compute")
+                                 for r in ranked
+                                 if r.get("arithmetic_intensity"))
+              and any(r.get("stage_seconds") for r in ranked),
+              f"[cli roofline_report] ranks {len(ranked)} entries against "
+              f"the card's ridge point ({kind!r}) joined to the run's "
+              f"stage seconds")
+        for path in bundles([f["flight"]]):
+            rc, out = run(incident_report, [path])
+            check(rc == 0 and out.startswith("incident bundle"),
+                  f"[cli incident_report] renders {os.path.basename(path)}")
+
+        # -- (b) the readers over phases 10 and 11 (K1, K2) --------------
+        p10 = artifacts.get("phase10") or {}
+        p11 = artifacts.get("phase11") or {}
+        check(p10.get("harvest") and p11.get("costs"),
+              "[cli] phases 10 and 11 handed over their files")
+        harvests = [p for p in p10.get("harvest", ()) if os.path.exists(p)]
+        if harvests:
+            rc, out = run(harvest_report, harvests, show=60)
+            check(rc == 0 and "harvest dataset" in out,
+                  f"[cli harvest_report] renders phase 10's "
+                  f"{len(harvests)} datasets together")
+        for path in p11.get("costs", ()):
+            vpath = os.path.join(td, os.path.basename(path) + ".verdict")
+            rc, out = run(roofline_report, ["--costs", path,
+                                            "--device-kind", kind,
+                                            "--out", vpath], show=24)
+            ranked = []
+            if os.path.exists(vpath):
+                with open(vpath) as fh:
+                    ranked = json.load(fh).get("ranked") or []
+            check(rc == 0 and ranked
+                  and all(r.get("device") == label and r.get("bound")
+                          in ("memory", "compute") for r in ranked),
+                  f"[cli roofline_report] ranks {len(ranked)} entries of "
+                  f"{os.path.basename(path)}, each on {label} and "
+                  f"classified")
+        if harvests and p11.get("costs"):
+            rc, out = run(obs_report, ["--harvest", harvests[0], "--costs",
+                                       p11["costs"][0]], show=30)
+            check(rc == 0 and "harvest convergence analytics" in out
+                  and "device cost / memory (" in out,
+                  "[cli obs_report] renders phase 10's harvest beside "
+                  "phase 11's CostRecords")
+        dumped = bundles(p10.get("flight", ()))
+        print(f"phase 10 dumped {len(dumped)} incident bundle(s)",
+              flush=True)
+        for path in dumped:
+            rc, out = run(incident_report, [path])
+            check(rc == 0 and out.startswith("incident bundle"),
+                  f"[cli incident_report] renders phase 10's "
+                  f"{os.path.basename(path)}")
+
+        # -- (c) the smokes ----------------------------------------------
+        rc, out = run(tsan_smoke, CLI_TSAN + ["--device", device])
+        check(rc == 0 and " 0 errors, 0 recompiles" in out
+              and " 0 violations" in out,
+              "[cli tsan_smoke] exit 0: zero errors, zero recompiles, "
+              "zero sanitizer violations")
+        rc, out = run(slo_smoke, ["--device", device])
+        check(rc == 0 and out.startswith(
+            "slo_smoke: ok — 1 bundle (breaker_open)"),
+              "[cli slo_smoke] exit 0 with one breaker_open bundle")
+
+        # -- (d) the analysis tools --------------------------------------
+        rc, out = run(run_checks, ["--no-contracts"])
+        check(rc == 0 and out.strip().endswith("clean"),
+              "[cli run_checks] the port scans clean (AST rules)")
+        base = os.path.join(td, "op_baseline.json")
+        rc, out = run(hlolint_report, ["--harvest", "--baseline", base,
+                                       "--labels", CLI_HLO_LABELS,
+                                       "--device", device])
+        n_labels = len(CLI_HLO_LABELS.split(","))
+        check(rc == 0 and out.startswith(
+            f"baseline written to {base}: {n_labels} programs"),
+              f"[cli hlolint_report] harvested {n_labels} programs on "
+              f"{device} into a new baseline")
+        rpath = os.path.join(td, "hlolint.json")
+        rc, out = run(hlolint_report, ["--baseline", base, "--labels",
+                                       CLI_HLO_LABELS, "--out", rpath,
+                                       "--device", device])
+        hrep = {}
+        if os.path.exists(rpath):
+            with open(rpath) as fh:
+                hrep = json.load(fh)
+        fps = hrep.get("fingerprints") or {}
+        check(rc in (0, 1) and hrep and fps.get("flipped") == []
+              and fps.get("missing") == []
+              and len(hrep.get("programs", ())) == n_labels
+              and rc == (0 if hrep.get("clean") else 1),
+              f"[cli hlolint_report] {n_labels} programs on {device} "
+              f"against the baseline just harvested: zero fingerprint "
+              f"flips, none missing, {len(hrep.get('findings', ()))} "
+              f"finding(s), exit {rc}")
+    print(f"phase 15: tools (s) "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def shadow_rule(lanes, golden, check_interval):
     """SHADOW rule over ``lanes`` = ``(request, loser, status, iters)``:
     every lane's status equals the golden's answer on that loser; its
@@ -6055,11 +6328,13 @@ def main():
     kernel_rows += diff_phase(rows, reset_counts)
 
     # -- 10. the routed, retried and observed service ----------------------
+    artifacts = {}
     kernel_rows += routed_serve_phase(rows, reset_counts,
-                                      bare_bursts=bare_bursts)
+                                      bare_bursts=bare_bursts,
+                                      artifacts=artifacts)
 
     # -- 11. the device-cost plane -----------------------------------------
-    kernel_rows += cost_phase(rows, reset_counts)
+    kernel_rows += cost_phase(rows, reset_counts, artifacts=artifacts)
 
     # -- 12. the ML selection models ---------------------------------------
     kernel_rows += ml_phase(rows, reset_counts)
@@ -6071,6 +6346,9 @@ def main():
     t0 = time.perf_counter()
     examples_phase(reset_counts)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 15. the command-line tools ------------------------------------------
+    cli_phase(artifacts)
 
     # -- report ----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -579,8 +579,8 @@ def build_baseline(programs: Sequence[HarvestedProgram],
     """The committed file: per-program fingerprints, cost, GC205 peak
     budgets (peak x headroom), the finding counts at build time (the
     "no more than the baseline" floor), the GC204 ladder cells with
-    per-bucket budgets (share + margin) and the empty suppression
-    table."""
+    per-bucket budgets (share + margin), the empty suppression table
+    and the device type the programs were recorded on."""
     cfg = config or hlolint.LintConfig()
     entries: Dict[str, Any] = {}
     for hp in programs:
@@ -604,10 +604,12 @@ def build_baseline(programs: Sequence[HarvestedProgram],
     cells = bucket_padding_cells()
     budgets = {c["bucket"]: round(c["share"] + padding_margin, 4)
                for c in cells}
+    devices = sorted({str(hp.record.get("device", "cpu"))
+                      for hp in programs})
     return {
         "schema": BASELINE_SCHEMA_VERSION,
         "dtype": "float32",
-        "device": "cpu",
+        "device": ",".join(devices) or "cpu",
         "config": dataclasses.asdict(cfg),
         "programs": entries,
         "padding": {"default_budget": cfg.padding_budget,

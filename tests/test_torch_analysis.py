@@ -94,6 +94,49 @@ def test_every_jax_example_has_a_port_counterpart():
             assert re.search(r"^def main\(device=None", f.read(), re.M), name
 
 
+#: The JAX package's command-line tools and where each stands in the
+#: port: twins under ``porqua_tpu_torch/cli/``; left out, each group
+#: with its reason; still to port.
+CLI_PORTED = ("harvest_report", "hlolint_report", "incident_report",
+              "obs_report", "roofline_report", "run_checks",
+              "serve_loadgen", "slo_smoke", "tsan_smoke")
+CLI_LEFT_OUT = {
+    # TPU measurement, profiling and queue scripts, and the LAD
+    # experiments: each measured the JAX package on its chip.
+    "prefixes": ("measure_", "profile_", "tpu_", "lad_"),
+    # The port's own probes and golden writers, already its own.
+    "port_tools": ("torch_",),
+    # The benchmark gate and its trend reader gate benchmark artifacts:
+    # they belong with the port's own benchmark, still to come.
+    "benchmark": ("bench_gate", "trend_report"),
+}
+CLI_TO_PORT = ("calibration_smoke", "chaos_suite", "fleet_loadgen",
+               "tenant_smoke")
+
+
+def test_every_jax_script_has_a_port_counterpart():
+    scripts = sorted(n[:-3] for n in os.listdir(os.path.join(ROOT, "scripts"))
+                     if n.endswith(".py"))
+    left_out = CLI_LEFT_OUT["prefixes"] + CLI_LEFT_OUT["port_tools"]
+    unplaced = [n for n in scripts
+                if n not in CLI_PORTED and n not in CLI_TO_PORT
+                and n not in CLI_LEFT_OUT["benchmark"]
+                and not n.startswith(left_out)]
+    assert unplaced == []
+    cli = os.path.join(PORT, "cli")
+    twins = sorted(n[:-3] for n in os.listdir(cli)
+                   if n.endswith(".py") and n != "__init__.py")
+    assert twins == sorted(CLI_PORTED)
+    assert set(CLI_PORTED) | set(CLI_TO_PORT) <= set(scripts)
+    for name in CLI_PORTED:
+        with open(os.path.join(cli, f"{name}.py")) as f:
+            src = f.read()
+        assert re.search(r"^def main\(argv=None\) -> int:", src, re.M), name
+        assert 'if __name__ == "__main__":\n    sys.exit(main())' in src
+    for name in CLI_TO_PORT:
+        assert not os.path.exists(os.path.join(cli, f"{name}.py")), name
+
+
 def test_nothing_left_unported():
     for root, _, names in os.walk(PORT):
         for name in names:

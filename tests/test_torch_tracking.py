@@ -270,9 +270,12 @@ def test_port_imports_no_jax():
     and native-cpp-admm rows, an Optimization with solver_name="ipm",
     one LTR selection, one LSTM training step and forward and one
     ordinal fit (ML models), and one example of the port
-    (``examples.index_replication`` on two dates) with JAX, flax, optax, sklearn, msgpack
+    (``examples.index_replication`` on two dates) and the command-line
+    tools (``porqua_tpu_torch.cli``: every one imported, the readers'
+    and the op-trace lint's selftests and the workload library's run)
+    with JAX, flax, optax, sklearn, msgpack
     and h5py made unimportable, and pulls in no
-    module of the JAX package; the native core's build and load (every
+    module of the JAX package nor of ``scripts/``; the native core's build and load (every
     file opened, library loaded and process started after the solves
     begin) never touch a path under porqua_tpu/."""
     code = (
@@ -285,6 +288,18 @@ def test_port_imports_no_jax():
         "import porqua_tpu_torch as pt\n"
         "for m in pkgutil.walk_packages(pt.__path__, 'porqua_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import contextlib, io\n"
+        "from porqua_tpu_torch import cli\n"
+        "clis = sorted(m.name for m in pkgutil.iter_modules(cli.__path__))\n"
+        "assert len(clis) == 9 and all('porqua_tpu_torch.cli.' + c in "
+        "sys.modules for c in clis), clis\n"
+        "for c, flag in (('incident_report', '--selftest'), "
+        "('harvest_report', '--selftest'), ('obs_report', '--selftest'), "
+        "('roofline_report', '--selftest'), ('hlolint_report', "
+        "'--selftest'), ('serve_loadgen', '--workloads-selftest')):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        assert sys.modules['porqua_tpu_torch.cli.' + c].main("
+        "[flag]) == 0, c\n"
         "Xs, ys = pt.synthetic_universe_np(1, 2, 20, 8)\n"
         "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
         "backend='pallas'), device='cpu')\n"
@@ -446,6 +461,9 @@ def test_port_imports_no_jax():
         "and (m.split('.')[0] in ('jax', 'jaxlib', 'porqua_tpu', 'flax', "
         "'optax', 'sklearn', 'msgpack', 'h5py'))]\n"
         "assert not bad, bad\n"
+        "here = os.path.join(os.getcwd(), 'scripts') + os.sep\n"
+        "assert not [m for m, mod in sys.modules.items() if str(getattr("
+        "mod, '__file__', '') or '').startswith(here)]\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
