@@ -281,15 +281,12 @@ SECONDARY_PATH = os.path.join("porqua_tpu_torch", "testdata",
 # lane held against the other loser's golden answer must fail it. The
 # blend: status equal, iterations within one check interval and |dx| <=
 # W_ATOL (phase 7's rule) against the golden's answer to the same pool
-# problem; the next pool problem's answer must fail it. CHAOS_ATOL is
-# the chaos suite's wrong-answer bar (scripts/chaos_suite.py).
+# problem; the next pool problem's answer must fail it.
 ROUTE_PATH = os.path.join("porqua_tpu_torch", "testdata", "route_golden.npz")
 SHADOW_BUDGET = 1
 SHADOW_OFF_SHARE = 0.1
 STREAM_MAX_BATCH = 256
 BLEND_MAX_BATCH = 16
-CHAOS_ATOL = 5e-4
-POISON_SHADOW_RATE = 0.125
 ON_OFF_WIDTH = 128
 # Phase 10's routers run with the device-cost plane off. The plane
 # counts every aten op of each entry's warm-up through a
@@ -2277,10 +2274,11 @@ def turnover_phase(reset_counts):
           f"return {float((1 + sim).prod() - 1):.6f}", flush=True)
 
 
-def serve_kernel_call(reqs, params, device):
+def serve_kernel_call(reqs, params, device, ladder=None):
     """The fused-segment call that the first segment of the service's
-    full batch (the first 256 requests, bucket-padded) makes, as
-    ``(wrapper, args, kwargs)`` of ``qp.admm.segment_kernel_call``."""
+    full batch (``reqs``, padded to their bucket of ``ladder``, default
+    the service's default ladder) makes, as ``(wrapper, args, kwargs)``
+    of ``qp.admm.segment_kernel_call``."""
     import torch
 
     from porqua_tpu_torch.qp.admm import segment_kernel_call
@@ -2288,7 +2286,8 @@ def serve_kernel_call(reqs, params, device):
     from porqua_tpu_torch.qp.solve import prepare_batch
     from porqua_tpu_torch.serve.bucketing import BucketLadder
 
-    qp = stack_qps([BucketLadder().pad(q)[1] for q in reqs]).to(device)
+    ladder = BucketLadder() if ladder is None else ladder
+    qp = stack_qps([ladder.pad(q)[1] for q in reqs]).to(device)
     x0 = torch.zeros_like(qp.q)
     y0 = torch.zeros_like(qp.l)
     scaled, _, carry, _, _ = prepare_batch(qp, params, x0, y0)
@@ -3673,430 +3672,6 @@ def diff_phase(rows, reset_counts, device="cuda"):
     return added
 
 
-def _tiny_requests(n, params):
-    """``n`` small well-conditioned QPs (one 8 x 4 bucket: six
-    variables, a budget row and one general row) and their reference
-    answers (the port's plain path on the CPU): the oracle of the
-    calibration and chaos cells, as ``scripts/chaos_suite.py`` builds
-    it."""
-    import numpy as np
-
-    import porqua_tpu_torch as pt
-
-    qps, refs = [], []
-    for seed in range(n):
-        rng = np.random.default_rng(seed)
-        nv, m = 6, 2
-        A = rng.standard_normal((2 * nv, nv))
-        P = A.T @ A / (2 * nv) + np.eye(nv)
-        q = rng.standard_normal(nv)
-        C = np.concatenate([np.ones((1, nv)),
-                            rng.standard_normal((m - 1, nv))])
-        qp = pt.CanonicalQP.build(P, q, C=C, l=np.full(m, -1.0),
-                                  u=np.ones(m), lb=np.zeros(nv),
-                                  ub=np.ones(nv), device="cpu")
-        qps.append(qp)
-        refs.append(pt.solve_qp(qp, dataclasses.replace(
-            params, backend="xla"), device="cpu").x.numpy())
-    return qps, refs
-
-
-def _oracle_round(svc, qps, refs, poison=None, before=None):
-    """Submit one round of ``qps`` and resolve it: returns ``(results,
-    wrong, failures, poisoned_ok, resolutions)``. A result is wrong when
-    it is not finite or lies more than CHAOS_ATOL from its reference;
-    ``poison(i, qp)`` may corrupt a request (it then must fail);
-    ``before(i)`` runs before request ``i`` is submitted; ``resolutions``
-    counts each ticket's done callbacks (one each)."""
-    import numpy as np
-
-    tickets, poisoned, calls = [], set(), []
-    for i, qp in enumerate(qps):
-        if before is not None:
-            before(i)
-        if poison is not None:
-            bad = poison(i, qp)
-            if bad is not qp:
-                poisoned.add(i)
-                qp = bad
-        t = svc.submit(qp)
-        calls.append(0)
-        t.future.add_done_callback(
-            lambda _f, i=i: calls.__setitem__(i, calls[i] + 1))
-        tickets.append(t)
-    results, wrong, failures, poisoned_ok = [], [], [], []
-    for i, t in enumerate(tickets):
-        try:
-            res = svc.result(t, timeout=120)
-        except Exception as exc:  # noqa: BLE001 - a failure is an outcome
-            failures.append(f"req{i}: {type(exc).__name__}")
-            results.append(None)
-            continue
-        results.append(res)
-        if i in poisoned:
-            poisoned_ok.append(i)
-            continue
-        if not np.all(np.isfinite(res.x)) or float(
-                np.abs(res.x - refs[i]).max()) > CHAOS_ATOL:
-            wrong.append(i)
-    return results, wrong, failures, poisoned_ok, calls
-
-
-def _calibration_evidence(cal, bucket, eps, n=6):
-    """The calibration smoke's schema-correct evidence for one cell
-    (``scripts/calibration_smoke.py::_synthetic_evidence``): PDHG
-    strictly faster than the ADMM stream, NAPG matured but slower."""
-    for _ in range(n):
-        cal.observe({"source": "serve", "bucket": bucket, "eps_abs": eps,
-                     "solver": "admm", "status": 1, "iters": 40,
-                     "solve_s": 4e-3, "obj": 0.1})
-        cal.observe({"source": "serve.shadow", "shadow_of": "admm",
-                     "bucket": bucket, "eps_abs": eps, "solver": "pdhg",
-                     "status": 1, "iters": 12, "solve_s": 1e-5,
-                     "obj": 0.1, "delta_iters": -28,
-                     "delta_solve_s": -4e-3, "agree": True})
-        cal.observe({"source": "serve.shadow", "shadow_of": "admm",
-                     "bucket": bucket, "eps_abs": eps, "solver": "napg",
-                     "status": 1, "iters": 80, "solve_s": 8e-3,
-                     "obj": 0.1, "delta_iters": 40,
-                     "delta_solve_s": 4e-3, "agree": True})
-
-
-def calibration_cells(device, label):
-    """``calibration_promote``, ``calibration_poison`` and
-    ``calibration_rollback`` as ``scripts/calibration_smoke.py`` defines
-    them and at its sizes (eight 6-variable requests, bucket 8 x 4,
-    max_batch 8, eps 1e-5, a Calibrator on a stepped FaultClock), on
-    ``device`` through ``backend="pallas"`` (the ADMM arm launches K2).
-    Holds: the promotion routes PDHG live with zero recompiles and the
-    audit chain replays to the live table and version; poisoned records
-    never promote and no poisoned request gets an answer; a rollback
-    bumps the version and exactly one flight bundle lands, triggered by
-    ``route_rollback``; every answer on ``label``, none wrong. One
-    change from the smoke: the poison drill shadows a dispatch with probability
-    POISON_SHADOW_RATE, not 1 (a NaN batch runs every backend to
-    max_iter, and NAPG's row-by-row bisection makes each such shadow
-    cost seconds on the card, launch-bound; the calibrator ticks at
-    every dispatch there, so a per-tick budget would not bound it)."""
-    import porqua_tpu_torch as pt
-    from porqua_tpu_torch import obs
-    from porqua_tpu_torch.serve import BucketLadder, SolveService
-    from porqua_tpu_torch.serve.routing import SolverRouter
-
-    params = pt.SolverParams(max_iter=500, eps_abs=1e-5, eps_rel=1e-5,
-                             polish=False, check_interval=25,
-                             backend="pallas")
-    qps, refs = _tiny_requests(8, params)
-    eps = params.eps_abs
-
-    def service(clk, shadow_rate, **kw):
-        sink = obs.HarvestSink(None)
-        router = SolverRouter(params, shadow_rate=shadow_rate,
-                              shadow_seed=0, cost_log=ROUTER_COST_LOG)
-        cal = obs.Calibrator(min_interval_s=0.0, min_samples=4,
-                             win_rate=0.6, canary_dwell_s=5.0,
-                             guard_window_s=30.0, clock=clk)
-        svc = SolveService(
-            params, ladder=BucketLadder(n_rungs=(8,), m_rungs=(4,)),
-            max_batch=8, max_wait_ms=2.0, queue_capacity=256,
-            router=router, harvest=sink, calibrator=cal, device=device,
-            **kw)
-        return svc, router, cal, sink
-
-    def answered(results):
-        return all(r is None or r.device == label for r in results)
-
-    _calibration_promote(service, qps, refs, eps, answered, label)
-    _calibration_poison(service, qps, refs)
-    _calibration_rollback(service, qps, refs, eps, params, answered, label)
-
-
-def _calibration_promote(service, qps, refs, eps, answered, label):
-    """The promote drill of :func:`calibration_cells`."""
-    from porqua_tpu_torch import obs
-    from porqua_tpu_torch.resilience import faults
-
-    t0 = time.perf_counter()
-    clk = faults.FaultClock()
-    svc, router, cal, sink = service(clk, 0.0)
-    with svc:
-        svc.prewarm(qps[0])
-        r0, w0, f0, _, _ = _oracle_round(svc, qps, refs)
-        svc.metrics.reset_window()
-        bucket = sink.buffered()[0]["bucket"]
-        cell = f"{bucket}@{eps:.0e}"
-        _calibration_evidence(cal, bucket, eps)
-        cal.tick()
-        state = cal.status()["state"]
-        clk.advance(6.0)
-        cal.tick()
-        table, version = dict(router.snapshot()["table"]), router.table_version
-        r1, w1, f1, _, _ = _oracle_round(svc, qps, refs)
-        snap = svc.snapshot()
-        clk.advance(31.0)
-        cal.tick()
-        counters = cal.counters()
-        replayed, replay_v = obs.replay_audit(sink.buffered())
-        live = router.snapshot()["table"]
-    print(f"calibration_promote: {time.perf_counter() - t0:.2f} s; state "
-          f"after evidence {state!r}, table {table} (version {version}), "
-          f"routed {({m: snap[f'routed_{m}'] for m in ('admm', 'pdhg')})}, "
-          f"compiles {snap['compiles']}, counters "
-          f"{ {k: v for k, v in counters.items() if v} }", flush=True)
-    check(state == "canary" and counters["calibration_promotions"] == 1
-          and table.get(cell) == "pdhg" and version == 1
-          and snap["routed_pdhg"] == len(qps),
-          "[calibration_promote] candidate, canary, promoted (version 1); "
-          "the promoted route serves PDHG")
-    check(snap["compiles"] == 0,
-          "[calibration_promote] the route flip from admm (K2) to PDHG "
-          "costs zero recompiles")
-    check(replayed == live and replay_v == router.table_version,
-          "[calibration_promote] replay_audit of the warehouse gives the "
-          "live table and version")
-    check(counters["calibration_settled"] == 1
-          and counters["calibration_rollbacks"] == 0,
-          "[calibration_promote] the guard settles")
-    check(not (w0 or w1 or f0 or f1) and answered(r0 + r1),
-          f"[calibration_promote] every answer on {label} and right, "
-          f"none failed")
-
-
-
-def _calibration_poison(service, qps, refs):
-    """The poison drill of :func:`calibration_cells`."""
-    from porqua_tpu_torch.resilience import RetryPolicy, faults
-
-    t0 = time.perf_counter()
-    clk = faults.FaultClock()
-    svc, router, cal, sink = service(
-        clk, POISON_SHADOW_RATE,
-        retry=RetryPolicy(max_attempts=2, backoff_base_s=0.02, seed=0))
-    scenario = faults.Scenario("calibration-poison", (faults.FaultSpec.make(
-        "data.feed", "feed_corrupt", count=1_000_000, lanes=1),), seed=0)
-    poisoned, resolved, calls = 0, [], []
-    with svc:
-        svc.prewarm(qps[0])
-
-        def poison(i, qp):
-            act = faults.fire("data.feed", i=i)
-            if act is not None and act.kind == "feed_corrupt":
-                return faults.corrupt_feed(qp, act)
-            return qp
-
-        with faults.active(scenario, metrics=svc.metrics,
-                           events=svc.obs.events):
-            for _ in range(2):
-                _, _, fails, ok_poisoned, c = _oracle_round(
-                    svc, qps, refs, poison)
-                poisoned += len(qps)
-                resolved += ok_poisoned
-                calls += c
-                time.sleep(0.25)   # the trailing shadow solves
-                clk.advance(10.0)
-                cal.tick()
-        counters, status = cal.counters(), cal.status()
-        snap = svc.snapshot()
-    print(f"calibration_poison: {time.perf_counter() - t0:.2f} s; "
-          f"{poisoned} poisoned, {len(resolved)} resolved; calibrator "
-          f"{ {k: v for k, v in counters.items() if v} }; validation "
-          f"failures {snap['validation_failures']}, give-ups "
-          f"{snap['retry_giveups']}", flush=True)
-    check(counters["calibration_rejected"] > 0
-          and counters["calibration_promotions"] == 0
-          and counters["calibration_candidates"] == 0
-          and status["state"] == "idle" and router.table_version == 0,
-          "[calibration_poison] poisoned records are rejected and never "
-          "promote")
-    check(poisoned > 0 and not resolved and set(calls) == {1},
-          "[calibration_poison] no poisoned request gets an answer; every "
-          "ticket resolves once")
-
-
-
-def _calibration_rollback(service, qps, refs, eps, params, answered, label):
-    """The rollback drill of :func:`calibration_cells`."""
-    import shutil
-    import tempfile
-
-    from porqua_tpu_torch import obs
-    from porqua_tpu_torch.resilience import faults
-
-    t0 = time.perf_counter()
-    clk = faults.FaultClock()
-    anomaly = obs.AnomalyDetector({("drift", eps): {
-        "iters_p50": 10.0, "iters_p95": 20.0, "iters_max": 30.0,
-        "wasted": 0.0, "count": 100}})
-    flight_dir = tempfile.mkdtemp(prefix="calibration-rollback-")
-    flight = obs.FlightRecorder(out_dir=flight_dir, armed=False,
-                                debounce_s=600.0)
-    svc, router, cal, sink = service(clk, 0.0, flight=flight,
-                                     anomaly=anomaly)
-    try:
-        with svc:
-            svc.prewarm(qps[0])
-            r0, w0, f0, _, _ = _oracle_round(svc, qps, refs)
-            svc.metrics.reset_window()
-            bucket = sink.buffered()[0]["bucket"]
-            cell = f"{bucket}@{eps:.0e}"
-            _calibration_evidence(cal, bucket, eps)
-            cal.tick()
-            clk.advance(6.0)
-            cal.tick()
-            v_promoted = router.table_version
-            t_promoted = dict(router.snapshot()["table"])
-            r1, w1, f1, _, _ = _oracle_round(svc, qps, refs)
-            for _ in range(8):
-                anomaly.observe("drift", eps, 10_000,
-                                check_interval=params.check_interval)
-            flight.arm()
-            clk.advance(1.0)
-            cal.tick()
-            v_rolled = router.table_version
-            t_rolled = dict(router.snapshot()["table"])
-            counters = cal.counters()
-            replayed, replay_v = obs.replay_audit(sink.buffered())
-            bundles = flight.bundles()
-            trigger = None
-            if len(bundles) == 1:
-                b = bundles[0]
-                trigger = (obs.load_bundle(b) if isinstance(b, str)
-                           else b).get("trigger", {}).get("kind")
-            r2, w2, f2, _, _ = _oracle_round(svc, qps, refs)
-            snap = svc.snapshot()
-            live = router.snapshot()["table"]
-    finally:
-        shutil.rmtree(flight_dir, ignore_errors=True)
-    print(f"calibration_rollback: {time.perf_counter() - t0:.2f} s; "
-          f"promoted {t_promoted} (version {v_promoted}), restored "
-          f"{t_rolled} (version {v_rolled}); bundles {len(bundles)} "
-          f"(trigger {trigger!r}); compiles {snap['compiles']}", flush=True)
-    check(t_promoted.get(cell) == "pdhg" and t_rolled == {}
-          and counters["calibration_rollbacks"] == 1
-          and v_promoted == 1 and v_rolled == 2,
-          "[calibration_rollback] the rollback restores the table and "
-          "bumps the version (1 -> 2), never reusing one")
-    check(len(bundles) == 1 and trigger == "route_rollback",
-          "[calibration_rollback] exactly one flight bundle, triggered by "
-          "route_rollback")
-    check(replayed == live and replay_v == v_rolled,
-          "[calibration_rollback] replay_audit gives the live table and "
-          "version")
-    check(snap["compiles"] == 0 and not (w0 or w1 or w2 or f0 or f1 or f2)
-          and answered(r0 + r1 + r2),
-          f"[calibration_rollback] zero recompiles; every answer on "
-          f"{label} and right")
-
-
-def chaos_cells(device, label):
-    """``solver_route_flap`` (``scripts/chaos_suite.py:463``: a live
-    router force-flipped across ADMM, PDHG and NAPG mid-round) and the
-    port's builtin fault scenarios, each on the chaos suite's sixteen
-    6-variable requests (bucket 8 x 4, max_batch 8) under a
-    ``RetryPolicy`` (the default for the flap, the suite's for the
-    faults: four attempts, 20 ms backoff), on ``device``. The service
-    names no fallback, so the breaker and the retries stay on the card.
-    Holds, per cell: every answer returned is finite and within
-    CHAOS_ATOL of its oracle, no poisoned request resolves, every ticket
-    resolves once, every answer on ``label``; the flap serves every
-    backend with zero recompiles and no failure; each fault fired."""
-    import porqua_tpu_torch as pt
-    from porqua_tpu_torch import obs
-    from porqua_tpu_torch.resilience import RetryPolicy, faults
-    from porqua_tpu_torch.serve import BucketLadder, SolveService
-    from porqua_tpu_torch.serve.routing import SolverRouter
-
-    params = pt.SolverParams(max_iter=500, eps_abs=1e-5, eps_rel=1e-5,
-                             polish=False, check_interval=25,
-                             backend="pallas")
-    qps, refs = _tiny_requests(16, params)
-    ladder = BucketLadder(n_rungs=(8,), m_rungs=(4,))
-
-    # solver_route_flap
-    t0 = time.perf_counter()
-    router = SolverRouter(params, cost_log=ROUTER_COST_LOG)
-    svc = SolveService(params, ladder=ladder, max_batch=8, max_wait_ms=5.0,
-                       queue_capacity=256, router=router,
-                       retry=RetryPolicy(), obs=obs.Observability(),
-                       device=device)
-    wrong, failures, calls, results = [], [], [], []
-    with svc:
-        svc.prewarm(qps[0])
-        svc.metrics.reset_window()
-        half = len(qps) // 2
-        for start, mid in (("pdhg", "admm"), ("admm", "napg"),
-                           ("napg", "pdhg"), ("pdhg", None),
-                           ("napg", None), (None, None)):
-            router.force(start)
-            r, w, f, _, c = _oracle_round(
-                svc, qps, refs,
-                before=lambda i, mid=mid: i == half and router.force(mid))
-            results += [x for x in r if x is not None]
-            wrong += w
-            failures += f
-            calls += c
-        snap = svc.snapshot()
-    routed = {m: snap[f"routed_{m}"] for m in ("admm", "pdhg", "napg")}
-    print(f"chaos solver_route_flap: {time.perf_counter() - t0:.2f} s; "
-          f"routed {routed}, compiles {snap['compiles']}, wrong "
-          f"{len(wrong)}, failed {len(failures)}", flush=True)
-    check(not wrong and not failures and set(calls) == {1}
-          and all(r.device == label for r in results),
-          f"[solver_route_flap] every answer right and on {label}, none "
-          f"failed, every ticket resolved once")
-    check(all(routed.values()) and snap["compiles"] == 0,
-          "[solver_route_flap] every backend served, zero recompiles")
-
-    # The builtin fault scenarios the service's seams fire.
-    for name, feed in (("device_lost", False), ("nan_lanes", False),
-                       ("feed_corrupt", True), ("compile_storm", False),
-                       ("queue_stall", False), ("clock_skew", False)):
-        t0 = time.perf_counter()
-        scenario = faults.builtin_scenarios(seed=0)[name]
-        svc = SolveService(
-            params, ladder=ladder, max_batch=8, max_wait_ms=5.0,
-            queue_capacity=256, obs=obs.Observability(),
-            retry=RetryPolicy(max_attempts=4, backoff_base_s=0.02, seed=0),
-            device=device)
-
-        def poison(i, qp):
-            act = faults.fire("data.feed", i=i)
-            if act is not None and act.kind == "feed_corrupt":
-                return faults.corrupt_feed(qp, act)
-            return qp
-
-        wrong, failures, poisoned_ok, calls, results = [], [], [], [], []
-        with svc:
-            svc.prewarm(qps[0])
-            svc.metrics.reset_window()
-            with faults.active(scenario, metrics=svc.metrics,
-                               events=svc.obs.events) as injector:
-                for _ in range(2):
-                    r, w, f, p, c = _oracle_round(
-                        svc, qps, refs, poison if feed else None)
-                    results += r
-                    wrong += w
-                    failures += f
-                    poisoned_ok += p
-                    calls += c
-                fired = injector.fires()
-            r, w, f, _, c = _oracle_round(svc, qps, refs)
-            results += r
-            wrong += w
-            calls += c
-            snap = svc.snapshot()
-        print(f"chaos {name}: {time.perf_counter() - t0:.2f} s; faults "
-              f"fired {fired}; failed {len(failures)} in the window, "
-              f"{len(f)} after; retries {snap['retries']}, validation "
-              f"failures {snap['validation_failures']}, give-ups "
-              f"{snap['retry_giveups']}", flush=True)
-        check(fired > 0 and not wrong and not poisoned_ok
-              and set(calls) == {1}
-              and all(x is None or x.device == label for x in results),
-              f"[{name}] faults fired; every answer returned right and on "
-              f"{label}; no poisoned answer; every ticket resolved once")
-
-
 def _scrape(port, path):
     import urllib.request
 
@@ -4150,7 +3725,7 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
     turnover on NAPG) with ``TenantSLOSet``, every answer against the
     golden; K2's launches, counted from zero after the prewarm, equal
     the segments of the tracking tenant's dispatches (from the spans),
-    by batch width. (c) The calibration cells; (d) chaos with retries."""
+    by batch width. The calibration and chaos cells are phase 16's."""
     import tempfile
 
     import numpy as np
@@ -4483,14 +4058,6 @@ def routed_serve_phase(rows, reset_counts, device="cuda",
           f"[blend] the tracking tenant launched K2 once per segment of "
           f"its {len(admm_batches)} dispatches, in the cluster form "
           f"({k2_blend})")
-
-    # (c) calibration, (d) chaos
-    t0 = time.perf_counter()
-    calibration_cells(device, label)
-    print(f"calibration cells: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    chaos_cells(device, label)
-    print(f"chaos cells: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if artifacts is not None:
         artifacts["phase10"] = {
@@ -5924,6 +5491,133 @@ def cli_phase(artifacts, device="cuda"):
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# Phase 16 (the load drivers): the cells of cli.chaos_suite, which runs
+# cli.tenant_smoke's and cli.calibration_smoke's too, at the drivers'
+# solver params with backend="pallas" (the ADMM arm launches K2 at the
+# 8 x 4 bucket, dense_form(8, 4, True)): the names of LOAD_CLASSIC in
+# classic mode and of LOAD_CONTINUOUS in continuous mode (None: every
+# name of the matrix), and calibration_promote. The chaos cells' breaker pair is cuda:0 and
+# the host CPU (chaos_suite.breaker_pair), whose pallas backend runs the
+# plain twin. LOAD_SHADOW_RATE: the poison drill's shadow probability
+# (the twin's default is the JAX suite's 1; a NaN batch runs every
+# backend to max_iter, and NAPG's row-by-row bisection makes each such
+# shadow cost seconds on the card, launch-bound).
+LOAD_CLASSIC = None
+LOAD_CONTINUOUS = None
+LOAD_SHADOW_RATE = 0.125
+
+
+def _answers(record):
+    """``{phase: {device label: answers}}`` of one tally record."""
+    import collections
+
+    return {phase: dict(collections.Counter(
+        label for rnd in p["rounds"] for label in rnd))
+        for phase, p in record["phases"].items()}
+
+
+def load_driver_phase(rows, reset_counts, device="cuda"):
+    """Phase 16: the load drivers' cells (``porqua_tpu_torch/cli/``) on
+    ``device`` (the card); returns the kernel rows it adds to ``rows``.
+    Holds, per cell: the verdict ``ok`` (its invariants printed: zero
+    wrong answers within the oracle's 5e-4, no poisoned request
+    answered, the breaker cycle back to the primary, zero recompiles on
+    the route flap, the promotion routing PDHG live and the audit chain
+    replaying, ...); every ticket resolved once; every answer on the
+    primary, but for the device-fault cells' window and recovery, where
+    the breaker must have moved answers to the fallback and the last
+    recovery round must be served on the primary whole. Over the phase:
+    K2 launched in the fault-free rounds (``warm``, ``recovery``,
+    ``restored``) of every cell that has them."""
+    import dataclasses
+
+    from porqua_tpu_torch.cli import Tally, calibration_smoke, chaos_suite
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.serve.batcher import device_label
+    from porqua_tpu_torch.serve.bucketing import BucketLadder, ExecutableCache
+
+    t_phase = time.perf_counter()
+    K2 = admm_kernel.admm_segment
+    params = dataclasses.replace(calibration_smoke.reference_params(),
+                                 backend="pallas")
+    ladder = BucketLadder(n_rungs=(8,), m_rungs=(4,))
+    qps, refs = chaos_suite._build_requests(chaos_suite.N_REQUESTS, params)
+    cache = ExecutableCache(params)
+    primary, fallback = chaos_suite.breaker_pair(device)
+    home, away = device_label(primary), device_label(fallback)
+    cells = [("calibration_promote", "classic")] + [
+        (name, mode) for mode, names in (("classic", LOAD_CLASSIC),
+                                         ("continuous", LOAD_CONTINUOUS))
+        for name in (chaos_suite.ALL_NAMES if names is None else names)]
+    print(f"phase 16: {len(cells)} cells on {home} (breaker fallback "
+          f"{away}), backend 'pallas'; the poison drill shadows a "
+          f"dispatch with probability {LOAD_SHADOW_RATE}", flush=True)
+    tally = Tally(counter=lambda: K2.launches)
+    quiet = []
+    reset_counts()
+    for name, mode in cells:
+        t0 = time.perf_counter()
+        if name == "calibration_promote":
+            verdict = calibration_smoke.run_calibration_cell(
+                name, mode, params=params, device=primary, tally=tally)
+        else:
+            verdict = chaos_suite.run_cell(
+                name, mode, 0, qps, refs, params, ladder, cache,
+                device=primary, shadow_rate=LOAD_SHADOW_RATE, tally=tally)
+        seconds = time.perf_counter() - t0
+        record = tally.cells[-1]
+        answers = _answers(record)
+        launches = {ph: p["launches"] for ph, p in record["phases"].items()}
+        print(f"load {name}/{mode}: {seconds:.2f} s; ok "
+              f"{verdict['ok']}; invariants "
+              f"{ {k: v['ok'] for k, v in verdict['invariants'].items()} }"
+              f"; answers by phase and device {answers}; K2 launches by "
+              f"phase {launches}", flush=True)
+        bad = {k: v["detail"] for k, v in verdict["invariants"].items()
+               if not v["ok"]}
+        check(verdict["ok"], f"[load {name}/{mode}] every invariant holds"
+              + (f" (violated: {bad})" if bad else ""))
+        calls = record["resolutions"]
+        check(calls and set(calls) == {1},
+              f"[load {name}/{mode}] every one of {len(calls)} tickets "
+              f"resolved once")
+        device_fault = chaos_suite.SCENARIOS.get(name, {}).get(
+            "device_fault", False)
+        held = [ph for ph in answers
+                if not (device_fault and ph in ("window", "recovery"))]
+        check(all(set(answers[ph]) <= {home} for ph in held),
+              f"[load {name}/{mode}] every answer of {held} on {home}")
+        if device_fault:
+            last = record["phases"]["recovery"]["rounds"][-1]
+            check(answers["window"].get(away, 0) > 0
+                  and last and set(last) == {home},
+                  f"[load {name}/{mode}] the breaker moved "
+                  f"{answers['window'].get(away, 0)} answers of the window "
+                  f"to {away}, and every answer of the last recovery round "
+                  f"is on {home} ({len(last)})")
+        free = [p["launches"] for ph, p in record["phases"].items()
+                if ph in ("warm", "recovery", "restored")]
+        if free and sum(free) == 0:
+            quiet.append(f"{name}/{mode}")
+    check(not quiet, f"[load] K2 launched in the fault-free rounds of every "
+          f"cell that has them (none in {quiet})")
+    counts = {"launches": K2.launches, "cluster": K2.cluster_launches,
+              "stream": K2.stream_launches, "tail": K2.tail_launches}
+    print(f"load drivers: K2 launches {counts}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    fn, args, kw = serve_kernel_call(qps[:8], params, primary, ladder)
+    form = form_of(True, args, kw)
+    check(counts["launches"] > 0 and counts[form] == counts["launches"],
+          f"[load] the drivers' cells launched K2, every launch in the "
+          f"{form} form that dense_form(8, 4, True) picks ({counts})")
+    kernel_row(rows, "load_k2", f"admm_segment[triangular]_{form}, load "
+               f"drivers", ("trinv", "cluster"), fn, args, kw,
+               counts["launches"])
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return ["load_k2"]
+
+
+
 def shadow_rule(lanes, golden, check_interval):
     """SHADOW rule over ``lanes`` = ``(request, loser, status, iters)``:
     every lane's status equals the golden's answer on that loser; its
@@ -6349,6 +6043,9 @@ def main():
 
     # -- 15. the command-line tools ------------------------------------------
     cli_phase(artifacts)
+
+    # -- 16. the load drivers --------------------------------------------------
+    kernel_rows += load_driver_phase(rows, reset_counts)
 
     # -- report ----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1302,3 +1302,42 @@ def test_sharded_solve_on_cuda0():
                    if a is not None)
     else:
         torch.testing.assert_close(sharded.x, plain.x, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_chaos_selftest_on_card_with_the_cpu_fallback():
+    """The chaos suite's selftest cells (``cli.chaos_suite.SELFTEST``)
+    on cuda:0, the host CPU the breaker's fallback, at the drivers'
+    params with ``backend="pallas"``: every verdict ok, every ticket
+    resolved once, ``device_lost``'s window served on the fallback and
+    its last recovery round on cuda:0, every other answer on cuda:0,
+    and K2 launched in the fault-free rounds."""
+    import dataclasses
+
+    from porqua_tpu_torch.cli import Tally, calibration_smoke, chaos_suite
+    from porqua_tpu_torch.serve.bucketing import BucketLadder, ExecutableCache
+
+    need_card()
+    params = dataclasses.replace(calibration_smoke.reference_params(),
+                                 backend="pallas")
+    qps, refs = chaos_suite._build_requests(chaos_suite.N_REQUESTS, params)
+    ladder = BucketLadder(n_rungs=(8,), m_rungs=(4,))
+    cache = ExecutableCache(params)
+    tally = Tally(counter=lambda: tk.admm_segment.launches)
+    for name, mode in chaos_suite.SELFTEST:
+        verdict = chaos_suite.run_cell(name, mode, 0, qps, refs, params,
+                                       ladder, cache, device="cuda",
+                                       tally=tally)
+        assert verdict["ok"], verdict["invariants"]
+        record = tally.cells[-1]
+        assert set(record["resolutions"]) == {1}
+        phases = record["phases"]
+        answers = {ph: {d for rnd in p["rounds"] for d in rnd}
+                   for ph, p in phases.items()}
+        if name == "device_lost":
+            assert "cpu:0" in answers["window"]
+            assert set(phases["recovery"]["rounds"][-1]) == {"cuda:0"}
+            assert answers["warm"] == {"cuda:0"}
+        else:
+            assert set().union(*answers.values()) == {"cuda:0"}
+        assert phases["warm"]["launches"] + phases["recovery"]["launches"] > 0

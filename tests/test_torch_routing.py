@@ -468,31 +468,38 @@ def test_write_golden_and_rehearse_phase10_at_a_small_size(tmp_path,
     monkeypatch.setattr(chip_smoke, "FAILURES", [])
     monkeypatch.setattr(chip_smoke, "STREAM_MAX_BATCH", 8)
     monkeypatch.setattr(chip_smoke, "BLEND_MAX_BATCH", 2)
-    cells = []
-    monkeypatch.setattr(chip_smoke, "calibration_cells",
-                        lambda device, label: cells.append("calibration"))
-    monkeypatch.setattr(chip_smoke, "chaos_cells",
-                        lambda device, label: cells.append("chaos"))
     added = chip_smoke.routed_serve_phase({}, lambda: None, device="cpu")
     assert added == ["routed_k2", "routed_k1"]
-    assert cells == ["calibration", "chaos"]
     failed = chip_smoke.FAILURES
     assert len(failed) == 4 and all("launched" in f for f in failed), failed
 
 
 @pytest.mark.parametrize("cells", ["calibration", "chaos"])
 def test_phase10_calibration_and_chaos_cells_on_the_cpu(monkeypatch, cells):
-    """Phase 10's calibration drills (promote, poison, rollback) and its
-    chaos cells, on the CPU: every check passes (none counts a kernel
-    launch)."""
+    """The calibration drills and the chaos cells that phase 10 ran,
+    now phase 16's (``chip_smoke.load_driver_phase``, through the
+    ``porqua_tpu_torch.cli`` drivers), in classic mode on the CPU: the
+    promote drill and the calibration cells, or the rest of the matrix.
+    Every check passes but the two that count K2's launches (the card's
+    alone; the kernel row is stubbed)."""
     import chip_smoke
+    from porqua_tpu_torch.cli import chaos_suite
+    from porqua_tpu_torch.ops import admm_kernel
 
     monkeypatch.setattr(chip_smoke, "FAILURES", [])
-    if cells == "calibration":
-        chip_smoke.calibration_cells("cpu", "cpu:0")
-    else:
-        chip_smoke.chaos_cells("cpu", "cpu:0")
-    assert chip_smoke.FAILURES == []
+    monkeypatch.setattr(chip_smoke, "LOAD_CLASSIC", (
+        chaos_suite.CALIBRATION_CELLS if cells == "calibration" else
+        tuple(chaos_suite.SCENARIOS) + chaos_suite.TENANT_CELLS
+        + chaos_suite.ROUTE_CELLS))
+    monkeypatch.setattr(chip_smoke, "LOAD_CONTINUOUS", ())
+    monkeypatch.setattr(chip_smoke, "kernel_row", lambda *a: None)
+    monkeypatch.setattr(admm_kernel, "dense_form", lambda *a: "cluster")
+    assert chip_smoke.load_driver_phase({}, lambda: None,
+                                        device="cpu") == ["load_k2"]
+    failed = chip_smoke.FAILURES
+    assert len(failed) == 2, failed
+    assert failed[0].startswith("[load] K2 launched in the fault-free")
+    assert failed[1].startswith("[load] the drivers' cells launched K2")
 
 
 if __name__ == "__main__":

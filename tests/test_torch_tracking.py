@@ -272,7 +272,8 @@ def test_port_imports_no_jax():
     ordinal fit (ML models), and one example of the port
     (``examples.index_replication`` on two dates) and the command-line
     tools (``porqua_tpu_torch.cli``: every one imported, the readers'
-    and the op-trace lint's selftests and the workload library's run)
+    and the op-trace lint's selftests, the workload library's run and
+    one chaos cell through the load drivers)
     with JAX, flax, optax, sklearn, msgpack
     and h5py made unimportable, and pulls in no
     module of the JAX package nor of ``scripts/``; the native core's build and load (every
@@ -291,7 +292,7 @@ def test_port_imports_no_jax():
         "import contextlib, io\n"
         "from porqua_tpu_torch import cli\n"
         "clis = sorted(m.name for m in pkgutil.iter_modules(cli.__path__))\n"
-        "assert len(clis) == 9 and all('porqua_tpu_torch.cli.' + c in "
+        "assert len(clis) == 12 and all('porqua_tpu_torch.cli.' + c in "
         "sys.modules for c in clis), clis\n"
         "for c, flag in (('incident_report', '--selftest'), "
         "('harvest_report', '--selftest'), ('obs_report', '--selftest'), "
@@ -300,6 +301,10 @@ def test_port_imports_no_jax():
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         "        assert sys.modules['porqua_tpu_torch.cli.' + c].main("
         "[flag]) == 0, c\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert sys.modules['porqua_tpu_torch.cli.chaos_suite'].main(["
+        "'--scenarios', 'nan_lanes', '--modes', 'classic', '--device', "
+        "'cpu']) == 0\n"
         "Xs, ys = pt.synthetic_universe_np(1, 2, 20, 8)\n"
         "r = pt.tracking_step(Xs, ys, pt.SolverParams(polish=False, "
         "backend='pallas'), device='cpu')\n"
