@@ -145,7 +145,24 @@ printed):
    CostRecords, which K1 and K2 produced; ``tsan_smoke`` and
    ``slo_smoke``; ``run_checks`` over the port, and ``hlolint_report``
    harvesting a baseline on the card and checked against it.
-16. One JSON line per kernel, then the card line, then the result line.
+16. The load drivers (``load_driver_phase``; checks listed there): every
+   cell of ``cli/chaos_suite``, ``cli/tenant_smoke`` and
+   ``cli/calibration_smoke`` in classic and continuous mode at
+   ``backend="pallas"`` (the triangular-inverse kernel), the breaker
+   pair ``cuda:0`` and the host CPU.
+17. The fleet load generator (``fleet_phase``; checks listed there):
+   ``cli/fleet_loadgen.run_fleet`` with spawned workers, each its own
+   CUDA context on ``cuda:0``: the JAX script's default soak (cut to
+   ``FLEET_SOAK_S``), the seeded worker-crash cell and a tenant blend;
+   exact reconciliation, zero recompiles, every answer on the card.
+18. The property suite through the kernels (``property_phase``): the
+   KKT and padding properties in f32 with ``backend="pallas"`` at
+   ragged shapes that the router sends to each kernel form (the
+   factored cluster and grid, the triangular-inverse cluster on 8 and
+   16 ranks, the explicit-inverse cluster and streamed tail), each
+   solve held against the same solve through the plain twins, with
+   controls that must fail; a kernel row per form.
+19. One JSON line per kernel, then the card line, then the result line.
 """
 
 import contextlib
@@ -5270,7 +5287,8 @@ def cli_phase(artifacts, device="cuda"):
         ``obs_report`` joining them, ``incident_report`` every bundle
         phase 10 dumped;
     (c) ``tsan_smoke`` and ``slo_smoke`` exit 0 (the latter holds its
-        one ``breaker_open`` bundle itself);
+        one bundle itself: the breaker's, or a latency alert's that
+        fired first and debounced it);
     (d) ``run_checks --no-contracts`` over the port is clean (phase 13
         ran the contracts on the card); ``hlolint_report --harvest`` of
         CLI_HLO_LABELS on the card into a new baseline, then the check
@@ -5453,8 +5471,11 @@ def cli_phase(artifacts, device="cuda"):
               "zero sanitizer violations")
         rc, out = run(slo_smoke, ["--device", device])
         check(rc == 0 and out.startswith(
-            "slo_smoke: ok — 1 bundle (breaker_open)"),
-              "[cli slo_smoke] exit 0 with one breaker_open bundle")
+            ("slo_smoke: ok — 1 bundle (breaker_open)",
+             "slo_smoke: ok — 1 bundle (slo_alert latency, breaker_open "
+             "debounced)")),
+              f"[cli slo_smoke] exit 0 with one bundle, the breaker's or "
+              f"a latency alert's that debounced it: {out.strip()[:80]}")
 
         # -- (d) the analysis tools --------------------------------------
         rc, out = run(run_checks, ["--no-contracts"])
@@ -5616,6 +5637,414 @@ def load_driver_phase(rows, reset_counts, device="cuda"):
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return ["load_k2"]
 
+
+
+# Phase 17: the fleet load generator (cli/fleet_loadgen.py) on the card.
+# The soak runs the JAX script's defaults (4 workers, 2,000 arrivals/s,
+# 24 assets, window 252, a pool of 512, max_batch 128) with its 60 s
+# cut to FLEET_SOAK_S; the crash cell 2 workers, worker 1 crashed
+# FLEET_CRASH_AFTER_S into a FLEET_CRASH_S soak, the default 10 s
+# heartbeat timeout; the blend cell FLEET_TENANTS, the workload blend
+# of the JAX loadgen's example, over FLEET_TENANTS_S, 2 workers (a
+# fleet service has no router, so no tenant reaches NAPG).
+FLEET_SOAK_S = 20.0
+FLEET_CRASH_S = 12.0
+FLEET_CRASH_AFTER_S = 7.0
+FLEET_TENANTS = ("alpha:tracking:diurnal:rate=40;beta:lad:heavy_tailed:"
+                 "rate=15;gamma:tracking:bursty:rate=8,burst_factor=10,"
+                 "offender=1,quota=64")
+FLEET_TENANTS_S = 8.0
+
+
+def _fleet_streams(run_dir, t_start):
+    """Per worker, from its stream: the final report (which also names
+    where the measured window's answers were served), the seconds from
+    ``t_start`` (wall clock) to its hello, and the longest silence
+    between two of its records after the hello."""
+    reports, hello_s, gap_s = {}, {}, {}
+    for name in sorted(os.listdir(run_dir)):
+        with open(os.path.join(run_dir, name)) as f:
+            recs = [json.loads(line) for line in f if line.endswith("\n")]
+        if not recs:
+            continue
+        w = recs[0]["w"]
+        hello_s[w] = round(recs[0]["t"] - t_start, 2)
+        gap_s[w] = round(max((b["t"] - a["t"] for a, b in zip(recs,
+                                                              recs[1:])),
+                             default=0.0), 2)
+        for rec in recs:
+            if rec["kind"] == "report":
+                reports[w] = rec["report"]
+    return reports, hello_s, gap_s
+
+
+def fleet_phase(device="cuda"):
+    """Phase 17: ``run_fleet`` with spawned workers on ``device`` (each
+    worker its own CUDA context on ``cuda:0``). Per cell: the report
+    ``ok``; exact reconciliation (fleet ``completed`` = the rows' sum,
+    the survivors' harvest records = their completions) and zero
+    survivor recompiles; every survivor's answers served on the
+    device; the workers' exit codes. The soak and the blend lose no
+    worker; the crash cell loses exactly worker 1 (exit 17) with one
+    ``worker_lost`` bundle; the blend's tenant counters sum to the
+    fleet's."""
+    import tempfile
+
+    import torch
+
+    from porqua_tpu_torch.cli import fleet_loadgen
+    from porqua_tpu_torch.serve.batcher import device_label
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    label = device_label(torch.device("cuda", 0) if dev.type == "cuda"
+                         else dev)
+    cells = [("soak", dict(workers=4, duration_s=FLEET_SOAK_S)),
+             ("crash", dict(workers=2, duration_s=FLEET_CRASH_S,
+                            crash_worker=1,
+                            crash_after_s=FLEET_CRASH_AFTER_S)),
+             ("tenants", dict(workers=2, duration_s=FLEET_TENANTS_S,
+                              tenants=FLEET_TENANTS))]
+    print(f"phase 17: fleet cells {[c for c, _ in cells]} on {label}; the "
+          f"soak cut from the JAX script's 60 s to {FLEET_SOAK_S:g} s",
+          flush=True)
+    with tempfile.TemporaryDirectory() as td:
+        for tag, kw in cells:
+            t0, t_wall = time.perf_counter(), time.time()
+            run_dir = os.path.join(td, tag)
+            report = fleet_loadgen.run_fleet(
+                **kw, out_dir=run_dir,
+                flight_out=os.path.join(td, f"{tag}_flight"),
+                device=device)
+            seconds = time.perf_counter() - t0
+            rows, fleet = report["rows"], report["fleet"]
+            surv = [r for r in rows if r["status"] != "lost"]
+            reports, hello_s, gap_s = _fleet_streams(run_dir, t_wall)
+            served = {w: r.get("devices") for w, r in reports.items()}
+            print(f"fleet {tag}: {seconds:.1f} s ({report['wall_s']:.1f} "
+                  f"s in run_fleet); ok {report['ok']}; throughput "
+                  f"{fleet['throughput_solves_per_s']:.1f} solves/s; p99 "
+                  f"per worker "
+                  f"{ {r['worker']: r.get('latency_p99_ms') for r in rows} } "
+                  f"ms; completed {fleet['completed']}, dropped arrivals "
+                  f"{fleet['dropped_arrivals']}, harvest records "
+                  f"{fleet['harvest_records']}; workers exit "
+                  f"{report['workers_exit']}; lost {report['workers_lost']},"
+                  f" worker_lost bundles {report['worker_lost_bundles']}, "
+                  f"incident bundles {report['incident_bundles']}; served "
+                  f"{served}; seconds to each hello {hello_s}, longest "
+                  f"stream silence after it {gap_s}", flush=True)
+            check(report["ok"], f"[fleet {tag}] the report is ok")
+            completed = sum(int(r.get("completed", 0)) for r in rows)
+            surv_completed = sum(int(r["completed"]) for r in surv)
+            check(report["reconciled"] and fleet["completed"] == completed
+                  and fleet["harvest_records"] == surv_completed
+                  == sum(int(r["harvest_records"]) for r in surv)
+                  and surv_completed > 0,
+                  f"[fleet {tag}] reconciles exactly: fleet completed "
+                  f"{fleet['completed']} = the rows' {completed}; the "
+                  f"survivors' harvest records {fleet['harvest_records']} "
+                  f"= their completions {surv_completed}")
+            check(report["survivor_recompiles"] == 0,
+                  f"[fleet {tag}] zero survivor recompiles")
+            check(all(served.get(r["worker"]) == {label: r["completed"]}
+                      for r in surv),
+                  f"[fleet {tag}] every survivor's answers served on "
+                  f"{label}")
+            if tag == "crash":
+                check(report["workers_lost"] == ["w1"]
+                      and report["workers_exit"] == {
+                          "w0": 0, "w1": fleet_loadgen.CRASH_EXIT}
+                      and report["worker_lost_bundles"] == 1,
+                      f"[fleet crash] exactly w1 lost (exit "
+                      f"{fleet_loadgen.CRASH_EXIT}) with one worker_lost "
+                      f"bundle")
+            else:
+                check(report["workers_lost"] == []
+                      and set(report["workers_exit"].values()) == {0},
+                      f"[fleet {tag}] no worker lost, every exit 0")
+            if tag == "tenants":
+                ten = report.get("tenants", {})
+                check({"alpha", "beta", "gamma"} <= set(ten)
+                      and sum(int(t.get("completed", 0))
+                              for t in ten.values()) == fleet["completed"],
+                      f"[fleet tenants] the tenants' completions sum to "
+                      f"the fleet's ({ {t: v.get('completed') for t, v in ten.items()} })")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# Phase 18: the property suite's KKT and padding properties through the
+# kernels, f32, backend "pallas", at ragged shapes chosen so the router
+# (factored_form, dense_form) picks each form: per form one batch of
+# PROPERTY_DRAWS seeded strongly convex QPs (P = A A'/n + 0.2 I, or
+# 2 Pf'Pf + 0.2 I with a factor of rank k for K1, at refine 1; a budget
+# row and m - 1 rows in [-3, 3]; a box of half-width 0.5-5). As in the
+# JAX suite, every SOLVED lane holds KKT at the JAX suite's tolerances
+# for eps 1e-7 (box 10 eps, rows 100 eps, stationarity 1000 eps x
+# max(1, |q|)) taken at PROPERTY_EPS; here every lane of every batch must
+# solve, in each of the three runs below, so a kernel that stalls a lane
+# at MAX_ITER fails the phase (on the CPU a factored f32 draw can stall
+# in a batch, XLA-CPU alike, ROADMAP section C; these draws solve every
+# lane on the card, through the kernels and through their twins). The
+# padded batch (PROPERTY_PAD more variables and rows) runs the same form,
+# its tail exactly 0 on every lane, every lane within PROPERTY_X_ATOL x
+# max(1, |x|) of the unpadded one. Each form's solve is held against the
+# same solve with the wrapper replaced by its plain twin
+# (admm_segment_ref, admm_segment_factored_ref) on the card, a run that
+# must launch no kernel at all: every lane within PROPERTY_X_ATOL x
+# max(1, |x|); the iterations are printed, not held (a factored lane
+# took 125 iterations through the grid kernel and 775 through its twin,
+# both solved, on an H100 80GB HBM3 at 700 W: the f32 floor).
+PROPERTY_EPS = 1e-4
+PROPERTY_MAX_ITER = 4000
+PROPERTY_DRAWS = 3
+PROPERTY_SEED = 18
+PROPERTY_PAD = (3, 6)
+PROPERTY_X_ATOL = 10 * PROPERTY_EPS
+# (row key, linsolve, the form and the dense rank count it must take,
+# candidate (n, m[, k]) shapes in order: the first the router sends to
+# that form is drawn.)
+PROPERTY_FORMS = (
+    ("prop_k1_cluster", "woodbury", "cluster", None,
+     ((37, 5, 19), (61, 3, 29))),
+    ("prop_k1_grid", "woodbury", "grid", None,
+     ((2001, 7, 251), (2048, 8, 252), (4999, 3, 257))),
+    ("prop_k2_cluster8", "trinv", "cluster", 8, ((253, 5), (101, 7))),
+    ("prop_k2_cluster16", "trinv", "cluster", 16,
+     ((1000, 101), (1021, 3))),
+    ("prop_k3_cluster", "inverse", "cluster", 16, ((253, 5), (37, 3))),
+    ("prop_k3_tail", "inverse", "tail", None, ((1000, 101), (1021, 3))),
+)
+
+
+def property_draw(seed, n, m, k=None):
+    """One strongly convex, feasible QP of the property suite at (n, m)
+    as numpy arrays (``Pf`` of rank ``k`` where given); its width from
+    the same seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    width = 0.5 + 4.5 * rng.random()
+    if k is None:
+        A = rng.standard_normal((n, n)) / np.sqrt(n)
+        P, Pf, Pdiag = A @ A.T + 0.2 * np.eye(n), None, None
+    else:
+        Pf = rng.standard_normal((k, n)) / np.sqrt(2 * n)
+        Pdiag = np.full(n, 0.2)
+        P = 2.0 * Pf.T @ Pf + np.diag(Pdiag)
+    q = rng.standard_normal(n)
+    C = np.vstack([np.ones(n), rng.standard_normal((m - 1, n))
+                   / np.sqrt(n)])
+    l = np.concatenate([[1.0], np.full(m - 1, -3.0)])
+    u = np.concatenate([[1.0], np.full(m - 1, 3.0)])
+    return dict(P=P, q=q, C=C, l=l, u=u, lb=np.full(n, -width),
+                ub=np.full(n, width), Pf=Pf, Pdiag=Pdiag)
+
+
+def kkt_violations(d, x, y, mu, eps):
+    """The KKT check of the JAX property suite on one solved lane (f64
+    on the host): each violation's name, or [] where the point holds."""
+    import numpy as np
+
+    x, y, mu = (np.asarray(a, np.float64) for a in (x, y, mu))
+    out = []
+    if not (np.all(x >= d["lb"] - 10 * eps) and np.all(x <= d["ub"]
+                                                        + 10 * eps)):
+        out.append("box")
+    Cx = d["C"] @ x
+    if not (np.all(Cx >= d["l"] - 100 * eps)
+            and np.all(Cx <= d["u"] + 100 * eps)):
+        out.append("rows")
+    grad = d["P"] @ x + d["q"] + d["C"].T @ y + mu
+    if float(np.abs(grad).max()) > 1000 * eps * max(
+            1.0, float(np.abs(d["q"]).max())):
+        out.append("stationarity")
+    return out
+
+
+def all_solved(status):
+    """Every lane of a batch's status SOLVED."""
+    return bool((status == 1).all())
+
+
+def launch_counts():
+    """Every fused-segment wrapper's launches of every form since the
+    last reset."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    return {f"{w.__name__}.{f}": getattr(w, f, 0)
+            for w in (admm_kernel.admm_segment,
+                      admm_kernel.admm_segment_factored)
+            for f in ("launches", "cluster_launches", "stream_launches",
+                      "tail_launches", "grid_launches", "global_launches")}
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Every fused segment of the solves inside runs the kernels' plain
+    twins (on the tensors' device) instead of the kernels."""
+    from porqua_tpu_torch.ops import admm_kernel
+
+    saved = (admm_kernel.admm_segment, admm_kernel.admm_segment_factored)
+    admm_kernel.admm_segment = admm_kernel.admm_segment_ref
+    admm_kernel.admm_segment_factored = admm_kernel.admm_segment_factored_ref
+    try:
+        yield
+    finally:
+        admm_kernel.admm_segment, admm_kernel.admm_segment_factored = saved
+
+
+def property_phase(rows, reset_counts, device="cuda"):
+    """Phase 18: the KKT and padding properties through every kernel
+    form (``PROPERTY_FORMS``); returns the kernel rows it adds. Per
+    form: the router's choice and the launches of that form alone (and
+    the dense cluster's rank count); every lane solved and holding KKT;
+    the padded batch, every lane solved, equal to within
+    ``PROPERTY_X_ATOL`` with its tail exactly 0, through the same form;
+    the solve against its plain twin's, every lane solved, in a run
+    that launched no kernel. Controls that must fail: a batch with one
+    lane at MAX_ITER as all solved, KKT on a lane's problem with another
+    lane's point, a padded tail with one non-zero entry, and the kernel
+    run's launches as a run of none."""
+    import numpy as np
+    import torch
+
+    import porqua_tpu_torch as pt
+    from porqua_tpu_torch.ops import admm_kernel
+    from porqua_tpu_torch.qp.admm import admm_init, segment_kernel_call
+    from porqua_tpu_torch.qp.solve import _prepare_impl
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    base_row = {"woodbury": ("woodbury", "cluster"),
+                "trinv": ("trinv", "cluster"),
+                "inverse": ("inverse", "cluster")}
+    dense_kind = {"trinv": "triangular", "inverse": "inverse"}
+    added, controls = [], []
+    for key, linsolve, want, ranks, shapes in PROPERTY_FORMS:
+        t0 = time.perf_counter()
+        factored = linsolve == "woodbury"
+        wrapper = (admm_kernel.admm_segment_factored if factored
+                   else admm_kernel.admm_segment)
+        for shape in shapes:
+            n, m = shape[:2]
+            got = (admm_kernel.factored_form(n, m, shape[2], 1,
+                                             batch=PROPERTY_DRAWS)
+                   if factored else
+                   admm_kernel.dense_form(n, m, linsolve == "trinv"))
+            if got == want:
+                break
+        k = shape[2] if factored else None
+        check(got == want, f"[{key}] the router sends {shape} to the {want}"
+              f" form ({got})")
+        if not factored and want == "cluster":
+            have = admm_kernel._library(
+                admm_kernel._DENSE_LIB).porqua_admm_dense_cluster_ranks(
+                    n, m, int(linsolve == "trinv"))
+            check(have == ranks, f"[{key}] the dense cluster at {shape} "
+                  f"runs on {ranks} ranks ({have})")
+        draws = [property_draw(PROPERTY_SEED + 100 * i + n, n, m, k)
+                 for i in range(PROPERTY_DRAWS)]
+
+        def batch(pad):
+            dn, dm = pad
+            return pt.qp.canonical.stack_qps([pt.CanonicalQP.build(
+                d["P"], d["q"], d["C"], d["l"], d["u"], d["lb"], d["ub"],
+                n_max=n + dn, m_max=m + dm, dtype=torch.float32, Pf=d["Pf"],
+                Pdiag=d["Pdiag"], device=dev) for d in draws])
+
+        prm = pt.SolverParams(backend="pallas", linsolve=linsolve,
+                              woodbury_refine=1, eps_abs=PROPERTY_EPS,
+                              eps_rel=PROPERTY_EPS,
+                              max_iter=PROPERTY_MAX_ITER, polish=False)
+        qp = batch((0, 0))
+        reset_counts()
+        sol = pt.solve_qp_batch(qp, prm, device=dev)
+        launches = {f: getattr(wrapper, f"{f}_launches", 0)
+                    for f in ("cluster", "stream", "tail", "grid", "global")}
+        n_launch = wrapper.launches
+        kernel_launches = launch_counts()
+        check(n_launch > 0 and launches[want] == n_launch,
+              f"[{key}] the solve launched the {want} form alone "
+              f"({n_launch} launches: {launches})")
+        status = sol.status.cpu().numpy()
+        iters = sol.iters.cpu().numpy()
+        x, y, mu = (t.double().cpu().numpy() for t in (sol.x, sol.y, sol.mu))
+        check(all_solved(status), f"[{key}] every lane SOLVED (status "
+              f"{status.tolist()}, iterations {iters.tolist()})")
+        stalled = status.copy()
+        stalled[0] = 2
+        controls.append((f"[{key}] a run with lane 0 at MAX_ITER has every "
+                         f"lane SOLVED", all_solved(stalled)))
+        bad = {i: kkt_violations(d, x[i], y[i], mu[i], PROPERTY_EPS)
+               for i, d in enumerate(draws)}
+        check(not any(bad.values()), f"[{key}] every lane holds KKT "
+              f"at eps {PROPERTY_EPS:g} ({bad})")
+        controls.append((f"[{key}] KKT of lane 0's problem at lane 1's "
+                         f"point", not kkt_violations(
+                             draws[0], x[1], y[1], mu[1], PROPERTY_EPS)))
+        scale = max(1.0, float(np.abs(x).max()))
+
+        def held(other, what):
+            """Every lane of ``other`` SOLVED and within PROPERTY_X_ATOL
+            of this run; both runs' iterations printed."""
+            o_status = other.status.cpu().numpy()
+            dx = float(np.abs(other.x.double().cpu().numpy()[:, :n]
+                              - x).max())
+            check(all_solved(o_status) and dx <= PROPERTY_X_ATOL * scale,
+                  f"[{key}] {what}: every lane SOLVED (status "
+                  f"{o_status.tolist()}), |dx| {dx:.3e} <= "
+                  f"{PROPERTY_X_ATOL:g} x {scale:.3g}; iterations "
+                  f"{iters.tolist()} and {other.iters.tolist()}")
+            return dx
+
+        # Padding neutrality, through the same form.
+        reset_counts()
+        pad = pt.solve_qp_batch(batch(PROPERTY_PAD), prm, device=dev)
+        pad_form = {f: getattr(wrapper, f"{f}_launches", 0)
+                    for f in launches}
+        check(pad_form[want] == wrapper.launches > 0,
+              f"[{key}] the padded batch ran the {want} form ({pad_form})")
+        dx_pad = held(pad, "padding is neutral")
+        tail = pad.x.double().cpu().numpy()[:, n:]
+        check(bool((tail == 0.0).all()), f"[{key}] the padded tail is "
+              f"exactly 0 on every lane (max |tail| "
+              f"{float(np.abs(tail).max()):.3e})")
+        bent = tail.copy()
+        bent[0, 0] = 1e-30
+        controls.append((f"[{key}] a padded tail with one entry 1e-30 is "
+                         f"exactly 0", bool((bent == 0.0).all())))
+        # The same solve through the plain twins, on the device; it
+        # launches no kernel of any form.
+        reset_counts()
+        with plain_twins():
+            twin = pt.solve_qp_batch(qp, prm, device=dev)
+        twin_launches = launch_counts()
+        check(not any(twin_launches.values()), f"[{key}] the plain twins' "
+              f"run launched no kernel ({twin_launches})")
+        controls.append((f"[{key}] the kernel run's launches read as a "
+                         f"run of no kernel",
+                         not any(kernel_launches.values())))
+        dx_twin = held(twin, "kernel vs plain twin")
+        print(f"property {key}: (n, m{', k' if factored else ''}) = "
+              f"{shape}, B = {PROPERTY_DRAWS}, {want} form; {n_launch} "
+              f"launches; iterations {iters.tolist()}; padded |dx| "
+              f"{dx_pad:.3e}; twin |dx| {dx_twin:.3e}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # The kernel row: this batch's first segment.
+        scaled = _prepare_impl(qp, prm)[0]
+        fn, args, kw = segment_kernel_call(admm_init(scaled, prm), scaled,
+                                           prm)
+        rname = (f"admm_segment_factored_{want}[refine=1], properties"
+                 if factored else f"admm_segment[{dense_kind[linsolve]}]_"
+                 f"{want}, properties")
+        kernel_row(rows, key, rname, base_row[linsolve], fn, args, kw,
+                   n_launch)
+        added.append(key)
+    for what, passed in controls:
+        check(not passed, f"[property control] {what}: must fail, and does")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return added
 
 
 def shadow_rule(lanes, golden, check_interval):
@@ -6046,6 +6475,12 @@ def main():
 
     # -- 16. the load drivers --------------------------------------------------
     kernel_rows += load_driver_phase(rows, reset_counts)
+
+    # -- 17. the fleet load generator ------------------------------------------
+    fleet_phase()
+
+    # -- 18. the properties through the kernels -------------------------------
+    kernel_rows += property_phase(rows, reset_counts)
 
     # -- report ----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -21,7 +21,10 @@ defaults, output text and JSON keys.
   cells) and :mod:`~porqua_tpu_torch.cli.calibration_smoke` (the
   calibration loop's promote, poison and rollback drills); each cell
   returns the JAX script's verdict dict, and a :class:`Tally` records
-  what it served where.
+  what it served where. :mod:`~porqua_tpu_torch.cli.fleet_loadgen`
+  spawns N worker processes, each a service on one shard of a seeded
+  arrival stream, and federates their telemetry into one reconciled
+  fleet report (worker liveness, the seeded worker-crash cell).
 * The analysis plane: :mod:`~porqua_tpu_torch.cli.run_checks` (the AST
   rules, the op-trace contracts and the op-trace lint) and
   :mod:`~porqua_tpu_torch.cli.hlolint_report` (the op-trace lint joined

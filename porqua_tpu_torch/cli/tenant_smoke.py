@@ -233,6 +233,11 @@ def run_tenant_cell(kind, mode="classic", seed=0, verbose=False, *,
         if installed:
             _faults.uninstall()
             installed = False
+        # The dispatch thread evaluates the tenants' SLOs too, and emits
+        # an alert (the flight recorder then builds its bundle) after it
+        # has counted it: stop the service first, so that every alert
+        # counted below has landed its bundle.
+        service.stop()
         tenant_slos.evaluate()
 
         snap = service.snapshot()

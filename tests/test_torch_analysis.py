@@ -97,10 +97,10 @@ def test_every_jax_example_has_a_port_counterpart():
 #: The JAX package's command-line tools and where each stands in the
 #: port: twins under ``porqua_tpu_torch/cli/``; left out, each group
 #: with its reason; still to port.
-CLI_PORTED = ("calibration_smoke", "chaos_suite", "harvest_report",
-              "hlolint_report", "incident_report", "obs_report",
-              "roofline_report", "run_checks", "serve_loadgen", "slo_smoke",
-              "tenant_smoke", "tsan_smoke")
+CLI_PORTED = ("calibration_smoke", "chaos_suite", "fleet_loadgen",
+              "harvest_report", "hlolint_report", "incident_report",
+              "obs_report", "roofline_report", "run_checks", "serve_loadgen",
+              "slo_smoke", "tenant_smoke", "tsan_smoke")
 CLI_LEFT_OUT = {
     # TPU measurement, profiling and queue scripts, and the LAD
     # experiments: each measured the JAX package on its chip.
@@ -111,7 +111,7 @@ CLI_LEFT_OUT = {
     # they belong with the port's own benchmark, still to come.
     "benchmark": ("bench_gate", "trend_report"),
 }
-CLI_TO_PORT = ("fleet_loadgen",)
+CLI_TO_PORT = ()
 
 
 def test_every_jax_script_has_a_port_counterpart():

@@ -292,7 +292,7 @@ def test_port_imports_no_jax():
         "import contextlib, io\n"
         "from porqua_tpu_torch import cli\n"
         "clis = sorted(m.name for m in pkgutil.iter_modules(cli.__path__))\n"
-        "assert len(clis) == 12 and all('porqua_tpu_torch.cli.' + c in "
+        "assert len(clis) == 13 and all('porqua_tpu_torch.cli.' + c in "
         "sys.modules for c in clis), clis\n"
         "for c, flag in (('incident_report', '--selftest'), "
         "('harvest_report', '--selftest'), ('obs_report', '--selftest'), "
